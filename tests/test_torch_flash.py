@@ -1,0 +1,131 @@
+"""The port's flash attention (plain ``torch`` arm, on the CPU) held
+against the JAX package's lowerings on the parity matrix's own inputs,
+at the parity harness's tolerances (fp32 2e-5, bf16 2e-2)."""
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+# the scenario modes this slice ports: dense, causal, segment ids, both
+# layouts (mask programs wait for the schedule slice)
+PORTED = ("dense", "causal", "segments", "causal_segments", "bthd_layout")
+
+
+def _scenarios():
+    from tosem_tpu.ops import parity
+    return [sc for sc in parity.scenarios("flash") if sc.name in PORTED]
+
+
+def _ids(sc):
+    return f"{sc.name}:{sc.dtype}"
+
+
+def to_torch(x):
+    from tosem_tpu_torch.models.convert import array_to_tensor
+    return array_to_tensor(np.asarray(x))
+
+
+def _port_args(args, kwargs):
+    from tosem_tpu_torch.ops.flash_attention import SegmentIds
+    q, k, v = (to_torch(a) for a in args)
+    seg = kwargs.get("segment_ids")
+    if seg is not None:
+        seg = SegmentIds(to_torch(seg.q), to_torch(seg.kv))
+    return q, k, v, dict(causal=bool(kwargs.get("causal")),
+                         segment_ids=seg,
+                         layout=kwargs.get("layout", "bhtd"))
+
+
+def _run_port(sc):
+    from tosem_tpu.ops import parity
+    from tosem_tpu_torch.ops.flash_attention import flash_attention
+    args, kwargs = parity.build_case(sc)
+    q, k, v, kw = _port_args(args, kwargs)
+    return flash_attention(q, k, v, backend="torch", **kw).float().numpy()
+
+
+@pytest.mark.parametrize("sc", _scenarios(), ids=_ids)
+def test_plain_arm_matches_reference_xla(sc):
+    from tosem_tpu.ops import parity
+    ref = parity._run_cell("flash", "xla", sc, 0)
+    got = _run_port(sc)
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= parity.TOLERANCES["flash"][sc.dtype]
+
+
+@pytest.mark.parametrize("sc", _scenarios(), ids=_ids)
+def test_plain_arm_matches_numpy_oracle(sc):
+    from tosem_tpu.ops import parity
+    args, kwargs = parity.build_case(sc)
+    ref = parity._dense_mask_oracle(args[0], args[1], args[2], kwargs)
+    got = _run_port(sc)
+    assert np.abs(got - ref).max() <= parity.TOLERANCES["flash"][sc.dtype]
+
+
+@pytest.mark.parametrize("name", ["causal_segments", "bthd_layout"])
+def test_plain_arm_matches_reference_pallas_interpret(name):
+    from tosem_tpu.ops import parity
+    sc = next(s for s in _scenarios() if s.name == name)
+    ref = parity._run_cell("flash", "pallas-interpret", sc, 0)
+    got = _run_port(sc)
+    assert np.abs(got - ref).max() <= parity.TOLERANCES["flash"][sc.dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["dense", "causal", "segments"])
+def test_ragged_lengths_match_reference_xla(mode, dtype):
+    """Tq and Tk that tile nothing: the kernel masks its edge itself."""
+    import importlib
+
+    import jax.numpy as jnp
+    from tosem_tpu.ops import parity
+    ref_fa = importlib.import_module("tosem_tpu.ops.flash_attention")
+    from tosem_tpu_torch.ops.flash_attention import (SegmentIds,
+                                                     flash_attention)
+    rng = np.random.default_rng(7)
+    B, H, Tq, Tk, D = 2, 3, 45, 71, 16
+    qn, kn, vn = (rng.standard_normal((B, T, H, D)).astype(np.float32)
+                  for T in (Tq, Tk, Tk))
+    jdt = jnp.dtype(dtype)
+    causal = mode == "causal"
+    seg_ref = seg_port = None
+    if mode == "segments":
+        sq = np.ones((B, Tq), np.int32)
+        sk = (rng.random((B, Tk)) < 0.8).astype(np.int32)
+        sk[:, 0] = 1
+        seg_ref = ref_fa.SegmentIds(jnp.asarray(sq), jnp.asarray(sk))
+        seg_port = SegmentIds(torch.from_numpy(sq), torch.from_numpy(sk))
+    ref = ref_fa.flash_attention(
+        *(jnp.asarray(x).astype(jdt) for x in (qn, kn, vn)), causal=causal,
+        segment_ids=seg_ref, layout="bthd", backend="xla")
+    ref = np.asarray(ref.astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    got = flash_attention(*(torch.from_numpy(x).to(tdt) for x in (qn, kn, vn)),
+                          causal=causal, segment_ids=seg_port, layout="bthd")
+    assert np.abs(got.float().numpy() - ref).max() \
+        <= parity.TOLERANCES["flash"][dtype]
+
+
+def test_lse_is_the_log_normaliser():
+    from tosem_tpu_torch.ops.flash_attention import flash_attention
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 24, 16, generator=g) for _ in range(3))
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) / 4.0
+    s = s.masked_fill(~torch.tril(torch.ones(24, 24, dtype=torch.bool)),
+                      float("-inf"))
+    assert lse.shape == (1, 2, 24) and lse.dtype == torch.float32
+    assert torch.allclose(lse, torch.logsumexp(s, -1), atol=1e-5)
+
+
+def test_wrapper_rejects_what_it_does_not_take():
+    from tosem_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     mha_flash_attention)
+    q = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q, layout="btdh")
+    with pytest.raises(ValueError):
+        mha_flash_attention(q, q, q, mask=torch.ones(1, 1, 8, 8))
+    with pytest.raises(ValueError):
+        flash_attention(q[0], q[0], q[0])
