@@ -19,11 +19,14 @@ Phases, each printing one JSON line:
               prompt that hits the prefix cache, whose stream must equal
               its cold stream with the prefix cache off.
 4. encode   — one padded BERT-base batch through ``BertEncodeBackend``.
-5. cpu      — one short prompt through the port on the card and on the
-              CPU with the same weights; first-step logits must agree.
-6. profile  — a torch.profiler breakdown of decode steps, a prefill and
-              an encode batch: the device's busy share of the wall time
-              and the kernels that take the most of it.
+5. cpu      — three short prompts through the port on the card and on
+              the CPU with the same weights; first-step logits must agree.
+              Two yardsticks beside them: the card's bf16 logits against
+              the CPU's fp32 ones, and a deliberately wrong CPU model.
+6. profile  — decode steps, a prefill and an encode batch, each timed
+              on the host clock without the profiler and then traced
+              under torch.profiler: the device time the trace sees over
+              the unprofiled wall time is the device's busy share.
 
 ``--phases`` picks a subset (default: all six), e.g. ``build,kernels``
 for a first call after a kernel change.
@@ -370,7 +373,7 @@ def phase_encode(dev, seed):
     lens = [int(n) for n in rng.integers(30, 501, size=8)]
     reqs = [{"ids": [int(t) for t in rng.integers(0, be.cfg.vocab_size,
                                                   size=n)]} for n in lens]
-    be.call_batch(reqs[:1])                     # builds the bucket callable
+    be.call_batch(reqs)          # first call: cuBLAS and allocator set-up
     torch.cuda.synchronize()
     registry.reset_launch_counts()
     t0 = time.perf_counter()
@@ -388,43 +391,73 @@ def phase_encode(dev, seed):
     return counts
 
 
-def phase_cpu(dev, seed):
+def phase_cpu(dev, seed, prompts=3):
+    """The card against the CPU on the same weights: first-step logits of
+    ``prompts`` 24-token prompts, fp32 and bf16. Two yardsticks read in
+    the same run: the card's bf16 logits against the CPU's fp32 ones
+    (bf16 rounding alone; the bf16 weights are the fp32 ones rounded),
+    and a deliberately wrong CPU model, its layer-0 query projection
+    scaled by 1.1 (a 10% softmax-temperature error in one layer of
+    twelve), against the card on the first prompt."""
     import numpy as np
     import torch
     from tosem_tpu_torch.models.bert import Bert, BertConfig
     torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
-    rng = np.random.default_rng(seed + 2)
-    ids = torch.as_tensor(rng.integers(0, 30522, size=(1, 24)),
-                          dtype=torch.int32)
-    mask = torch.ones_like(ids)
-    worst, scale, same = {}, {}, {}
-    for dtype in ("bfloat16", "float32"):
-        cfg = BertConfig(dtype=dtype)
-        logits = {}
+    ids = [torch.as_tensor(np.random.default_rng(seed + 2 + i).integers(
+        0, 30522, size=(1, 24)), dtype=torch.int32) for i in range(prompts)]
+    mask = torch.ones_like(ids[0])
+
+    def first_logits(m, x):
+        lg, _, _ = m.prefill_fn()(x.to(m.device), mask.to(m.device))
+        return lg[0, -1].float().cpu()
+
+    def gap(a, b):
+        return (a - b).abs().max().item()
+
+    lg = {}
+    for dtype in ("float32", "bfloat16"):
         for where in (dev, "cpu"):
-            m = Bert(cfg, device=where, seed=seed)
-            lg, _, _ = m.prefill_fn()(ids.to(m.device), mask.to(m.device))
-            logits[where] = lg[0, -1].float().cpu()
-            del m
-        worst[dtype] = (logits[dev] - logits["cpu"]).abs().max().item()
-        scale[dtype] = logits["cpu"].abs().max().item()
-        same[dtype] = int(logits[dev].argmax()) == int(logits["cpu"].argmax())
-        check(torch.isfinite(logits[dev]).all().item(), "non-finite logits")
-    # fp32 is held to 1e-3 absolute; bf16 rounds every layer's output
-    # (12 layers, other summation orders on each device), so it is held
-    # to 2e-2 relative to the largest logit
-    check(worst["float32"] <= 1e-3,
-          f"fp32 cuda vs cpu first-step logits differ: {worst}")
-    check(worst["bfloat16"] <= 2e-2 * max(1.0, scale["bfloat16"]),
-          f"bf16 cuda vs cpu first-step logits differ: {worst}, "
+            m = Bert(BertConfig(dtype=dtype), device=where, seed=seed)
+            lg[dtype, where] = [first_logits(m, x) for x in ids]
+        with torch.no_grad():
+            m.layers[0].attn.q.w.mul_(1.1)
+        lg[dtype, "wrong"] = first_logits(m, ids[0])
+        del m
+    dts = ("float32", "bfloat16")
+    sound = {dt: [gap(c, h) for c, h in zip(lg[dt, dev], lg[dt, "cpu"])]
+             for dt in dts}
+    scale = {dt: max(h.abs().max().item() for h in lg[dt, "cpu"])
+             for dt in dts}
+    wrong = {dt: gap(lg[dt, dev][0], lg[dt, "wrong"]) for dt in dts}
+    rounding = [gap(c, h) for c, h in zip(lg["bfloat16", dev],
+                                          lg["float32", "cpu"])]
+    same = {dt: [int(c.argmax()) == int(h.argmax())
+                 for c, h in zip(lg[dt, dev], lg[dt, "cpu"])] for dt in dts}
+    for dt in dts:
+        check(all(torch.isfinite(c).all().item() for c in lg[dt, dev]),
+              f"non-finite {dt} logits on the card")
+    # fp32 is held to 1e-3 absolute, and the wrong model must break it;
+    # bf16 rounds every layer's output (12 layers, other summation orders
+    # on each device), so it is held to 2e-2 of the largest logit
+    check(max(sound["float32"]) <= 1e-3,
+          f"fp32 cuda vs cpu first-step logits differ: {sound}")
+    check(wrong["float32"] > 1e-3,
+          f"the fp32 check cannot see the wrong model: {wrong}")
+    check(max(sound["bfloat16"]) <= 2e-2 * max(1.0, scale["bfloat16"]),
+          f"bf16 cuda vs cpu first-step logits differ: {sound}, "
           f"largest logit {scale}")
-    emit({"phase": "cpu", "prompt_len": 24, "max_abs_diff": worst,
-          "max_abs_logit": scale, "same_argmax": same})
+    emit({"phase": "cpu", "prompt_len": 24, "prompts": prompts,
+          "max_abs_diff": sound, "max_abs_logit": scale,
+          "bf16_limit": 2e-2 * max(1.0, scale["bfloat16"]),
+          "card_bf16_vs_cpu_fp32": rounding,
+          "wrong_model_vs_card": wrong, "same_argmax": same})
 
 
-def _device_breakdown(prof, wall_ms, n, top=8):
-    """Kernel time per iteration from a profiler trace: the device's busy
-    share of the wall time, and the kernels that took most of it."""
+def _device_breakdown(prof, wall_ms, traced_ms, n, top=8):
+    """Device time per iteration from a profiler trace, over the wall
+    time of ``n`` iterations run without the profiler (``wall_ms``) and
+    under it (``traced_ms``): the device's busy share of the unprofiled
+    wall time, and the kernels that took most of the device time."""
     import collections
 
     import torch
@@ -433,15 +466,29 @@ def _device_breakdown(prof, wall_ms, n, top=8):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per[e.name] += e.time_range.elapsed_us() / 1e3 / n
     busy = sum(per.values())
-    return {"wall_ms": wall_ms / n, "device_ms": busy,
-            "device_busy_share": busy / (wall_ms / n),
+    return {"wall_ms": wall_ms / n, "traced_wall_ms": traced_ms / n,
+            "device_ms": busy, "device_busy_share": busy / (wall_ms / n),
             "top": [[name[:80], ms] for name, ms in per.most_common(top)]}
 
 
+def _timed(fn, prof=None):
+    """Host-clock ms of ``fn()`` up to a device sync, optionally traced."""
+    import contextlib
+
+    import torch
+    with prof if prof is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+
 def phase_profile(dev, seed, steps=5):
-    """Where the time goes: a torch.profiler trace over decode steps of
-    8 packed sequences, over one 384-token prefill and over one padded
-    encode batch."""
+    """Where the time goes, over decode steps of 8 packed sequences, a
+    384-token prefill and a padded encode batch. Each is run once without
+    the profiler for its wall time, then once more under it for its
+    device time: the next ``steps`` decode steps (a token longer each),
+    another 384-token prompt, the same encode batch."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -449,38 +496,38 @@ def phase_profile(dev, seed, steps=5):
                                                 BertEncodeBackend)
     rng = np.random.default_rng(seed)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def rand_ids(n):
+        return [int(t) for t in rng.integers(0, 30522, int(n))]
+
     be = BertDecodeBackend(preset="base", max_batch=8, num_pages=64,
-                           max_new_tokens=steps + 4, device=dev, seed=seed)
+                           max_new_tokens=2 * steps + 4, device=dev,
+                           seed=seed)
     for i in range(8):
-        n = int(rng.integers(100, 401))
-        be.admit(i, {"ids": [int(t) for t in rng.integers(0, 30522, n)]})
+        be.admit(i, {"ids": rand_ids(rng.integers(100, 401))})
     be.step_batch(list(range(8)), [0] * 8)
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for k in range(1, steps + 1):
+
+    def run_steps(first):
+        for k in range(first, first + steps):
             be.step_batch(list(range(8)), [k] * 8)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    decode = _device_breakdown(prof, wall, steps)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        be.admit("p", {"ids": [int(t) for t in rng.integers(0, 30522, 384)]})
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    prefill = _device_breakdown(prof, wall, 1)
+    wall = _timed(lambda: run_steps(1))
+    prof = profile(activities=acts)
+    traced = _timed(lambda: run_steps(1 + steps), prof)
+    decode = _device_breakdown(prof, wall, traced, steps)
+    wall = _timed(lambda: be.admit("p0", {"ids": rand_ids(384)}))
+    prof = profile(activities=acts)
+    traced = _timed(lambda: be.admit("p1", {"ids": rand_ids(384)}), prof)
+    prefill = _device_breakdown(prof, wall, traced, 1)
     del be
     enc = BertEncodeBackend(preset="base", max_batch=8, device=dev, seed=seed)
-    reqs = [{"ids": [int(t) for t in rng.integers(0, 30522, int(n))]}
-            for n in rng.integers(30, 501, size=8)]
+    reqs = [{"ids": rand_ids(n)} for n in rng.integers(30, 501, size=8)]
     enc.call_batch(reqs)
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        enc.call_batch(reqs)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    encode = _device_breakdown(prof, wall, 1)
+    wall = _timed(lambda: enc.call_batch(reqs))
+    prof = profile(activities=acts)
+    traced = _timed(lambda: enc.call_batch(reqs), prof)
+    encode = _device_breakdown(prof, wall, traced, 1)
     emit({"phase": "profile", "decode_step": decode,
           "prefill_384": prefill, "encode_batch": encode})
 

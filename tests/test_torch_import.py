@@ -79,10 +79,34 @@ def test_cuda_tensor_never_resolves_to_the_plain_version():
         registry.resolve("flash", "torch", platform="cuda")
     with pytest.raises(registry.BackendUnavailable):
         registry.resolve("paged", "cuda", platform="cpu")
-    assert registry.resolve("paged", platform="cuda").backend == "cuda"
-    assert registry.resolve("flash", platform="cpu").backend == "torch"
+    assert registry.resolve("paged", platform="cuda") == "cuda"
+    assert registry.resolve("flash", platform="cpu") == "torch"
     with pytest.raises(registry.BackendUnavailable):
         registry.resolve("flash", platform="cuda", dtype="float16")
+
+
+@pytest.mark.parametrize("family", ["flash", "paged"])
+@pytest.mark.parametrize("backend,platform,dtype,served", [
+    (None, "cuda", "bfloat16", "cuda"), (None, "cuda", "float32", "cuda"),
+    ("cuda", "cuda", None, "cuda"), (None, "cpu", "float16", "torch"),
+    ("torch", "cpu", "bfloat16", "torch"),
+    ("torch", "cuda", "bfloat16", None), ("cuda", "cpu", "float32", None),
+    (None, "cuda", "float64", None), ("xla", "cpu", None, None)])
+def test_resolve_decides_by_platform_and_dtype_alone(family, backend,
+                                                     platform, dtype, served):
+    from tosem_tpu_torch.ops import registry
+    if served is None:
+        with pytest.raises(registry.BackendUnavailable):
+            registry.resolve(family, backend, platform=platform, dtype=dtype)
+    else:
+        assert registry.resolve(family, backend, platform=platform,
+                                dtype=dtype) == served
+
+
+def test_resolve_rejects_an_unknown_family():
+    from tosem_tpu_torch.ops import registry
+    with pytest.raises(ValueError, match="family"):
+        registry.resolve("norms", platform="cpu")
 
 
 def test_kernel_sources_name_the_tpu_kernel_they_replace():

@@ -162,6 +162,87 @@ def test_pool_pressure_raises_and_allocates_nothing():
     assert b.cache.stats()["pages_used"] == 0
 
 
+def _tree(kind, seed):
+    """The JAX-package parameter tree of a tiny backend at ``seed``."""
+    from tosem_tpu.serve.backends import BertDecodeBackend as JDec
+    from tosem_tpu.serve.backends import BertEncodeBackend as JEnc
+    ref = JDec(seed=seed, **DEC) if kind == "decode" else \
+        JEnc(seed=seed, max_batch=2)
+    return _params(ref)
+
+
+def _served_logits(kind, be):
+    """Logits through the backend's cached step callables, next to the
+    same call on the backend's own model."""
+    from tosem_tpu_torch.models.bert import pad_ids_batch
+    from tosem_tpu_torch.nn.attention import flash_attn_fn
+    prompt = [int(t) for t in np.random.default_rng(3).integers(0, 128, 20)]
+    # 32 = the decode bucket of 20 tokens at page 16, and the encode pad
+    ids, mask, _ = pad_ids_batch([prompt], 32, pad_batch_to=be.max_batch)
+    ids, mask = torch.as_tensor(ids), torch.as_tensor(mask)
+    if kind == "decode":
+        be.cache.create("x")
+        be.cache.extend("x", len(prompt))
+        got = be._prefill_into_cache("x", prompt)
+        own = be.model.prefill_fn()(ids[:1], mask[:1])[0][0, 19]
+    else:
+        got = be.call_batch([{"ids": prompt}], pad_to=32)[0]["pooled"]
+        own = be.model.encode_fn(attn_fn=flash_attn_fn())(ids, mask)
+        own = own[0, :20].float().mean(0)
+    return got, own.float().numpy()
+
+
+@pytest.mark.parametrize("kind", ["decode", "encode"])
+def test_backends_never_share_step_callables(kind):
+    """Two backends built in turn from different parameter trees run
+    their own weights through their cached steps, even when the caller
+    hands both trees over in one dict object (refilled in between), so
+    nothing about the argument can tell them apart."""
+    from tosem_tpu_torch.serve.backends import (BertDecodeBackend,
+                                                BertEncodeBackend)
+    params = {}
+
+    def make(seed):
+        params.clear()
+        params.update(_tree(kind, seed))
+        if kind == "decode":
+            return BertDecodeBackend(device="cpu", params=params,
+                                     prefix_cache=False, **DEC)
+        return BertEncodeBackend(max_batch=2, device="cpu", params=params)
+    first = make(1)
+    got_a, own_a = _served_logits(kind, first)
+    second = make(2)
+    got_b, own_b = _served_logits(kind, second)
+    np.testing.assert_array_equal(got_a, own_a)
+    np.testing.assert_array_equal(got_b, own_b)
+    assert not np.allclose(got_a, got_b, atol=1e-3)
+    for be in (first, second):
+        if kind == "decode":
+            assert be._step_compiled() is be._step
+        else:
+            assert be._compiled(32) is be._fwd
+
+
+@pytest.mark.parametrize("kind", ["decode", "encode"])
+def test_dropped_backend_frees_its_model(kind):
+    import gc
+    import weakref
+
+    from tosem_tpu_torch.serve.backends import (BertDecodeBackend,
+                                                BertEncodeBackend)
+    if kind == "decode":
+        be = BertDecodeBackend(device="cpu", **DEC)
+        be.call({"ids": SHARED + [7], "max_new_tokens": 2})
+    else:
+        be = BertEncodeBackend(max_batch=2, device="cpu")
+        be.call({"ids": [5, 6, 7]})
+    assert be.stats()["compile_cache"]["entries"] >= 1
+    model = weakref.ref(be.model)
+    del be
+    gc.collect()
+    assert model() is None
+
+
 @pytest.mark.parametrize("kw,req", [
     ({"window": 8}, None), ({"spec_k": 3}, None),
     ({}, {"ids": [1, 2], "n": 2}), ({}, {"ids": [1, 2], "session": "s"})])

@@ -1,7 +1,7 @@
 """The port's framework-neutral serving caches held against the JAX
-package's: the prefix cache over each package's paged KV cache, and the
-step-callable cache with its keys. The same sequence of operations gives
-the same entries, hits, evictions and page refcounts on both."""
+package's: the prefix cache over each package's paged KV cache (the same
+sequence of operations gives the same entries, hits, evictions and page
+refcounts on both), and the step-callable cache keys."""
 import dataclasses
 
 import pytest
@@ -104,42 +104,23 @@ def _tags(pkg):
     return {"m1": one, "m1s": one + ";step", "m2": two, "m3": three}
 
 
-# (op, model, bucket) with a budget of 3 entries
-CC_OPS = [("build", "m1", 128), ("build", "m1s", 1), ("build", "m2", 128),
-          ("build", "m1", 128),                       # hit
-          ("pin", "m1", None), ("build", "m3", 256),  # evicts m2, not m1
-          ("get", "m2", 128), ("evict", "m1", None),  # refused: pinned
-          ("unpin", "m1", None), ("build", "m2", 256),
-          ("evict", "m3", None), ("clear", None, None)]
+@pytest.mark.parametrize("shape", [(4, 128), (1, 6, 16, 64)])
+@pytest.mark.parametrize("model", ["m1", "m1s", "m2", "m3"])
+def test_shape_keys_match_the_reference(model, shape):
+    from tosem_tpu.serve.compile_cache import shape_key as j_key
+    from tosem_tpu_torch.serve.compile_cache import shape_key
+    ref, port = _tags("ref"), _tags("port")
+    assert port[model] == ref[model]
+    assert shape_key(port[model], shape, "bfloat16") == \
+        j_key(ref[model], shape, "bfloat16")
 
 
-def _cc_run(mod, tags, ops):
-    """Drive one package's compile-cache module through ``ops``."""
-    cc = mod.CompileCache(budget=3)
-    shape_key, _model_of = mod.shape_key, mod._model_of
-    out = []
-    for op, m, bucket in ops:
-        key = shape_key(tags[m], (4, bucket), "bfloat16") if bucket else None
-        if op == "build":
-            out.append(cc.get_or_build(key, lambda k=key: ("built", k)))
-        elif op == "get":
-            out.append(cc.get(key))
-        elif op == "pin":
-            cc.pin(_model_of(tags[m]), owner="r0")
-        elif op == "unpin":
-            cc.unpin(_model_of(tags[m]), owner="r0")
-        elif op == "evict":
-            out.append(cc.evict_model(_model_of(tags[m])))
-        else:
-            cc.clear()
-    stats = {k: v for k, v in cc.stats().items() if k != "build_s"}
-    return out, stats, sorted(map(repr, cc._entries)), cc.pinned_models()
-
-
-@pytest.mark.parametrize("n", list(range(1, len(CC_OPS) + 1)))
-def test_compile_cache_same_state_after_each_operation(n):
-    from tosem_tpu.serve import compile_cache as ref
-    from tosem_tpu_torch.serve import compile_cache as port
-    tags = _tags("port")
-    assert tags == _tags("ref")
-    assert _cc_run(port, tags, CC_OPS[:n]) == _cc_run(ref, tags, CC_OPS[:n])
+def test_step_cache_builds_each_key_once():
+    from tosem_tpu_torch.serve.compile_cache import StepCache, shape_key
+    cache, built = StepCache(), []
+    keys = [shape_key("m", (1, n), "float32") for n in (16, 32, 16, 16)]
+    got = [cache.get_or_build(k, lambda k=k: built.append(k) or k[1])
+           for k in keys]
+    assert got == [(1, 16), (1, 32), (1, 16), (1, 16)]
+    assert built == keys[:2] and len(cache) == 2 and keys[1] in cache
+    assert cache.stats() == {"entries": 2, "hits": 2, "misses": 2}

@@ -166,20 +166,12 @@ def flash_attention(q, k, v, sm_scale: Optional[float] = None,
         raise ValueError(f"unknown layout {layout!r}")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention takes 4-D q, k, v")
-    feats = set()
-    if causal:
-        feats.add("causal")
-    if segment_ids is not None:
-        feats.add("segments")
-    if layout == "bthd":
-        feats.add("layout_bthd")
-    entry = registry.resolve("flash", backend,
-                             platform=registry.platform_of(q),
-                             dtype=registry.dtype_name(q.dtype),
-                             features=frozenset(feats))
+    served = registry.resolve("flash", backend,
+                              platform=registry.platform_of(q),
+                              dtype=registry.dtype_name(q.dtype))
     d = q.shape[-1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    if entry.backend == registry.BACKEND_CUDA:
+    if served == registry.BACKEND_CUDA:
         out, lse = _flash_fwd_cuda(q, k, v, segment_ids, causal, scale,
                                    layout)
     else:

@@ -245,18 +245,10 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
-    feats = set()
-    if multi:
-        feats.add("multi_query")
-    if window is not None:
-        feats.add("window")
-    if page_offsets is not None:
-        feats.add("page_offsets")
-    entry = registry.resolve("paged", backend,
-                             platform=registry.platform_of(q),
-                             dtype=registry.dtype_name(q.dtype),
-                             features=frozenset(feats))
-    if entry.backend == registry.BACKEND_TORCH:
+    served = registry.resolve("paged", backend,
+                              platform=registry.platform_of(q),
+                              dtype=registry.dtype_name(q.dtype))
+    if served == registry.BACKEND_TORCH:
         return _paged_plain(q, k_pages, v_pages, block_tables, seq_lens,
                             scale, q_rows, window, page_offsets)
     general = multi or window is not None or page_offsets is not None \

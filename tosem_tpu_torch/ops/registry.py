@@ -4,14 +4,15 @@ each kernel launched.
 Two kernel families, each with two backends:
 
 - ``cuda`` — the hand-written CUDA C++ kernel for ``sm_90a``
-  (``ops/csrc``). Runs on CUDA tensors only.
+  (``ops/csrc``). Runs on CUDA tensors only, in fp32 or bf16.
 - ``torch`` — the plain PyTorch version of the same computation. Runs on
   CPU tensors only: it is what the CPU tests exercise and what
   ``chip_smoke.py`` holds each kernel against on the card.
 
-The platform is the device of the operands, so resolution is strict: a
-CUDA tensor resolves to ``cuda`` or raises :class:`BackendUnavailable`,
-and nothing falls back silently to the plain version. The one counted
+Each backend of a family takes every mode of it, so the platform of the
+operands and their dtype decide everything. Resolution is strict: a CUDA
+tensor resolves to ``cuda`` or raises :class:`BackendUnavailable`, and
+nothing falls back silently to the plain version. The one counted
 fallback left is in :func:`tosem_tpu_torch.nn.attention.flash_attn_fn`,
 for dense masks that no kernel mode covers (:data:`FALLBACK_COUNTS`).
 
@@ -21,13 +22,16 @@ adds one where it launches its kernel and nowhere else.
 from __future__ import annotations
 
 import collections
-from dataclasses import dataclass
-from typing import Dict, FrozenSet, Optional, Tuple
+from typing import Dict, Optional
 
 FAMILIES = ("flash", "paged")
 
 BACKEND_CUDA = "cuda"
 BACKEND_TORCH = "torch"
+
+# backend -> the one platform it runs on
+_PLATFORM = {BACKEND_CUDA: "cuda", BACKEND_TORCH: "cpu"}
+_CUDA_DTYPES = ("float32", "bfloat16")
 
 # kernel name -> launches since the last reset
 LAUNCH_COUNTS: Dict[str, int] = {"flash_fwd": 0, "paged_decode": 0,
@@ -41,62 +45,10 @@ class BackendUnavailable(ValueError):
     """No registered lowering can serve the request."""
 
 
-@dataclass(frozen=True)
-class Capabilities:
-    """What a lowering can run: the platforms it executes on, its operand
-    dtypes (None = any) and its optional kernel modes."""
-    platforms: Tuple[str, ...]
-    dtypes: Optional[Tuple[str, ...]] = None
-    features: FrozenSet[str] = frozenset()
-
-    def supports(self, platform: str, dtype: Optional[str],
-                 features: FrozenSet[str]) -> bool:
-        if platform not in self.platforms:
-            return False
-        if (self.dtypes is not None and dtype is not None
-                and dtype not in self.dtypes):
-            return False
-        return features <= self.features
-
-
-@dataclass(frozen=True)
-class Lowering:
-    family: str
-    backend: str
-    caps: Capabilities
-
-
-_FLASH_FEATURES = frozenset({"causal", "segments", "layout_bthd"})
-_PAGED_FEATURES = frozenset({"window", "multi_query", "page_offsets"})
-_KERNEL_DTYPES = ("float32", "bfloat16")
-
-_ENTRIES: Dict[str, Dict[str, Lowering]] = {
-    "flash": {
-        BACKEND_CUDA: Lowering("flash", BACKEND_CUDA, Capabilities(
-            ("cuda",), _KERNEL_DTYPES, _FLASH_FEATURES)),
-        BACKEND_TORCH: Lowering("flash", BACKEND_TORCH, Capabilities(
-            ("cpu",), None, _FLASH_FEATURES)),
-    },
-    "paged": {
-        BACKEND_CUDA: Lowering("paged", BACKEND_CUDA, Capabilities(
-            ("cuda",), _KERNEL_DTYPES, _PAGED_FEATURES)),
-        BACKEND_TORCH: Lowering("paged", BACKEND_TORCH, Capabilities(
-            ("cpu",), None, _PAGED_FEATURES)),
-    },
-}
-
-
-def lowerings(family: str) -> Dict[str, Lowering]:
-    if family not in _ENTRIES:
-        raise ValueError(f"unknown kernel family {family!r}; expected "
-                         f"one of {FAMILIES}")
-    return dict(_ENTRIES[family])
-
-
 def platform_of(tensor) -> str:
     """``"cuda"`` or ``"cpu"``: where a tensor's kernels must run."""
     kind = tensor.device.type
-    if kind not in ("cuda", "cpu"):
+    if kind not in _PLATFORM.values():
         raise BackendUnavailable(f"no kernels for device type {kind!r}")
     return kind
 
@@ -106,26 +58,29 @@ def dtype_name(dtype) -> str:
 
 
 def resolve(family: str, backend: Optional[str] = None, *,
-            platform: str, dtype: Optional[str] = None,
-            features: FrozenSet[str] = frozenset()) -> Lowering:
-    """The lowering that serves this call. With no ``backend`` it is the
+            platform: str, dtype: Optional[str] = None) -> str:
+    """The backend that serves this call. With no ``backend`` it is the
     platform's own (``cuda`` for CUDA tensors, ``torch`` for CPU
-    tensors); an explicit ``backend`` must be able to serve, or this
+    tensors); an explicit ``backend`` must run on ``platform``, or this
     raises. Never falls back."""
-    entries = lowerings(family)
-    features = frozenset(features)
+    if family not in FAMILIES:
+        raise ValueError(f"unknown kernel family {family!r}; expected "
+                         f"one of {FAMILIES}")
     if backend is None:
         backend = BACKEND_CUDA if platform == "cuda" else BACKEND_TORCH
-    entry = entries.get(backend)
-    if entry is None:
+    if backend not in _PLATFORM:
         raise BackendUnavailable(
             f"unknown {family} backend {backend!r}; expected one of "
-            f"{sorted(entries)}")
-    if not entry.caps.supports(platform, dtype, features):
+            f"{sorted(_PLATFORM)}")
+    if _PLATFORM[backend] != platform:
         raise BackendUnavailable(
-            f"{family}:{backend} cannot serve platform={platform} "
-            f"dtype={dtype} features={sorted(features)}")
-    return entry
+            f"{family}:{backend} runs on {_PLATFORM[backend]} tensors, "
+            f"not {platform}")
+    if (backend == BACKEND_CUDA and dtype is not None
+            and dtype not in _CUDA_DTYPES):
+        raise BackendUnavailable(
+            f"{family}:{backend} takes {_CUDA_DTYPES}, not {dtype}")
+    return backend
 
 
 def reset_launch_counts() -> None:

@@ -1,2 +1,2 @@
-"""Serving: paged KV cache, prefix cache, step-callable cache and the
+"""Serving: paged KV cache, prefix cache, step-callable keys and the
 BERT encode/decode backends."""

@@ -34,8 +34,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from tosem_tpu_torch.serve.compile_cache import (DEFAULT_COMPILE_CACHE,
-                                                 shape_key)
+from tosem_tpu_torch.serve.compile_cache import StepCache, shape_key
 
 # bucket granularity of padded encode batches (one cached callable per
 # bucket); the flash kernel itself takes any length
@@ -43,8 +42,9 @@ FLASH_ALIGN = 128
 
 
 def model_tag(name: str, cfg: Any, seed: int, **extra: Any) -> str:
-    """Cache-key fingerprint of a model's step callables: everything that
-    changes what they compute (config, weights, device, routing flags)."""
+    """Cache-key fingerprint of a model's step callables (config, seed,
+    routing flags), the JAX package's own. Keys stay inside one backend's
+    :class:`StepCache`, so the weights need no name in them."""
     fields = (dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg)
               else dict(vars(cfg)))
     sig = ",".join(f"{k}={fields[k]}" for k in sorted(fields))
@@ -57,20 +57,21 @@ def _not_ported(what: str, item: str):
 
 
 class CompiledBackendMixin:
-    """Shared step-cache surface: subclasses set ``self._tag`` and
-    implement ``_compiled(pad_to)``."""
+    """Shared step-cache surface: subclasses set ``self._tag`` and their
+    own ``self._steps`` (a :class:`StepCache`), and implement
+    ``_compiled(pad_to)``."""
 
     _tag: str
+    _steps: StepCache
 
     def warmup(self, shapes: Sequence[int]) -> Dict[str, Any]:
         """Build one step callable per declared bucket."""
         for pad_to in shapes:
             self._compiled(int(pad_to))
-        return {"warmed": len(list(shapes)),
-                "cache": DEFAULT_COMPILE_CACHE.stats()}
+        return {"warmed": len(list(shapes)), "cache": self._steps.stats()}
 
     def stats(self) -> Dict[str, Any]:
-        return {"compile_cache": DEFAULT_COMPILE_CACHE.stats()}
+        return {"compile_cache": self._steps.stats()}
 
 
 def _build_model(cfg, device, seed, params):
@@ -80,10 +81,6 @@ def _build_model(cfg, device, seed, params):
         from tosem_tpu_torch.models.convert import load_bert_params
         load_bert_params(model, params)
     return model
-
-
-def _weights_tag(params) -> str:
-    return "seed" if params is None else f"loaded@{id(params)}"
 
 
 class BertEncodeBackend(CompiledBackendMixin):
@@ -115,9 +112,8 @@ class BertEncodeBackend(CompiledBackendMixin):
         self.device = self.model.device
         self._fwd = self.model.encode_fn(
             attn_fn=flash_attn_fn() if use_flash else None)
-        self._tag = model_tag("bert_encode", cfg, seed,
-                              use_flash=use_flash, device=self.device,
-                              weights=_weights_tag(params))
+        self._tag = model_tag("bert_encode", cfg, seed, use_flash=use_flash)
+        self._steps = StepCache()
 
     @staticmethod
     def length_of(request: Dict[str, Any]) -> int:
@@ -125,7 +121,7 @@ class BertEncodeBackend(CompiledBackendMixin):
 
     def _compiled(self, pad_to: int):
         key = shape_key(self._tag, (self.max_batch, pad_to), self.cfg.dtype)
-        return DEFAULT_COMPILE_CACHE.get_or_build(key, lambda: self._fwd)
+        return self._steps.get_or_build(key, lambda: self._fwd)
 
     def call(self, request: Dict[str, Any]) -> Any:
         return self.call_batch([request])[0]
@@ -268,9 +264,8 @@ class BertDecodeBackend(CompiledBackendMixin):
         self._lock = threading.RLock()
         self._tag = model_tag("bert_decode", cfg, seed,
                               page=self.page_size, pages=num_pages,
-                              backend=backend or "auto",
-                              device=self.device,
-                              weights=_weights_tag(params))
+                              backend=backend or "auto")
+        self._steps = StepCache()
 
     # --------------------------------------------------------- step callables
 
@@ -281,7 +276,7 @@ class BertDecodeBackend(CompiledBackendMixin):
         """Causal prefill + page write for one prompt bucket: pages/rows
         name the slots of the REAL positions only, so pad positions
         never land in a page. Like every cached step it takes the pools
-        as arguments: backends with equal tags share the callable."""
+        as arguments and closes over nothing but this backend's model."""
         key = shape_key(self._tag + ";prefill", (1, pad_to), self.cfg.dtype)
         prefill = self._prefill
 
@@ -291,13 +286,13 @@ class BertDecodeBackend(CompiledBackendMixin):
             k_pool[:, pages, rows] = k[:, 0, :n].to(k_pool.dtype)
             v_pool[:, pages, rows] = v[:, 0, :n].to(v_pool.dtype)
             return logits
-        return DEFAULT_COMPILE_CACHE.get_or_build(key, lambda: fused)
+        return self._steps.get_or_build(key, lambda: fused)
 
     def _step_compiled(self):
         key = shape_key(self._tag + ";step",
                         (self.max_batch, self.max_pages, self.page_size, 1),
                         self.cfg.dtype)
-        return DEFAULT_COMPILE_CACHE.get_or_build(key, lambda: self._step)
+        return self._steps.get_or_build(key, lambda: self._step)
 
     def _suffix_compiled(self):
         """The B=1 multi-token step that feeds a suffix in chunks of up
@@ -309,8 +304,7 @@ class BertDecodeBackend(CompiledBackendMixin):
         key = shape_key(self._tag + ";suffix",
                         (1, self.max_pages, self.page_size, self.suffix_q),
                         self.cfg.dtype)
-        return DEFAULT_COMPILE_CACHE.get_or_build(
-            key, lambda: self._suffix_step)
+        return self._steps.get_or_build(key, lambda: self._suffix_step)
 
     def warmup(self, shapes: Sequence[int]) -> Dict[str, Any]:
         for pad_to in shapes:
@@ -321,7 +315,7 @@ class BertDecodeBackend(CompiledBackendMixin):
             self._suffix_compiled()
             extra = 2
         return {"warmed": len(list(shapes)) + extra,
-                "cache": DEFAULT_COMPILE_CACHE.stats()}
+                "cache": self._steps.stats()}
 
     def _suffix_feed(self, seq_id, toks: List[int], start: int):
         """Prefill positions ``[start, len(toks))`` through the chunked

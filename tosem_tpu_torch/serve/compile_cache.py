@@ -1,207 +1,50 @@
-"""Keyed cache of built step callables for serving backends.
+"""Cache keys and a backend's own table of built step callables.
 
 Counterpart of ``tosem_tpu/serve/compile_cache.py``. The JAX package
-caches AOT-compiled XLA executables per ``(model, bucket shape, dtype)``;
-the port runs eagerly, so what it caches under the same keys are the
-step closures a backend builds (prefill, decode step, suffix feed). The
-cache keeps its design: per-key build locks (two threads racing for one
-key build once), model-granular LRU eviction under an optional entry
-budget (``TOSEM_COMPILE_CACHE_BUDGET``) that skips pinned models, and
-hit/miss/build-time counters. CUDA graphs of the steps are later work.
+caches AOT-compiled XLA executables per ``(model, bucket shape, dtype)``
+in one cache per process, with a budget, pins and model eviction for
+multiplexing. The port runs eagerly, so a build costs nothing yet, and
+what it keeps under the same keys are the step closures one backend
+builds (prefill, decode step, suffix feed). Each backend owns its
+:class:`StepCache`: a closure holds its backend's model, so two backends
+never share one, and a dropped backend frees its model. The budget, pins
+and eviction return with the multiplexing control plane; CUDA graphs of
+the steps are later work.
 """
 from __future__ import annotations
 
-import threading
-import time
-from typing import (Any, Callable, Dict, Hashable, List, Optional,
-                    Sequence, Tuple)
-
-
-def _model_of(key: Hashable) -> Hashable:
-    """The model component of a cache key — :func:`shape_key` tuples
-    lead with the model tag; scalar keys ARE the model. Program-variant
-    suffixes the backends append after the tag's closing paren
-    (``…);step``, ``…);mask=<sig>`` — see ``model_tag``) are stripped,
-    so every variant of one model forms ONE eviction group: evicting a
-    model piecemeal would leave palette holes that re-pay their JIT
-    one bucket at a time."""
-    if isinstance(key, tuple) and key:
-        key = key[0]
-    if isinstance(key, str) and ");" in key:
-        return key.split(");", 1)[0] + ")"
-    return key
-
-
-class CompileCache:
-    """Thread-safe build-once cache (executables, or anything costly).
-
-    ``budget``: maximum cached entries before LRU model eviction kicks
-    in (None = unbounded, the pre-multiplexing behavior)."""
-
-    def __init__(self, budget: Optional[int] = None):
-        if budget is not None and budget < 1:
-            raise ValueError("budget must be >= 1 (or None)")
-        self.budget = budget
-        self._lock = threading.Lock()
-        self._entries: Dict[Hashable, Any] = {}
-        self._building: Dict[Hashable, threading.Lock] = {}
-        # model -> monotonically increasing last-use stamp (LRU order)
-        self._model_used: Dict[Hashable, int] = {}
-        self._use_clock = 0
-        # model -> pin owners (serving replicas holding traffic)
-        self._pins: Dict[Hashable, set] = {}
-        self._hits = 0
-        self._misses = 0
-        self._build_s = 0.0
-        self._evicted_entries = 0
-        self._evicted_models = 0
-
-    def _touch_locked(self, key: Hashable) -> None:
-        self._use_clock += 1
-        self._model_used[_model_of(key)] = self._use_clock
-
-    def get(self, key: Hashable) -> Optional[Any]:
-        with self._lock:
-            value = self._entries.get(key)
-            if value is not None:
-                self._touch_locked(key)
-            return value
-
-    def get_or_build(self, key: Hashable, build: Callable[[], Any]) -> Any:
-        """Return the cached value for ``key``, building it (once, even
-        under concurrency) when absent."""
-        with self._lock:
-            if key in self._entries:
-                self._hits += 1
-                self._touch_locked(key)
-                return self._entries[key]
-            gate = self._building.setdefault(key, threading.Lock())
-        with gate:
-            # double-check: the winner of the race filled the entry
-            # while we waited on its gate
-            with self._lock:
-                if key in self._entries:
-                    self._hits += 1
-                    self._touch_locked(key)
-                    return self._entries[key]
-            t0 = time.perf_counter()
-            value = build()
-            dt = time.perf_counter() - t0
-            with self._lock:
-                self._entries[key] = value
-                self._misses += 1
-                self._build_s += dt
-                self._touch_locked(key)
-                self._building.pop(key, None)
-                self._evict_over_budget_locked(
-                    protect=_model_of(key))
-            return value
-
-    # -- pinned-ledger model eviction ----------------------------------
-
-    def pin(self, model: Hashable, owner: str = "replica") -> None:
-        """``model`` is serving traffic for ``owner``: its entries are
-        not eviction victims until every owner unpins."""
-        with self._lock:
-            self._pins.setdefault(model, set()).add(owner)
-
-    def unpin(self, model: Hashable, owner: str = "replica") -> None:
-        with self._lock:
-            owners = self._pins.get(model)
-            if owners is not None:
-                owners.discard(owner)
-                if not owners:
-                    del self._pins[model]
-
-    def pinned_models(self) -> List[Hashable]:
-        with self._lock:
-            return sorted(self._pins, key=repr)
-
-    def _evict_model_locked(self, model: Hashable) -> int:
-        victims = [k for k in self._entries if _model_of(k) == model]
-        for k in victims:
-            del self._entries[k]
-        self._model_used.pop(model, None)
-        if victims:
-            self._evicted_entries += len(victims)
-            self._evicted_models += 1
-        return len(victims)
-
-    def _evict_over_budget_locked(self,
-                                  protect: Optional[Hashable] = None
-                                  ) -> None:
-        if self.budget is None:
-            return
-        while len(self._entries) > self.budget:
-            cold = [m for m, _ in sorted(self._model_used.items(),
-                                         key=lambda kv: kv[1])
-                    if m != protect and not self._pins.get(m)]
-            if not cold:
-                return          # everything is pinned (or the inserting
-            #                     model itself): over budget beats
-            #                     evicting under a live replica
-            self._evict_model_locked(cold[0])
-
-    def evict_model(self, model: Hashable) -> int:
-        """Explicitly drop every entry of ``model`` (refused while
-        pinned). Returns the entry count evicted."""
-        with self._lock:
-            if self._pins.get(model):
-                return 0
-            return self._evict_model_locked(model)
-
-    # -- queries -------------------------------------------------------
-
-    def __contains__(self, key: Hashable) -> bool:
-        with self._lock:
-            return key in self._entries
-
-    def __len__(self) -> int:
-        with self._lock:
-            return len(self._entries)
-
-    def clear(self) -> None:
-        with self._lock:
-            self._entries.clear()
-            self._building.clear()
-            self._model_used.clear()
-
-    def stats(self) -> Dict[str, Any]:
-        with self._lock:
-            return {"entries": len(self._entries), "hits": self._hits,
-                    "misses": self._misses,
-                    "build_s": round(self._build_s, 3),
-                    "pinned_models": len(self._pins),
-                    "evicted_entries": self._evicted_entries,
-                    "evicted_models": self._evicted_models}
-
-
-def _env_budget() -> Optional[int]:
-    """TOSEM_COMPILE_CACHE_BUDGET, hardened: unset/0/garbage all mean
-    unbounded — a config typo must not crash every serve import."""
-    import os
-    import sys
-    raw = os.environ.get("TOSEM_COMPILE_CACHE_BUDGET", "").strip()
-    if not raw:
-        return None
-    try:
-        budget = int(raw)
-    except ValueError:
-        print(f"TOSEM_COMPILE_CACHE_BUDGET={raw!r} is not an integer; "
-              "compile cache stays unbounded", file=sys.stderr)
-        return None
-    return budget if budget >= 1 else None
-
-
-# One cache per process: replicas co-located in a worker share compiled
-# programs; the main process gets its own for in-process backends.
-# TOSEM_COMPILE_CACHE_BUDGET bounds the entry count (multi-model
-# multiplexing: cold models' executables make room for hot ones');
-# unset = unbounded, the pre-control-plane behavior.
-DEFAULT_COMPILE_CACHE = CompileCache(budget=_env_budget())
+from typing import Any, Callable, Dict, Hashable, Sequence, Tuple
 
 
 def shape_key(model: str, shape: Sequence[int], dtype: str) -> Tuple:
     """Canonical cache key: ``(model, (dims…), dtype)`` — the
     (model, bucket shape, dtype) triple of the design."""
     return (model, tuple(int(d) for d in shape), str(dtype))
+
+
+class StepCache:
+    """One backend's built step callables, keyed by :func:`shape_key`."""
+
+    def __init__(self):
+        self._entries: Dict[Hashable, Any] = {}
+        self._hits = 0
+        self._misses = 0
+
+    def get_or_build(self, key: Hashable, build: Callable[[], Any]) -> Any:
+        """The callable under ``key``, built on its first request."""
+        if key in self._entries:
+            self._hits += 1
+        else:
+            self._misses += 1
+            self._entries[key] = build()
+        return self._entries[key]
+
+    def __contains__(self, key: Hashable) -> bool:
+        return key in self._entries
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def stats(self) -> Dict[str, int]:
+        return {"entries": len(self._entries), "hits": self._hits,
+                "misses": self._misses}
