@@ -252,7 +252,7 @@ def test_layernorm_bf16_casts_before_the_affine():
     ln.scale.data = torch.from_numpy(scale).bfloat16()
     ln.bias.data = torch.from_numpy(bias).bfloat16()
     xb = torch.from_numpy(x).bfloat16()
-    got = ln(xb)
+    got = ln(xb).detach()                # the layer's parameters train
     assert got.dtype == torch.bfloat16
     ref32 = np.asarray(ref.astype(jnp.float32))
     assert np.abs(got.float().numpy() - ref32).max() <= 2e-2
@@ -317,9 +317,24 @@ def test_flash_attn_fn_counts_the_dense_mask_fallback():
     assert attention.FLASH_DISPATCH_COUNTS["flash"] == flash + 1
 
 
-@pytest.mark.parametrize("change", [{"moe_experts": 4}, {"remat": "full"}])
+@pytest.mark.parametrize("change", [{"moe_experts": 4},
+                                    {"moe_experts": 2, "moe_every": 1}])
 def test_unported_variants_raise(change):
     from tosem_tpu_torch.models.bert import Bert, BertConfig
     cfg = dataclasses.replace(BertConfig.tiny(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Bert(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_models_build_but_do_not_decode(remat):
+    """Remat belongs to training (``tests/test_torch_train.py`` holds its
+    gradients); the decode path refuses it, as the JAX package's does."""
+    from tosem_tpu_torch.models.bert import Bert, BertConfig
+    m = Bert(dataclasses.replace(BertConfig.tiny(), remat=remat),
+             device="cpu")
+    with pytest.raises(ValueError, match="inference-only"):
+        m.prefill_fn()
+    with pytest.raises(ValueError, match="remat"):
+        Bert(dataclasses.replace(BertConfig.tiny(), remat="some"),
+             device="cpu")

@@ -26,7 +26,9 @@ def test_import_loads_neither_jax_nor_triton():
     code = ("import sys, tosem_tpu_torch; "
             "from tosem_tpu_torch.serve import backends; "
             "from tosem_tpu_torch.ops import flash_attention, paged_attention;"
-            " print(sorted(m for m in ('jax', 'triton', 'tosem_tpu') "
+            " from tosem_tpu_torch import train, chaos; "
+            "from tosem_tpu_torch.train import checkpoint, trainer; "
+            "print(sorted(m for m in ('jax', 'triton', 'tosem_tpu') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True,
@@ -112,6 +114,7 @@ def test_resolve_rejects_an_unknown_family():
 def test_kernel_sources_name_the_tpu_kernel_they_replace():
     csrc = os.path.join(PKG, "ops", "csrc")
     notes = {"flash_fwd.cu": ["_fwd_kernel"],
+             "flash_bwd.cu": ["_bwd_dkv_kernel", "_bwd_dq_kernel"],
              "paged_decode.cu": ["_decode_kernel", "_decode_multi_kernel"]}
     for name, kernels in notes.items():
         head = open(os.path.join(csrc, name)).read().split("#include")[0]

@@ -189,6 +189,7 @@ def _served_logits(kind, be):
         got = be.call_batch([{"ids": prompt}], pad_to=32)[0]["pooled"]
         own = be.model.encode_fn(attn_fn=flash_attn_fn())(ids, mask)
         own = own[0, :20].float().mean(0)
+    assert not own.requires_grad      # serving builds no autograd graph
     return got, own.float().numpy()
 
 

@@ -4,16 +4,19 @@ H100.
 The JAX package ``tosem_tpu`` stays the reference; this package is built
 beside it slice by slice, with every Pallas kernel on a slice's path
 rewritten by hand in CUDA C++ for ``sm_90a``. Ported so far (the BERT
-serving slice):
+serving and training slices):
 
-- ``tosem_tpu_torch.ops``     flash attention forward and paged decode
-                              kernels (``ops/csrc``), their plain
-                              versions, the backend registry
+- ``tosem_tpu_torch.ops``     flash attention forward and backward and
+                              paged decode kernels (``ops/csrc``), their
+                              plain versions, the backend registry
 - ``tosem_tpu_torch.nn``      layers and attention as ``nn.Module``s
 - ``tosem_tpu_torch.models``  BERT encoder / causal decoder, and the
                               converter for JAX-package parameters
 - ``tosem_tpu_torch.serve``   paged KV cache, prefix cache, BERT encode
                               and greedy-decode backends
+- ``tosem_tpu_torch.train``   train state, AdamW, MLM loss, train step,
+                              ``fit`` with atomic checkpoints and resume
+- ``tosem_tpu_torch.chaos``   the chaos injection seam (``train.step``)
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 ``import tosem_tpu_torch`` loads neither JAX nor Triton, and builds no
@@ -46,6 +49,19 @@ _LAZY_EXPORTS = {
                           "BertEncodeBackend"),
     "BertDecodeBackend": ("tosem_tpu_torch.serve.backends",
                           "BertDecodeBackend"),
+    "TrainState": ("tosem_tpu_torch.train.trainer", "TrainState"),
+    "TrainingPreempted": ("tosem_tpu_torch.train.trainer",
+                          "TrainingPreempted"),
+    "adamw": ("tosem_tpu_torch.train.trainer", "adamw"),
+    "create_train_state": ("tosem_tpu_torch.train.trainer",
+                           "create_train_state"),
+    "cross_entropy_loss": ("tosem_tpu_torch.train.trainer",
+                           "cross_entropy_loss"),
+    "mlm_loss": ("tosem_tpu_torch.train.trainer", "mlm_loss"),
+    "make_train_step": ("tosem_tpu_torch.train.trainer", "make_train_step"),
+    "fit": ("tosem_tpu_torch.train.trainer", "fit"),
+    "CheckpointCorruptError": ("tosem_tpu_torch.train.checkpoint",
+                               "CheckpointCorruptError"),
 }
 
 __all__ = sorted(_LAZY_EXPORTS)

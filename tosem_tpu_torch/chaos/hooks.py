@@ -1,0 +1,50 @@
+"""Injection seam between the framework and a chaos controller.
+
+The port's own copy of ``tosem_tpu/chaos/hooks.py``. Import-light on
+purpose: code on a hot path calls :func:`fire` at its injection site,
+which costs one attribute load and a None check when no controller is
+installed.
+
+Sites the port fires so far, and the actions they honor:
+
+==========  ===============================  =======
+site        fired                            actions
+==========  ===============================  =======
+train.step  trainer ``fit()`` finished a     preempt
+            step
+==========  ===============================  =======
+
+A controller is any object with ``on(site, **ctx)`` returning an action
+dict (``{"action": "preempt"}``) or None.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+_controller: Optional[Any] = None
+
+
+def install(controller: Any) -> Any:
+    """Install ``controller`` as the process-wide chaos controller.
+    Returns it (convenience for ``chaos = install(MyController())``)."""
+    global _controller
+    _controller = controller
+    return controller
+
+
+def uninstall() -> None:
+    global _controller
+    _controller = None
+
+
+def get_controller() -> Optional[Any]:
+    return _controller
+
+
+def fire(site: str, **ctx: Any) -> Optional[Dict[str, Any]]:
+    """Report one event at ``site``; returns the action dict the
+    installed controller wants applied there, or None (no chaos)."""
+    c = _controller
+    if c is None:
+        return None
+    return c.on(site, **ctx)

@@ -9,10 +9,25 @@ also returns per-layer K/V), ``decode_step_fn`` and ``decode_multi_fn``
 Differences in idiom: the model is a ``torch.nn.Module`` that owns its
 parameters (``Bert(cfg, device=..., seed=...)``, or load a converted
 tree with :func:`tosem_tpu_torch.models.convert.bert_params_from_numpy`);
-the decode functions write K/V into the pools IN PLACE and return the
-same pool tensors, where the JAX functions returned new pools. A padding
-row's K/V is never written (the JAX code relied on an out-of-bounds
-scatter being dropped; on CUDA that index is a device-side assert).
+``apply`` is differentiable (the training path), while ``encode_fn``,
+``prefill_fn`` and the decode functions run under ``torch.no_grad()``, so
+serving builds no graph. The decode functions write K/V into the pools
+IN PLACE and return the same pool tensors, where the JAX functions
+returned new pools. A padding row's K/V is never written (the JAX code
+relied on an out-of-bounds scatter being dropped; on CUDA that index is
+a device-side assert).
+
+Dropout draws from the ``generator`` passed to ``apply`` (a
+``torch.Generator`` on the model's device; None = the device's default
+generator), where the JAX package splits an ``rng`` key per layer.
+``remat="full"`` recomputes each encoder layer in the backward pass
+(``torch.utils.checkpoint``, non-reentrant); ``remat="dots"`` saves the
+layer's ``Dense`` matmul outputs and recomputes the rest, the counterpart
+of ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``. A
+checkpointed layer sets the generator back to the state it had before
+the layer when it is recomputed, so the recomputation draws the same
+dropout masks (``torch.utils.checkpoint`` replays the default
+generators only).
 """
 from __future__ import annotations
 
@@ -21,6 +36,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from tosem_tpu_torch.nn.attention import MultiHeadAttention
 from tosem_tpu_torch.nn.layers import (Dense, Dropout, Embedding, LayerNorm,
@@ -117,10 +133,6 @@ class Bert(nn.Module):
         if cfg.remat not in ("none", "full", "dots"):
             raise ValueError(f"unknown remat mode {cfg.remat!r}; "
                              "expected none|full|dots")
-        if cfg.remat != "none":
-            raise NotImplementedError(
-                "activation rematerialization belongs to the training "
-                "slice (ROADMAP.md A9)")
         self.cfg = cfg
         gen = torch.Generator().manual_seed(int(seed))
         dt = _torch_dtype(cfg.dtype)
@@ -138,11 +150,11 @@ class Bert(nn.Module):
 
     # ------------------------------------------------------------ encoder
 
-    @torch.no_grad()
     def apply(self, ids, *, segments=None, mask=None, train=False,
               attn_fn=None, generator=None):
         """ids: [B, T] int. mask: [B, T] (1 = real token) or None.
-        Returns [B, T, dim] encodings."""
+        Returns [B, T, dim] encodings. Differentiable; ``generator``
+        drives dropout when ``train``."""
         B, T = ids.shape
         pos_ids = torch.arange(T, device=ids.device)[None, :]
         h = self.tok(ids) + self.pos(pos_ids)
@@ -154,9 +166,21 @@ class Bert(nn.Module):
             attn_mask = mask[:, None, None, :].bool()
         h = self.drop(h, train=train, generator=generator)
         for layer in self.layers:
-            h = layer(h, mask=attn_mask, train=train, attn_fn=attn_fn,
-                      generator=generator)
+            h = self._run_layer(layer, h, attn_mask, train, attn_fn,
+                                generator)
         return self.ln_out(h)
+
+    def _run_layer(self, layer, h, mask, train, attn_fn, generator):
+        def run(x):
+            return layer(x, mask=mask, train=train, attn_fn=attn_fn,
+                         generator=generator)
+        if self.cfg.remat == "none" or not torch.is_grad_enabled():
+            return run(h)
+        if train and self.cfg.dropout > 0 and generator is not None:
+            run = _replaying(run, generator)
+        kw = {"context_fn": _dots_contexts} if self.cfg.remat == "dots" \
+            else {}
+        return _ckpt.checkpoint(run, h, use_reentrant=False, **kw)
 
     def mlm_logits(self, encodings):
         """Tied-embedding masked-LM head (fp32)."""
@@ -166,6 +190,7 @@ class Bert(nn.Module):
         """``fwd(ids, mask) -> encodings``; with
         ``attn_fn=flash_attn_fn()`` the key-padding mask rides the flash
         kernel as segment ids."""
+        @torch.no_grad()
         def fwd(ids, mask):
             return self.apply(ids, mask=mask, train=False, attn_fn=attn_fn)
         return fwd
@@ -176,6 +201,9 @@ class Bert(nn.Module):
         if self.cfg.moe_experts:
             raise ValueError("decode path supports dense-FFN configs "
                              "only (moe_experts must be 0)")
+        if self.cfg.remat != "none":
+            raise ValueError("decode path is inference-only; set "
+                             "remat='none'")
 
     def _embed(self, ids, pos_ids):
         """Shared embedding stack (ids + pos -> ln_emb), eval mode."""
@@ -265,6 +293,38 @@ class Bert(nn.Module):
                                         window)
             return self._head(h), k_pool, v_pool
         return fwd
+
+
+def _replaying(run, generator):
+    """``run`` wrapped so that every call after the first starts from the
+    generator state the first call started from, and leaves the
+    generator where it was: a recomputed layer draws the forward's
+    dropout masks and moves no later draw."""
+    start = generator.get_state()
+    calls = []
+
+    def replay(x):
+        after = generator.get_state() if calls else None
+        calls.append(1)
+        generator.set_state(start)
+        try:
+            return run(x)
+        finally:
+            if after is not None:
+                generator.set_state(after)
+    return replay
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matmuls without batch dimensions (the
+    ``Dense`` projections), recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return _ckpt.create_selective_checkpoint_contexts(_dots_policy)
 
 
 def _decode_layer_full(layer, x, core):

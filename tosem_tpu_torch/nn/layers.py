@@ -4,9 +4,11 @@ Counterpart of ``tosem_tpu/nn/layers.py`` (the layers the BERT path
 uses). Parameters keep the JAX package's names, shapes and dtypes, so a
 converted parameter tree loads as a ``state_dict``: ``Dense`` holds
 ``w`` [d_in, d_out] and ``b``; ``LayerNorm`` holds ``scale`` and
-``bias``; ``Embedding`` holds ``table`` [vocab, dim]. Random init draws
-from a ``torch.Generator`` on the CPU, so a seed gives the same weights
-on every device (not the JAX package's numbers: its PRNG differs).
+``bias``; ``Embedding`` holds ``table`` [vocab, dim]. Every parameter is
+trainable; serving entry points run under ``torch.no_grad()``. Random
+init draws from a ``torch.Generator`` on the CPU, so a seed gives the
+same weights on every device (not the JAX package's numbers: its PRNG
+differs). Dropout masks are drawn on the activation's device.
 """
 from __future__ import annotations
 
@@ -46,9 +48,9 @@ class Dense(nn.Module):
             w = _he_normal((d_in, d_out), d_in, dtype, generator)
         else:
             w = _trunc_normal((d_in, d_out), init_std, dtype, generator)
-        self.w = nn.Parameter(w, requires_grad=False)
-        self.b = (nn.Parameter(torch.zeros(d_out, dtype=dtype),
-                               requires_grad=False) if bias else None)
+        self.w = nn.Parameter(w)
+        self.b = (nn.Parameter(torch.zeros(d_out, dtype=dtype)) if bias
+                  else None)
 
     def forward(self, x):
         with _precision(self.precision):
@@ -66,10 +68,8 @@ class LayerNorm(nn.Module):
     def __init__(self, dim: int, *, eps: float = 1e-6, dtype=torch.float32):
         super().__init__()
         self.dim, self.eps = dim, eps
-        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype),
-                                  requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype),
-                                 requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype))
 
     def forward(self, x):
         xf = x.float()
@@ -86,8 +86,7 @@ class Embedding(nn.Module):
         super().__init__()
         self.vocab, self.dim = vocab, dim
         self.table = nn.Parameter(
-            _trunc_normal((vocab, dim), init_std, dtype, generator),
-            requires_grad=False)
+            _trunc_normal((vocab, dim), init_std, dtype, generator))
 
     def forward(self, ids):
         """Row gather. Ids must lie in [0, vocab): torch raises where
@@ -103,6 +102,11 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
+    """``where(mask, x / keep, 0)`` with ``keep = 1 - rate``, as the JAX
+    package computes it. The mask is drawn on ``x.device`` from
+    ``generator``, which must live on that device (None = the device's
+    default generator)."""
+
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
@@ -112,7 +116,7 @@ class Dropout(nn.Module):
         if not train or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator).to(x.device) < keep
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Optional
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
-SOURCES = ("flash_fwd", "paged_decode")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -34,7 +34,8 @@ _PLATFORM = {BACKEND_CUDA: "cuda", BACKEND_TORCH: "cpu"}
 _CUDA_DTYPES = ("float32", "bfloat16")
 
 # kernel name -> launches since the last reset
-LAUNCH_COUNTS: Dict[str, int] = {"flash_fwd": 0, "paged_decode": 0,
+LAUNCH_COUNTS: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkv": 0,
+                                 "flash_bwd_dq": 0, "paged_decode": 0,
                                  "paged_decode_multi": 0}
 
 # "family:requested->served" for the dense-mask fallback of flash_attn_fn
