@@ -15,7 +15,12 @@ Phases, each printing one JSON line:
               and a library yardstick where one PyTorch call computes
               the same function. The backward kernels (B2 dK/dV, B3 dQ)
               also in both layouts, at a ragged length, and launched
-              twice to show they are bit-deterministic.
+              twice to show they are bit-deterministic. B6-B9 (fused
+              layernorm and softmax, forward and backward) at the kernel
+              suite's shapes, a ragged row count, odd widths and a long
+              row, fp32 and bf16, B7 launched twice; timed as device time
+              (``utils/timing.DeviceLoopBench``: a CUDA graph of many
+              calls over L2-cold operand copies).
 3. decode   — BERT-base greedy decode through ``BertDecodeBackend``'s
               client protocol: 8 packed prompts x 32 new tokens, then a
               prompt that hits the prefix cache, whose stream must equal
@@ -39,14 +44,21 @@ Phases, each printing one JSON line:
               yardstick), remat full/dots against none bit for bit,
               ``fit`` resumed after a preemption bit for bit, and a
               profile of the step.
+8. suite    — north-star config 5 through the port's experiment runner,
+              ``tosem_tpu_torch.cli --config=bert_kernels`` (BERT-base:
+              8 x 512, 12 heads of 64, hidden 768, bf16) into a
+              temporary CSV: flash attention fwd and fwd+bwd, dense and
+              causal (B1-B3), the dense path, layernorm (B6, B7) and
+              softmax (B8, B9). Every row must read under the card's
+              peak (a row above it means a timing window closed early).
 
-``--phases`` picks a subset (default: all seven), e.g. ``build,kernels``
-for a first call after a kernel change, or ``build,kernels,train`` for
-the training path.
+``--phases`` picks a subset (default: all eight), e.g. ``build,kernels``
+for a first call after a kernel change, ``build,kernels,train`` for the
+training path, or ``build,kernels,suite`` for the kernel suite.
 
 The launch counts of every kernel are set to 0 just before the decode,
-the encode and the train paths run and read just after; a kernel of the
-path that never launched fails the run. Before the last line it prints the card's name and
+the encode, the train and the suite paths run and read just after; a
+kernel of the path that never launched fails the run. Before the last line it prints the card's name and
 power limit (``nvidia-smi``) and one ``{"kernels": [...]}`` line; the last
 line is ``{"ok": true, "device": {...}}``. Any failure raises.
 """
@@ -75,8 +87,30 @@ BWD_TOL = {"float32": (5e-4, 5e-3), "bfloat16": (0.5, 5e-2)}
 # (fp32); a dK scaled by 1.05 or a dropped mask, the yardsticks checked
 # beside it, reach 0.05 and above.
 BWD_REL = 1.0 / 64
+# B6-B9 against their plain versions: (atol, rtol) of
+# tests/test_pallas_kernels.py:162-210 in fp32, 2e-2 in bf16
+NORM_TOL = {"ln_fwd": {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)},
+            "ln_bwd": {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)},
+            "sm_fwd": {"float32": (1e-6, 1e-5), "bfloat16": (2e-2, 2e-2)},
+            "sm_bwd": {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}}
+# bf16 B6-B9 outputs are also held, each tensor as a whole, to
+# max|g - w| <= NORM_REL * max|w| against the fp32 plain version on the
+# same (bf16) inputs widened: one to two bf16 ulps of the largest element
+# (2^-7 of it), where rounding the output costs at most half of one. The yardsticks
+# checked beside it, a gamma off by 2% and a softmax temperature off by
+# 5%, read about 0.018 and 0.046 at the suite's shapes on the CPU.
+NORM_REL = 1.0 / 128
+# the one PyTorch call that computes each of B6-B9 (timed here only)
+LIBRARY_IS = {"ln_fwd": "F.layer_norm",
+              "ln_bwd": "aten.native_layer_norm_backward (the autograd "
+                        "backward of F.layer_norm)",
+              "sm_fwd": "torch.softmax",
+              "sm_bwd": "torch._softmax_backward_data"}
+# the suite's shapes first, then a ragged row count, odd widths, a long row
+LN_SHAPES = ((4096, 768), (4095, 768), (300, 1000), (64, 77), (256, 8192))
+SM_SHAPES = ((49152, 512), (4095, 512), (300, 1000), (64, 77), (256, 8192))
 KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "paged_decode",
-           "paged_decode_multi")
+           "paged_decode_multi", "ln_fwd", "ln_bwd", "sm_fwd", "sm_bwd")
 
 SEED = 0            # weights, prompts and kernel inputs
 NEW_TOKENS = 32     # generated per decode prompt
@@ -422,12 +456,179 @@ def paged_work(q, lens, K, page=128):
     return nbytes, 4 * D * H * pairs
 
 
+def norm_err(name, dtype, got, want):
+    """(max abs error, within NORM_TOL) of one B6-B9 output."""
+    atol, rtol = NORM_TOL[name][dtype]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return diff.max().item(), bool((diff <= atol + rtol * w.abs()).all()
+                                   .item())
+
+
+def device_ms(op, *args):
+    """Device ms per call (``DeviceLoopBench``: a CUDA graph of calls over
+    operand copies that span twice the L2, replays timed by events)."""
+    from tosem_tpu_torch.utils.timing import DeviceLoopBench
+    return DeviceLoopBench(op=op, args=args).time(reps=3) * 1e3
+
+
+def norm_work(name, R, D, el):
+    """(bytes, fp32 operations) of B6-B9 on [R, D] rows of ``el``-byte
+    elements: inputs read once, outputs written once (B7's partials stay
+    out: they are the kernel's own scratch); per element about 7 (B6),
+    14 (B7), 7 (B8) and 4 (B9) operations."""
+    if name == "ln_fwd":      # x, gamma, beta in; y, mu, rstd out
+        return 2 * R * D * el + 2 * D * el + 2 * R * 4, 7 * R * D
+    if name == "ln_bwd":      # x, dy, gamma, mu, rstd in; dx, dg, db out
+        return 3 * R * D * el + 3 * D * el + 2 * R * 4, 14 * R * D
+    if name == "sm_fwd":      # x in, y out
+        return 2 * R * D * el, 7 * R * D
+    return 3 * R * D * el, 4 * R * D   # sm_bwd: y, dy in; dx out
+
+
+def norm_rel_check(what, names, got, want, yardstick, wrong, right):
+    """Hold bf16 B6-B9 outputs to NORM_REL of their largest element
+    against the fp32 plain version, and show that the check catches a
+    wrong result (``wrong`` against ``right``)."""
+    r = {n: rel_err(g, w) for n, g, w in zip(names, got, want)}
+    check(max(r.values()) <= NORM_REL,
+          f"{what}: max|g - w| / max|w| against fp32 above {NORM_REL}: {r}")
+    r[yardstick] = rel_err(wrong, right)
+    check(r[yardstick] > NORM_REL,
+          f"{what}: the bf16 check missed the yardstick {yardstick}: {r}")
+    return r
+
+
+def time_norm(name, err, kernel, plain, library, *args):
+    """The kernels line of one of B6-B9 at the suite's bf16 shape: device
+    ms of the kernel, its plain version and its library call on ``args``,
+    and its bound."""
+    R, D = args[0].shape
+    nbytes, ops = norm_work(name, R, D, args[0].element_size())
+    b_ms, b_by = bound(nbytes, ops, "float32")
+    return {"ms": device_ms(kernel, *args), "plain_ms": device_ms(plain, *args),
+            "library_ms": device_ms(library, *args),
+            "library_is": LIBRARY_IS[name], "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err, "dtype": "bfloat16",
+            "shape": [R, D]}
+
+
+def norm_cases(dev, seed, lines):
+    """B6-B9 against their plain versions on the card at every shape of
+    LN_SHAPES / SM_SHAPES in bf16 and fp32; B7 launched twice, bit for
+    bit. At the suite's bf16 shapes each kernel is timed beside its bound,
+    its plain version and its library call (``F.layer_norm``, its
+    autograd backward ``native_layer_norm_backward``, ``torch.softmax``,
+    ``torch._softmax_backward_data``), which the port never calls."""
+    import torch
+    import torch.nn.functional as F
+    from tosem_tpu_torch.ops import fused_norms as fn
+    gen = torch.Generator(dev).manual_seed(seed)
+    cases = []
+
+    def randn(*shape, scale=1.0, shift=0.0, dtype):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale
+                + shift).to(getattr(torch, dtype))
+
+    for dtype in ("bfloat16", "float32"):
+        for R, D in LN_SHAPES:
+            x = randn(R, D, scale=3.0, shift=1.0, dtype=dtype)
+            g, b = randn(D, dtype=dtype), randn(D, dtype=dtype)
+            dy = randn(R, D, dtype=dtype)
+            y, mu, rstd = fn._ln_fwd_cuda(x, g, b, 1e-6)
+            py, pmu, prstd = fn._ln_fwd_torch(x, g, b, 1e-6)
+            grads = fn._ln_bwd_cuda(x, g, mu, rstd, dy)
+            again = fn._ln_bwd_cuda(x, g, mu, rstd, dy)
+            plain = fn._ln_bwd_torch(x, g, mu, rstd, dy)
+            torch.cuda.synchronize()
+            err_y, ok_y = norm_err("ln_fwd", dtype, y, py)
+            stats = max((mu - pmu).abs().max().item(),
+                        ((rstd - prstd).abs() / prstd.abs()).max().item())
+            errs = [norm_err("ln_bwd", dtype, a, w) for a, w in zip(grads, plain)]
+            bits = all(torch.equal(a, c) for a, c in zip(grads, again))
+            check(ok_y and stats <= 1e-5,
+                  f"ln_fwd {dtype} [{R},{D}]: err {err_y}, mu/rstd {stats}")
+            check(all(ok for _, ok in errs),
+                  f"ln_bwd {dtype} [{R},{D}]: dx/dg/db err {errs}")
+            check(bits, f"ln_bwd {dtype} [{R},{D}] differs between two "
+                        "launches")
+            rec = {"kernel": "ln_fwd+ln_bwd", "dtype": dtype,
+                   "shape": [R, D], "max_abs_err": err_y,
+                   "mu_rstd_err": stats,
+                   "grad_err": {n: e for n, (e, _) in
+                                zip(("dx", "dgamma", "dbeta"), errs)},
+                   "bit_deterministic": bits}
+            if dtype == "bfloat16":
+                xf, gf, bf, dyf = (t.float() for t in (x, g, b, dy))
+                ry, rmu, rrstd = fn._ln_fwd_torch(xf, gf, bf, 1e-6)
+                rgrads = fn._ln_bwd_torch(xf, gf, rmu, rrstd, dyf)
+                rec["rel_vs_fp32"] = norm_rel_check(
+                    f"ln bf16 [{R},{D}]", ("y", "dx", "dgamma", "dbeta"),
+                    (y, *grads), (ry, *rgrads), "gamma_x1.02",
+                    fn._ln_fwd_torch(xf, gf * 1.02, bf, 1e-6)[0], ry)
+            if (dtype, R, D) == ("bfloat16",) + LN_SHAPES[0]:
+                # the library's backward takes its own saved statistics;
+                # the timed operands are (x, g, b, mu, rstd, dy)
+                _, lmu, lrstd = torch.native_layer_norm(x, [D], g, b, 1e-6)
+                rec["ln_fwd"] = lines["ln_fwd"] = time_norm(
+                    "ln_fwd", err_y,
+                    lambda a, c, e: fn._ln_fwd_cuda(a, c, e, 1e-6),
+                    lambda a, c, e: fn._ln_fwd_torch(a, c, e, 1e-6),
+                    lambda a, c, e: F.layer_norm(a, (D,), c, e, 1e-6),
+                    x, g, b)
+                rec["ln_bwd"] = lines["ln_bwd"] = time_norm(
+                    "ln_bwd", max(e for e, _ in errs),
+                    lambda a, c, e, m, r, d: fn._ln_bwd_cuda(a, c, m, r, d),
+                    lambda a, c, e, m, r, d: fn._ln_bwd_torch(a, c, m, r, d),
+                    lambda a, c, e, m, r, d: torch.ops.aten
+                    .native_layer_norm_backward(d, a, [D], lmu, lrstd, c, e,
+                                                [True, True, True]),
+                    x, g, b, mu, rstd, dy)
+            cases.append(rec)
+            del x, dy, y, py, grads, again, plain
+        for R, N in SM_SHAPES:
+            x = randn(R, N, scale=5.0, dtype=dtype)
+            dy = randn(R, N, dtype=dtype)
+            y = fn._sm_fwd_cuda(x)
+            py = fn._sm_fwd_torch(x)
+            dx = fn._sm_bwd_cuda(y, dy)     # from the kernel's own y
+            pdx = fn._sm_bwd_torch(y, dy)
+            torch.cuda.synchronize()
+            err_y, ok_y = norm_err("sm_fwd", dtype, y, py)
+            err_dx, ok_dx = norm_err("sm_bwd", dtype, dx, pdx)
+            check(ok_y, f"sm_fwd {dtype} [{R},{N}] err {err_y}")
+            check(ok_dx, f"sm_bwd {dtype} [{R},{N}] err {err_dx}")
+            rec = {"kernel": "sm_fwd+sm_bwd", "dtype": dtype,
+                   "shape": [R, N], "max_abs_err": err_y,
+                   "grad_err": err_dx}
+            if dtype == "bfloat16":
+                ry = fn._sm_fwd_torch(x.float())
+                rec["rel_vs_fp32"] = norm_rel_check(
+                    f"softmax bf16 [{R},{N}]", ("y", "dx"), (y, dx),
+                    (ry, fn._sm_bwd_torch(y.float(), dy.float())),
+                    "temperature_x1.05", fn._sm_fwd_torch(x.float() * 1.05),
+                    ry)
+            if (dtype, R, N) == ("bfloat16",) + SM_SHAPES[0]:
+                rec["sm_fwd"] = lines["sm_fwd"] = time_norm(
+                    "sm_fwd", err_y, fn._sm_fwd_cuda, fn._sm_fwd_torch,
+                    lambda a: torch.softmax(a, -1), x)
+                rec["sm_bwd"] = lines["sm_bwd"] = time_norm(
+                    "sm_bwd", err_dx, fn._sm_bwd_cuda, fn._sm_bwd_torch,
+                    lambda a, d: torch._softmax_backward_data(d, a, -1,
+                                                              a.dtype),
+                    y, dy)
+            cases.append(rec)
+            del x, dy, y, py, dx, pdx
+    torch.cuda.empty_cache()
+    return cases
+
+
 def phase_kernels(dev, seed):
     import torch
     from tosem_tpu_torch.ops import paged_attention as pa
     gen = torch.Generator().manual_seed(seed)
-    cases = []
     lines = {}
+    cases = norm_cases(dev, seed, lines)
     # ---- B1: dense, causal and segments at [1,512] and [8,128], a
     # ragged length, and the encode batch's shape; bf16 and fp32
     b1_cases = [(mode, B, T) for B, T in ((1, 512), (8, 128))
@@ -1069,10 +1270,50 @@ def phase_train_resume(dev, seed, layers=2, steps=4):
           "seconds": time.perf_counter() - t0})
 
 
+def phase_suite():
+    """North-star config 5 through the port's experiment runner at its
+    default BERT-base shapes. Returns the suite's launch counts."""
+    import math
+    import tempfile
+
+    from tosem_tpu_torch import cli
+    from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.utils.results import read_results
+    from tosem_tpu_torch.utils.roofline import PEAK_HBM_GBPS, peak_gflops
+    with tempfile.TemporaryDirectory(prefix="torch_kernels_") as d:
+        path = os.path.join(d, "torch_kernels.csv")
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["--config=bert_kernels", f"--results_csv={path}"])
+        seconds = time.perf_counter() - t0
+        counts = dict(registry.LAUNCH_COUNTS)
+        check(rc == 0, f"the bert_kernels leg exited {rc}")
+        rows = read_results(path)
+    check(len(rows) == 10, f"{len(rows)} suite rows, expected 10")
+    out = []
+    for r in rows:
+        peak = (PEAK_HBM_GBPS if r["unit"] == "GB/s"
+                else peak_gflops(r["extra"]["dtype"]))
+        check(math.isfinite(r["value"]) and 0 < r["value"] < peak,
+              f"{r['bench_id']} reads {r['value']} {r['unit']}, outside "
+              f"(0, {peak}): the timing window closed early")
+        out.append([r["bench_id"], r["value"], r["unit"],
+                    r["extra"]["time_us"], r["value"] / peak])
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "ln_fwd",
+                 "ln_bwd", "sm_fwd", "sm_bwd"):
+        check(counts[name] > 0, f"{name} never launched in the suite")
+    emit({"phase": "suite", "config": "bert_kernels b8 t512 h12 d64 "
+          "hidden768 bf16", "seconds": seconds,
+          "rows": out, "columns": ["bench_id", "value", "unit", "time_us",
+                                   "share_of_peak"], "launches": counts})
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,decode,encode,cpu,profile,train")
+                    default="build,kernels,decode,encode,cpu,profile,train,"
+                            "suite")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(ROOT, "tosem_tpu_torch")):
@@ -1113,6 +1354,9 @@ def main(argv=None):
         phase_train_grads(dev, SEED)
         phase_train_remat(dev, SEED)
         phase_train_resume(dev, SEED)
+    if "suite" in phases:
+        for k, n in phase_suite().items():
+            launches[k] += n
     src = "tosem_tpu_torch/ops/csrc/"
     meta = {"flash_fwd": ("flash_fwd.cu",
                           "tosem_tpu/ops/flash_attention.py:272"),
@@ -1123,7 +1367,11 @@ def main(argv=None):
             "paged_decode": ("paged_decode.cu",
                              "tosem_tpu/ops/paged_attention.py:101"),
             "paged_decode_multi": ("paged_decode.cu",
-                                   "tosem_tpu/ops/paged_attention.py:225")}
+                                   "tosem_tpu/ops/paged_attention.py:225"),
+            "ln_fwd": ("fused_norms.cu", "tosem_tpu/ops/fused_norms.py:39"),
+            "ln_bwd": ("fused_norms.cu", "tosem_tpu/ops/fused_norms.py:55"),
+            "sm_fwd": ("fused_norms.cu", "tosem_tpu/ops/fused_norms.py:145"),
+            "sm_bwd": ("fused_norms.cu", "tosem_tpu/ops/fused_norms.py:152")}
     kernels = []
     for name, (f, replaces) in meta.items():
         rec = lines.get(name, {})

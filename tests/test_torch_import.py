@@ -28,6 +28,9 @@ def test_import_loads_neither_jax_nor_triton():
             "from tosem_tpu_torch.ops import flash_attention, paged_attention;"
             " from tosem_tpu_torch import train, chaos; "
             "from tosem_tpu_torch.train import checkpoint, trainer; "
+            "from tosem_tpu_torch.ops import fused_norms, kernel_suite; "
+            "from tosem_tpu_torch.utils import results, timing, roofline; "
+            "from tosem_tpu_torch import cli; "
             "print(sorted(m for m in ('jax', 'triton', 'tosem_tpu') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -87,7 +90,7 @@ def test_cuda_tensor_never_resolves_to_the_plain_version():
         registry.resolve("flash", platform="cuda", dtype="float16")
 
 
-@pytest.mark.parametrize("family", ["flash", "paged"])
+@pytest.mark.parametrize("family", ["flash", "paged", "norms"])
 @pytest.mark.parametrize("backend,platform,dtype,served", [
     (None, "cuda", "bfloat16", "cuda"), (None, "cuda", "float32", "cuda"),
     ("cuda", "cuda", None, "cuda"), (None, "cpu", "float16", "torch"),
@@ -108,14 +111,39 @@ def test_resolve_decides_by_platform_and_dtype_alone(family, backend,
 def test_resolve_rejects_an_unknown_family():
     from tosem_tpu_torch.ops import registry
     with pytest.raises(ValueError, match="family"):
-        registry.resolve("norms", platform="cpu")
+        registry.resolve("schedule", platform="cpu")
+
+
+def test_registry_has_the_norms_family_and_its_counts():
+    from tosem_tpu_torch.ops import registry
+    assert "norms" in registry.FAMILIES
+    assert registry.resolve("norms", platform="cuda",
+                            dtype="bfloat16") == "cuda"
+    assert {"ln_fwd", "ln_bwd", "sm_fwd", "sm_bwd"} <= set(
+        registry.LAUNCH_COUNTS)
+    registry.reset_launch_counts()
+    assert set(registry.LAUNCH_COUNTS.values()) == {0}
+
+
+def test_ops_package_exports_lazily():
+    import tosem_tpu_torch
+    from tosem_tpu_torch import ops
+    from tosem_tpu_torch.ops import fused_norms, kernel_suite
+    assert ops.fused_layernorm is fused_norms.fused_layernorm
+    assert ops.fused_softmax is fused_norms.fused_softmax
+    assert ops.bert_kernel_suite is kernel_suite.bert_kernel_suite
+    assert tosem_tpu_torch.fused_softmax is fused_norms.fused_softmax
+    with pytest.raises(AttributeError):
+        ops.no_such_export
 
 
 def test_kernel_sources_name_the_tpu_kernel_they_replace():
     csrc = os.path.join(PKG, "ops", "csrc")
     notes = {"flash_fwd.cu": ["_fwd_kernel"],
              "flash_bwd.cu": ["_bwd_dkv_kernel", "_bwd_dq_kernel"],
-             "paged_decode.cu": ["_decode_kernel", "_decode_multi_kernel"]}
+             "paged_decode.cu": ["_decode_kernel", "_decode_multi_kernel"],
+             "fused_norms.cu": ["_ln_fwd_kernel", "_ln_bwd_kernel",
+                                "_sm_fwd_kernel", "_sm_bwd_kernel"]}
     for name, kernels in notes.items():
         head = open(os.path.join(csrc, name)).read().split("#include")[0]
         assert "Replaces" in head and "bounds it" in head

@@ -4,11 +4,12 @@ H100.
 The JAX package ``tosem_tpu`` stays the reference; this package is built
 beside it slice by slice, with every Pallas kernel on a slice's path
 rewritten by hand in CUDA C++ for ``sm_90a``. Ported so far (the BERT
-serving and training slices):
+serving and training slices, and the BERT kernel suite):
 
-- ``tosem_tpu_torch.ops``     flash attention forward and backward and
-                              paged decode kernels (``ops/csrc``), their
-                              plain versions, the backend registry
+- ``tosem_tpu_torch.ops``     flash attention forward and backward, paged
+                              decode, fused layernorm and softmax kernels
+                              (``ops/csrc``), their plain versions, the
+                              backend registry, the BERT kernel suite
 - ``tosem_tpu_torch.nn``      layers and attention as ``nn.Module``s
 - ``tosem_tpu_torch.models``  BERT encoder / causal decoder, and the
                               converter for JAX-package parameters
@@ -17,6 +18,8 @@ serving and training slices):
 - ``tosem_tpu_torch.train``   train state, AdamW, MLM loss, train step,
                               ``fit`` with atomic checkpoints and resume
 - ``tosem_tpu_torch.chaos``   the chaos injection seam (``train.step``)
+- ``tosem_tpu_torch.utils``   result CSVs, device timing, the roofline
+- ``tosem_tpu_torch.cli``     the experiment runner (``bert_kernels``)
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 ``import tosem_tpu_torch`` loads neither JAX nor Triton, and builds no
@@ -38,6 +41,10 @@ _LAZY_EXPORTS = {
                          "select_page_size"),
     "paged_attention": ("tosem_tpu_torch.ops.paged_attention",
                         "paged_attention"),
+    "fused_layernorm": ("tosem_tpu_torch.ops.fused_norms", "fused_layernorm"),
+    "fused_softmax": ("tosem_tpu_torch.ops.fused_norms", "fused_softmax"),
+    "bert_kernel_suite": ("tosem_tpu_torch.ops.kernel_suite",
+                          "bert_kernel_suite"),
     "Bert": ("tosem_tpu_torch.models.bert", "Bert"),
     "BertConfig": ("tosem_tpu_torch.models.bert", "BertConfig"),
     "bert_params_from_numpy": ("tosem_tpu_torch.models.convert",

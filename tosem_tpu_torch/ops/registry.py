@@ -1,7 +1,8 @@
 """Kernel-backend registry: which lowering serves a call, and how often
 each kernel launched.
 
-Two kernel families, each with two backends:
+Three kernel families (``flash``, ``paged``, ``norms``), each with two
+backends:
 
 - ``cuda`` — the hand-written CUDA C++ kernel for ``sm_90a``
   (``ops/csrc``). Runs on CUDA tensors only, in fp32 or bf16.
@@ -24,7 +25,7 @@ from __future__ import annotations
 import collections
 from typing import Dict, Optional
 
-FAMILIES = ("flash", "paged")
+FAMILIES = ("flash", "paged", "norms")
 
 BACKEND_CUDA = "cuda"
 BACKEND_TORCH = "torch"
@@ -36,7 +37,8 @@ _CUDA_DTYPES = ("float32", "bfloat16")
 # kernel name -> launches since the last reset
 LAUNCH_COUNTS: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkv": 0,
                                  "flash_bwd_dq": 0, "paged_decode": 0,
-                                 "paged_decode_multi": 0}
+                                 "paged_decode_multi": 0, "ln_fwd": 0,
+                                 "ln_bwd": 0, "sm_fwd": 0, "sm_bwd": 0}
 
 # "family:requested->served" for the dense-mask fallback of flash_attn_fn
 FALLBACK_COUNTS: "collections.Counter[str]" = collections.Counter()
