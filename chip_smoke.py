@@ -20,12 +20,22 @@ Phases, each printing one JSON line:
               suite's shapes, a ragged row count, odd widths and a long
               row, fp32 and bf16, B7 launched twice; timed as device time
               (``utils/timing.DeviceLoopBench``: a CUDA graph of many
-              calls over L2-cold operand copies).
+              calls over L2-cold operand copies). B1-B3's schedule mode
+              (``flash_*_sched``) under seven mask programs at [2, 1024,
+              12, 64], both layouts, fp32 and bf16, with a PARTIAL-as-FULL
+              yardstick, FullMask == dense and CausalMask == causal bit
+              for bit, B2/B3 launched twice; timed at the main paths'
+              shapes beside SDPA with the same dense boolean mask.
 3. decode   — BERT-base greedy decode through ``BertDecodeBackend``'s
               client protocol: 8 packed prompts x 32 new tokens, then a
               prompt that hits the prefix cache, whose stream must equal
               its cold stream with the prefix cache off.
 4. encode   — one padded BERT-base batch through ``BertEncodeBackend``.
+4b. encode_sparse — long-document BERT-base encode: ``BertEncodeBackend``
+              with ``local_window=128`` and with ``doc_len=128``, 8
+              requests of 300-500 ids padded to 512, on B1's schedule
+              mode, against the dense fold on the card and fp32 against
+              the CPU.
 5. cpu      — three short prompts through the port on the card and on
               the CPU with the same weights; first-step logits must agree.
               Two yardsticks beside them: the card's bf16 logits against
@@ -49,16 +59,20 @@ Phases, each printing one JSON line:
               8 x 512, 12 heads of 64, hidden 768, bf16) into a
               temporary CSV: flash attention fwd and fwd+bwd, dense and
               causal (B1-B3), the dense path, layernorm (B6, B7) and
-              softmax (B8, B9). Every row must read under the card's
+              softmax (B8, B9). Then the ``flash_sparse`` leg
+              (``--config=flash_sparse``: causal, local:1024 and
+              doc:2048+causal at [1, 12, 8192, 64] bf16, forward and
+              forward+backward). Every row must read under the card's
               peak (a row above it means a timing window closed early).
 
-``--phases`` picks a subset (default: all eight), e.g. ``build,kernels``
+``--phases`` picks a subset (default: all nine), e.g. ``build,kernels``
 for a first call after a kernel change, ``build,kernels,train`` for the
 training path, or ``build,kernels,suite`` for the kernel suite.
 
 The launch counts of every kernel are set to 0 just before the decode,
-the encode, the train and the suite paths run and read just after; a
-kernel of the path that never launched fails the run. Before the last line it prints the card's name and
+the encode, the sparse encode, the train and the suite paths run and
+read just after; a kernel of the path that never launched fails the
+run. Before the last line it prints the card's name and
 power limit (``nvidia-smi``) and one ``{"kernels": [...]}`` line; the last
 line is ``{"ok": true, "device": {...}}``. Any failure raises.
 """
@@ -110,7 +124,16 @@ LIBRARY_IS = {"ln_fwd": "F.layer_norm",
 LN_SHAPES = ((4096, 768), (4095, 768), (300, 1000), (64, 77), (256, 8192))
 SM_SHAPES = ((49152, 512), (4095, 512), (300, 1000), (64, 77), (256, 8192))
 KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "paged_decode",
-           "paged_decode_multi", "ln_fwd", "ln_bwd", "sm_fwd", "sm_bwd")
+           "paged_decode_multi", "ln_fwd", "ln_bwd", "sm_fwd", "sm_bwd",
+           "flash_fwd_sched", "flash_bwd_dkv_sched", "flash_bwd_dq_sched")
+SCHED = ("flash_fwd_sched", "flash_bwd_dkv_sched", "flash_bwd_dq_sched")
+# B1-B3's schedule mode is checked at [2, SCHED_T, 12, 64] under these
+# mask programs ("mh": 12 heads alternating CausalMask and LocalMask(128);
+# "+segments": segment ids on top of the schedule)
+SCHED_T = 1024
+SPARSE_T = 8192     # the flash_sparse leg's sequence length
+SCHED_MASKS = ("local:256", "local:128:127", "doc:256", "doc:256+causal",
+               "prefix:200", "mh", "doc:256+segments")
 
 SEED = 0            # weights, prompts and kernel inputs
 NEW_TOKENS = 32     # generated per decode prompt
@@ -257,23 +280,23 @@ def run_bwd(q, k, v, do, seg, causal, layout):
     return (dq, dk, dv), lse, delta
 
 
-def plain_bwd(q, k, v, do, lse, delta, seg, causal, layout):
+def plain_bwd(q, k, v, do, lse, delta, seg, causal, layout, mask=None):
     from tosem_tpu_torch.ops import flash_attention as fa
     dk, dv = fa._flash_bwd_dkv_torch(q, k, v, do, lse, delta, seg, causal,
-                                     1.0 / 8.0, layout)
+                                     1.0 / 8.0, layout, mask)
     dq = fa._flash_bwd_dq_torch(q, k, v, do, lse, delta, seg, causal,
-                                1.0 / 8.0, layout)
+                                1.0 / 8.0, layout, mask)
     return dq, dk, dv
 
 
-def plain_bwd_fp32(q, k, v, do, seg, causal, layout):
+def plain_bwd_fp32(q, k, v, do, seg, causal, layout, mask=None):
     """The plain forward and backward on the fp32 copies of the inputs."""
     from tosem_tpu_torch.ops import flash_attention as fa
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     out, lse = fa._flash_attention_torch(qf, kf, vf, seg, causal, 1.0 / 8.0,
-                                         layout)
+                                         layout, mask)
     delta = fa._bwd_delta(dof, out, layout)
-    return plain_bwd(qf, kf, vf, dof, lse, delta, seg, causal, layout)
+    return plain_bwd(qf, kf, vf, dof, lse, delta, seg, causal, layout, mask)
 
 
 def sdpa_fwd_bwd(q, k, v, do, seg):
@@ -366,12 +389,13 @@ def rel_err(g, w):
 
 
 def bwd_rel_check(q, k, v, do, lse, delta, seg, causal, layout, got, same,
-                  ref32):
+                  ref32, mask=None):
     """Hold bf16 B2/B3 gradients to ``BWD_REL`` of their largest element
     against ``same`` (the bf16 plain backward on the kernel's LSE and
     Delta) and ``ref32``, and show that the check catches wrong
     gradients: ``same`` with dK scaled by 1.05, and, where the case has a
-    mask, the plain backward with the mask dropped."""
+    mask (causal, segments or a mask program), the plain backward with
+    the mask dropped."""
     names = ("dq", "dk", "dv")
     out = {"limit": BWD_REL}
     for against, want in (("same", same), ("fp32", ref32)):
@@ -381,7 +405,7 @@ def bwd_rel_check(q, k, v, do, lse, delta, seg, causal, layout, got, same,
               f"flash bwd bf16 {layout}: max|g - w| / max|w| against "
               f"{against} above {BWD_REL}: {r}")
     wrong = {"dk_x1.05": (same[0], same[1].float() * 1.05, same[2])}
-    if causal or seg is not None:
+    if causal or seg is not None or mask is not None:
         wrong["mask_dropped"] = plain_bwd(q, k, v, do, lse, delta, None,
                                           False, layout)
     out["yardsticks"] = {}
@@ -422,6 +446,318 @@ def time_bwd(q, k, v, do, lse, delta, seg, errs, lines, mode):
         out[name] = rec
         if mode == "dense":
             lines[name] = rec
+    return out
+
+
+def sched_mask(name, T):
+    """The mask program of one SCHED_MASKS entry at length T."""
+    from tosem_tpu_torch.ops.mask_programs import (CausalMask, LocalMask,
+                                                   MultiHeadMask,
+                                                   mask_from_spec)
+    if name == "mh":
+        return MultiHeadMask([CausalMask() if h % 2 == 0 else LocalMask(128)
+                              for h in range(12)])
+    return mask_from_spec(name.replace("+segments", ""), T)
+
+
+def sched_programs(mask, T, H=12):
+    """The mask's programs at the kernels' 64 x 64 tiles."""
+    from tosem_tpu_torch.ops.flash_blocks import BlockSizes
+    from tosem_tpu_torch.ops.mask_programs import compile_mask_programs
+    return compile_mask_programs(mask, T, T, BlockSizes(), heads=H)
+
+
+def partial_as_full(progs):
+    """The yardstick the schedule checks must catch: the same programs
+    with every PARTIAL entry read as FULL (the bitmaps ignored)."""
+    import numpy as np
+    from tosem_tpu_torch.ops.mask_programs import KIND_FULL, KIND_PARTIAL
+    return type(progs)(*(s._replace(kind=np.where(
+        s.kind == KIND_PARTIAL, KIND_FULL, s.kind).astype(np.int32))
+        for s in progs))
+
+
+def seg_ids(dev, B, T, lengths=None):
+    """Segment ids with q == kv: each row cut into ids 1 and 2 and a tail
+    of 3, so every query still sees itself; or, with ``lengths``, the
+    encoder's key padding (q ids 1, kv ids 1 on the first n keys)."""
+    import torch
+    from tosem_tpu_torch.ops.flash_attention import SegmentIds
+    if lengths is not None:
+        kv = torch.zeros(B, T, dtype=torch.int32)
+        for b, n in enumerate(lengths):
+            kv[b, :n] = 1
+        return SegmentIds(torch.ones(B, T, dtype=torch.int32, device=dev),
+                          kv.to(dev))
+    ids = torch.ones(B, T, dtype=torch.int32)
+    for b in range(B):
+        ids[b, 300 + 100 * b:] = 2
+        ids[b, T - 137 * (b + 1):] = 3
+    ids = ids.to(dev)
+    return SegmentIds(ids, ids)
+
+
+def run_sched(q, k, v, do, seg, progs, layout):
+    """B1, Delta, B2 and B3 in schedule mode. Returns ``(out, lse, (dq,
+    dk, dv), delta)``."""
+    from tosem_tpu_torch.ops import flash_attention as fa
+    out, lse = fa._flash_fwd_cuda(q, k, v, seg, False, 1.0 / 8.0, layout,
+                                  progs)
+    delta = fa._bwd_delta(do, out, layout)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, seg, False,
+                                    1.0 / 8.0, layout, progs)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, seg, False,
+                               1.0 / 8.0, layout, progs)
+    return out, lse, (dq, dk, dv), delta
+
+
+def sdpa_mask(mask, seg, T, dev):
+    """The dense boolean attn_mask of a mask program (and segment ids)
+    for the SDPA yardstick: [1|B, 12|1, T, T]."""
+    import torch
+    dm = torch.as_tensor(mask.dense(T, T), device=dev)
+    dm = dm[None, None] if dm.ndim == 2 else dm[None]
+    if seg is not None:
+        dm = dm & (seg.q[:, :, None] == seg.kv[:, None, :])[:, None]
+    return dm
+
+
+def sched_work(q, layout, frac, which, seg):
+    """(bytes, operations) of a schedule-mode kernel on these inputs: q,
+    k, v (and dO, LSE, Delta for the backward) and segment ids read
+    once, the outputs written once; the dense operations (4, 8 or 6 * D
+    per pair) times the schedule's executed-block fraction."""
+    if layout == "bthd":
+        B, T, H, D = q.shape
+    else:
+        B, H, T, D = q.shape
+    el = q.element_size()
+    tensors = {"fwd": 4, "dkv": 6, "dq": 5}[which]
+    stats = {"fwd": 1, "dkv": 2, "dq": 2}[which]
+    nbytes = tensors * B * T * H * D * el + stats * B * H * T * 4
+    if seg is not None:
+        nbytes += 2 * B * T * 4
+    per_pair = {"fwd": 4, "dkv": 8, "dq": 6}[which] * D
+    return nbytes, per_pair * B * H * T * T * frac
+
+
+def sched_grad_errs(got, want, same, atol, rtol):
+    """(max abs error per gradient, all within atol + rtol * |want|)."""
+    errs, ok = {}, True
+    for name, g, w, s in zip(("dq", "dk", "dv"), got, want, same):
+        diff = (g.float() - w.float()).abs()
+        errs[name] = diff.max().item()
+        errs[name + "_vs_same_dtype"] = (g.float() - s.float()).abs() \
+            .max().item()
+        ok &= bool((diff <= atol + rtol * w.float().abs()).all().item())
+    return errs, ok
+
+
+def sched_cases(dev, gen):
+    """B1-B3 in schedule mode against their plain versions (the mask
+    folded densely) at [2, 1024, 12, 64], both layouts, fp32 and bf16,
+    under every SCHED_MASKS program; B2/B3 launched twice, bit for bit;
+    the PARTIAL-as-FULL yardstick caught; FullMask == dense and
+    CausalMask == causal bit for bit, forward and backward."""
+    import torch
+    from tosem_tpu_torch.ops import flash_attention as fa
+    from tosem_tpu_torch.ops.common import precision
+    from tosem_tpu_torch.ops.mask_programs import (KIND_PARTIAL, CausalMask,
+                                                   FullMask)
+    B, T, H, D = 2, SCHED_T, 12, 64
+    cases = []
+    for name in SCHED_MASKS:
+        mask = sched_mask(name, T)
+        progs = sched_programs(mask, T)
+        has_partial = any(bool((s.kind == KIND_PARTIAL).any())
+                          for s in progs)
+        for dtype in ("float32", "bfloat16"):
+            for layout in ("bthd", "bhtd"):
+                tdt = getattr(torch, dtype)
+                shape = (B, T, H, D) if layout == "bthd" else (B, H, T, D)
+                q, k, v, do = (torch.randn(*shape, generator=gen).to(tdt)
+                               .to(dev) for _ in range(4))
+                seg = seg_ids(dev, B, T) if name.endswith("+segments") \
+                    else None
+                out, lse, got, delta = run_sched(q, k, v, do, seg, progs,
+                                                 layout)
+                _, _, again, _ = run_sched(q, k, v, do, seg, progs, layout)
+                ref, ref_lse = fa._flash_attention_torch(
+                    q, k, v, seg, False, 1.0 / 8.0, layout, mask)
+                with precision("float32"):
+                    ref32 = plain_bwd_fp32(q, k, v, do, seg, False, layout,
+                                           mask)
+                    same = plain_bwd(q, k, v, do, lse, delta, seg, False,
+                                     layout, mask)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                lse_err = (lse - ref_lse).abs().max().item()
+                check(err <= TOL["flash"][dtype] and lse_err <= 1e-3,
+                      f"flash_fwd_sched {name} {dtype} {layout}: err {err}, "
+                      f"lse {lse_err}")
+                atol, rtol = BWD_TOL[dtype]
+                want = ref32 if dtype == "bfloat16" else same
+                errs, ok = sched_grad_errs(got, want, same, atol, rtol)
+                check(ok, f"flash bwd sched {name} {dtype} {layout} outside "
+                          f"atol {atol} / rtol {rtol}: {errs}")
+                bits = all(torch.equal(a, b) for a, b in zip(got, again))
+                check(bits, f"flash bwd sched {name} {dtype} {layout} "
+                            "differs between two launches")
+                rec = {"kernel": "flash_*_sched", "mask": name,
+                       "dtype": dtype, "layout": layout,
+                       "shape": list(shape), "max_abs_err": err,
+                       "lse_err": lse_err, "grad_err": errs,
+                       "bit_deterministic": bits}
+                if dtype == "bfloat16":
+                    rec["rel_err"] = bwd_rel_check(
+                        q, k, v, do, lse, delta, seg, False, layout, got,
+                        same, ref32, mask)
+                if (dtype, layout) == ("float32", "bthd"):
+                    rec["partial_as_full"] = sched_yardstick(
+                        q, k, v, do, seg, progs, layout, ref, want, same,
+                        has_partial, name)
+                cases.append(rec)
+                del got, again, ref32, same
+    # bit pins: FullMask == dense, CausalMask == causal (fwd and bwd)
+    for dtype in ("bfloat16", "float32"):
+        tdt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn(B, T, H, D, generator=gen).to(tdt).to(dev)
+                       for _ in range(4))
+        pins = {}
+        for mask, causal in ((FullMask(), False), (CausalMask(), True)):
+            o1, l1, g1, _ = run_sched(q, k, v, do, None,
+                                      sched_programs(mask, T), "bthd")
+            g0, l0, _ = run_bwd(q, k, v, do, None, causal, "bthd")
+            o0, _ = run_flash(q, k, v, None, causal)
+            same = (torch.equal(o0, o1) and torch.equal(l0, l1)
+                    and all(torch.equal(a, b) for a, b in zip(g0, g1)))
+            pins[mask.signature()] = same
+            check(same, f"mask={mask.signature()} differs from the "
+                        f"{'causal' if causal else 'dense'} mode ({dtype})")
+        cases.append({"kernel": "flash_*_sched", "dtype": dtype,
+                      "shape": [B, T, H, D], "bit_equal_to_dense_modes": pins})
+    torch.cuda.empty_cache()
+    return cases
+
+
+def sched_yardstick(q, k, v, do, seg, progs, layout, ref, want, same,
+                    has_partial, name):
+    """Run the PARTIAL-as-FULL programs and show the checks fail on them
+    (where the schedule has partial entries at all)."""
+    import torch
+    if not has_partial:
+        return "no partial entries"
+    out, _, got, _ = run_sched(q, k, v, do, seg, partial_as_full(progs),
+                               layout)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    atol, rtol = BWD_TOL["float32"]
+    errs, ok = sched_grad_errs(got, want, same, atol, rtol)
+    check(err > TOL["flash"]["float32"] and not ok,
+          f"the schedule checks missed PARTIAL-as-FULL under {name}: "
+          f"fwd {err}, bwd {errs}")
+    return {"fwd_err": err, "bwd_err": errs}
+
+
+def time_sched(dev, gen, lines):
+    """The three kernels lines of the schedule mode, each at the shapes
+    its main path gives it: B1 at the long-document encode's [8, 512, 12,
+    64] bthd bf16 under local:128:127 with key padding; B2/B3 at the
+    flash_sparse leg's [1, 12, 8192, 64] bhtd bf16 under local:1024.
+    Each checked against its plain version, timed by CUDA events beside
+    its plain version, its bound and SDPA with the same dense mask."""
+    import torch
+    import torch.nn.functional as F
+    from tosem_tpu_torch.ops import flash_attention as fa
+    from tosem_tpu_torch.ops.common import precision
+    from tosem_tpu_torch.ops.flash_blocks import BlockSizes
+    from tosem_tpu_torch.ops.mask_programs import (mask_from_spec,
+                                                   program_stats)
+    out = {}
+    # B1 at the encode path's shape
+    B, T, H, D = 8, 512, 12, 64
+    mask = mask_from_spec("local:128:127", T)
+    progs = sched_programs(mask, T)
+    frac = program_stats(mask, T, T, BlockSizes(), heads=H)["fwd"].fraction
+    q, k, v = (torch.randn(B, T, H, D, generator=gen).to(torch.bfloat16)
+               .to(dev) for _ in range(3))
+    lengths = [300 + 25 * b for b in range(B)]
+    seg = seg_ids(dev, B, T, lengths=lengths)
+    got, _ = fa._flash_fwd_cuda(q, k, v, seg, False, 1.0 / 8.0, "bthd", progs)
+    ref, _ = fa._flash_attention_torch(q, k, v, seg, False, 1.0 / 8.0, "bthd",
+                                       mask)
+    torch.cuda.synchronize()
+    # real query rows only: a padded query whose band holds no real key
+    # has no visible key, and its row is garbage by design (the kernel
+    # averages its scheduled tiles, the plain version every key)
+    err = max((got[b, :n].float() - ref[b, :n].float()).abs().max().item()
+              for b, n in enumerate(lengths))
+    check(err <= TOL["flash"]["bfloat16"], f"flash_fwd_sched encode {err}")
+    am = sdpa_mask(mask, seg, T, dev)
+    nbytes, ops = sched_work(q, "bthd", frac, "fwd", seg)
+    b_ms, b_by = bound(nbytes, ops, "bfloat16")
+    lines["flash_fwd_sched"] = out["flash_fwd_sched"] = {
+        "ms": cuda_ms(lambda: fa._flash_fwd_cuda(q, k, v, seg, False,
+                                                 1.0 / 8.0, "bthd", progs)),
+        "plain_ms": cuda_ms(lambda: fa._flash_attention_torch(
+            q, k, v, seg, False, 1.0 / 8.0, "bthd", mask), iters=5),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=am, scale=1.0 / 8.0)),
+        "library_is": "sdpa with the same dense boolean attn_mask",
+        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+        "executed_block_fraction": frac, "mask": "local:128:127+segments",
+        "dtype": "bfloat16", "shape": [B, T, H, D]}
+    del q, k, v, got, ref, am
+    # B2 / B3 at the flash_sparse leg's shape
+    B, H, T, D = 1, 12, SPARSE_T, 64
+    mask = mask_from_spec("local:1024", T)
+    progs = sched_programs(mask, T)
+    frac = program_stats(mask, T, T, BlockSizes(), heads=H)["bwd"].fraction
+    q, k, v, do = (torch.randn(B, H, T, D, generator=gen).to(torch.bfloat16)
+                   .to(dev) for _ in range(4))
+    _, lse, got, delta = run_sched(q, k, v, do, None, progs, "bhtd")
+    with precision("float32"):
+        ref32 = plain_bwd_fp32(q, k, v, do, None, False, "bhtd", mask)
+        same = plain_bwd(q, k, v, do, lse, delta, None, False, "bhtd", mask)
+    torch.cuda.synchronize()
+    rel = bwd_rel_check(q, k, v, do, lse, delta, None, False, "bhtd", got,
+                        same, ref32, mask)
+    errs = {n: (g.float() - w.float()).abs().max().item()
+            for n, g, w in zip(("dq", "dk", "dv"), got, ref32)}
+    del ref32
+    am = sdpa_mask(mask, None, T, dev)
+
+    def sdpa_step():
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am,
+                                           scale=1.0 / 8.0)
+        return torch.autograd.grad(o, (qs, ks, vs), do)
+    port_ms = cuda_ms(lambda: run_sched(q, k, v, do, None, progs, "bhtd"),
+                      iters=10)
+    sdpa_ms = cuda_ms(sdpa_step, iters=10)
+    args = (q, k, v, do, lse, delta, None, False, 1.0 / 8.0, "bhtd")
+    for name, kern, plain, err in (
+            ("flash_bwd_dkv_sched", fa._flash_bwd_dkv_cuda,
+             fa._flash_bwd_dkv_torch, max(errs["dk"], errs["dv"])),
+            ("flash_bwd_dq_sched", fa._flash_bwd_dq_cuda,
+             fa._flash_bwd_dq_torch, errs["dq"])):
+        which = name[len("flash_bwd_"):-len("_sched")]
+        nbytes, ops = sched_work(q, "bhtd", frac, which, None)
+        b_ms, b_by = bound(nbytes, ops, "bfloat16")
+        lines[name] = out[name] = {
+            "ms": cuda_ms(lambda: kern(*args, progs), iters=10),
+            "plain_ms": cuda_ms(lambda: plain(*args, mask), iters=3,
+                                warmup=1),
+            "library_ms": sdpa_ms, "library_is": "sdpa fwd+bwd with the "
+            "same dense boolean attn_mask, combined; compare "
+            "port_fwd_bwd_ms", "port_fwd_bwd_ms": port_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "rel_err": rel, "executed_block_fraction": frac,
+            "mask": "local:1024", "dtype": "bfloat16",
+            "shape": [B, H, T, D]}
+    del q, k, v, do, got, same, am
+    torch.cuda.empty_cache()
     return out
 
 
@@ -716,6 +1052,9 @@ def phase_kernels(dev, seed):
                 lines["paged_decode_multi"] = rec
             cases.append(rec)
     cases += bwd_cases(dev, gen, lines)
+    cases += sched_cases(dev, gen)
+    cases.append({"kernel": "flash_*_sched", "timed": time_sched(dev, gen,
+                                                                 lines)})
     emit({"phase": "kernels", "cases": cases})
     return lines
 
@@ -826,6 +1165,111 @@ def phase_encode(dev, seed):
           "flash_launches": counts["flash_fwd"], "launches": counts})
     del be
     torch.cuda.empty_cache()
+    return counts
+
+
+def dense_fold_fn(mask):
+    """An attn_fn that runs the dense path with a mask program folded
+    into the key-padding mask: the reference the sparse encode is held
+    against."""
+    import torch
+    from tosem_tpu_torch.nn.attention import dot_product_attention
+
+    def core(q, k, v, attn_mask):
+        T = q.shape[1]
+        dm = torch.as_tensor(mask.dense(T, T), device=q.device)[None, None]
+        return dot_product_attention(q, k, v, attn_mask.bool() & dm)
+    return core
+
+
+def phase_encode_sparse(dev, seed):
+    """Long-document BERT-base encode: ``BertEncodeBackend(preset="base",
+    max_batch=8)`` with ``local_window=128`` (routes to local:128:127)
+    and with ``doc_len=128`` (doc:128), 8 requests of 300-500 ids padded
+    to 512. Each batch must run B1 in schedule mode (12 launches, no
+    dense B1) and tally ``cuda:<signature>``; real-token encodings must
+    match the same weights with the mask folded densely on the card
+    within 2e-2 of the largest value, where a wrong mask (doc:96) must
+    fail; one fp32 request must match the CPU within 1e-3. Padded query
+    rows are left out of every comparison. The local-window batch is
+    also profiled, for B1's device time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tosem_tpu_torch.models.bert import Bert, BertConfig, pad_ids_batch
+    from tosem_tpu_torch.nn.attention import (FLASH_DISPATCH_COUNTS,
+                                              flash_attn_fn)
+    from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.ops.mask_programs import mask_from_spec
+    from tosem_tpu_torch.serve.backends import BertEncodeBackend
+    rng = np.random.default_rng(seed + 4)
+    T, limit = 512, 2e-2
+    lens = [int(n) for n in rng.integers(300, 501, size=8)]
+    reqs = [{"ids": [int(t) for t in rng.integers(0, 30522, size=n)]}
+            for n in lens]
+    counts, out = {}, {"lens": lens}
+    for kw, spec in (({"local_window": 128}, "local:128:127"),
+                     ({"doc_len": 128}, "doc:128")):
+        be = BertEncodeBackend(preset="base", max_batch=8, device=dev,
+                               seed=seed, pooled=False, **kw)
+        mask = mask_from_spec(spec, T)
+        be.call_batch(reqs)          # first call: set-up out of the timing
+        torch.cuda.synchronize()
+        registry.reset_launch_counts()
+        tally = dict(FLASH_DISPATCH_COUNTS)
+        t0 = time.perf_counter()
+        got = be.call_batch(reqs)
+        ms = (time.perf_counter() - t0) * 1e3
+        c = dict(registry.LAUNCH_COUNTS)
+        key = f"cuda:{mask.signature()}"
+        served = FLASH_DISPATCH_COUNTS[key] - tally.get(key, 0)
+        check(c["flash_fwd_sched"] == 12 and c["flash_fwd"] == 0,
+              f"encode {spec}: launches {c}")
+        check(served == 12, f"encode {spec}: tally {key} rose by {served}")
+        ids, am, _ = pad_ids_batch([r["ids"] for r in reqs], T,
+                                   pad_batch_to=8)
+        ids, am = (torch.as_tensor(x, device=dev) for x in (ids, am))
+
+        def gap(fn):
+            want = be.model.encode_fn(attn_fn=fn)(ids, am).float().cpu()
+            rows = [(g["encoding"], want[i, :n].numpy())
+                    for i, (g, n) in enumerate(zip(got, lens))]
+            scale = max(np.abs(w).max() for _, w in rows)
+            return float(max(np.abs(g - w).max() for g, w in rows) / scale)
+        sound = gap(dense_fold_fn(mask))
+        wrong = gap(dense_fold_fn(mask_from_spec("doc:96", T)))
+        check(sound <= limit, f"encode {spec}: card vs dense fold {sound}")
+        check(wrong > limit, f"encode {spec}: the check missed doc:96 "
+                             f"({wrong})")
+        rec = {"batch_ms": ms, "launches": c, "tally": {key: served},
+               "rel_gap_vs_dense_fold": sound, "wrong_mask_doc96": wrong}
+        if spec.startswith("local"):
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            wall = _timed(lambda: be.call_batch(reqs))
+            traced = _timed(lambda: be.call_batch(reqs), prof)
+            rec["profile"] = _device_breakdown(prof, wall, traced, 1)
+        out[spec] = rec
+        for name, n in c.items():
+            counts[name] = counts.get(name, 0) + n
+        del be
+        torch.cuda.empty_cache()
+    # one fp32 request, card against CPU, on the same weights
+    mask = mask_from_spec("local:128:127", T)
+    ids, am, _ = pad_ids_batch([reqs[0]["ids"]], T, pad_batch_to=1)
+    enc = {}
+    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+    for where in (dev, "cpu"):
+        m = Bert(BertConfig(dtype="float32"), device=where, seed=seed)
+        x = m.encode_fn(attn_fn=flash_attn_fn(mask=mask))(
+            torch.as_tensor(ids, device=where), torch.as_tensor(am,
+                                                                device=where))
+        enc[where] = x[0, :lens[0]].float().cpu()
+        del m
+    fp32 = (enc[dev] - enc["cpu"]).abs().max().item()
+    check(fp32 <= 1e-3, f"fp32 sparse encode card vs CPU {fp32}")
+    out["fp32_card_vs_cpu"] = fp32
+    emit({"phase": "encode_sparse", "limit": limit, **out})
     return counts
 
 
@@ -1306,14 +1750,69 @@ def phase_suite():
           "hidden768 bf16", "seconds": seconds,
           "rows": out, "columns": ["bench_id", "value", "unit", "time_us",
                                    "share_of_peak"], "launches": counts})
+    sparse = phase_suite_sparse()
+    return {k: counts[k] + sparse[k] for k in counts}
+
+
+def phase_suite_sparse():
+    """The ``flash_sparse`` leg through the runner at its on-chip
+    defaults ([1, 12, 8192, 64] bf16; causal, local:1024 and
+    doc:2048+causal, fwd and fwd+bwd): 6 rows under the card's peak, each
+    row's executed-block fraction equal to the port's program_stats, and
+    B1-B3's schedule mode launched. Returns its launch counts."""
+    import math
+    import tempfile
+
+    from tosem_tpu_torch import cli
+    from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.ops.flash_blocks import BlockSizes
+    from tosem_tpu_torch.ops.mask_programs import (mask_from_spec,
+                                                   program_stats)
+    from tosem_tpu_torch.utils.results import read_results
+    from tosem_tpu_torch.utils.roofline import peak_gflops
+    with tempfile.TemporaryDirectory(prefix="torch_sparse_") as d:
+        path = os.path.join(d, "flash_sparse.csv")
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["--config=flash_sparse", f"--results_csv={path}"])
+        seconds = time.perf_counter() - t0
+        counts = dict(registry.LAUNCH_COUNTS)
+        check(rc == 0, f"the flash_sparse leg exited {rc}")
+        rows = read_results(path)
+    check(len(rows) == 6, f"{len(rows)} flash_sparse rows, expected 6")
+    specs = {"causal": "causal", "local1024": "local:1024",
+             "docpack2048": "doc:2048+causal"}
+    out = []
+    for r in rows:
+        peak = peak_gflops(r["extra"]["dtype"])
+        check(math.isfinite(r["value"]) and 0 < r["value"] < peak,
+              f"{r['bench_id']} reads {r['value']} {r['unit']}, outside "
+              f"(0, {peak})")
+        name = r["bench_id"].split("_")[2]
+        stats = program_stats(mask_from_spec(specs[name], 8192), 8192, 8192,
+                              BlockSizes(), heads=12)
+        want = stats["bwd" if "fwdbwd" in r["bench_id"] else "fwd"].fraction
+        check(r["extra"]["executed_block_fraction"] == want,
+              f"{r['bench_id']}: fraction {r['extra']['executed_block_fraction']}"
+              f" != program_stats {want}")
+        out.append([r["bench_id"], r["value"], r["unit"],
+                    r["extra"]["time_us"], r["value"] / peak,
+                    r["extra"]["executed_block_fraction"]])
+    for name in SCHED:
+        check(counts[name] > 0, f"{name} never launched in flash_sparse")
+    emit({"phase": "suite_sparse", "config": "flash_sparse b1 t8192 h12 d64 "
+          "bf16", "seconds": seconds, "rows": out,
+          "columns": ["bench_id", "value", "unit", "time_us",
+                      "share_of_peak", "executed_block_fraction"],
+          "launches": counts})
     return counts
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,decode,encode,cpu,profile,train,"
-                            "suite")
+                    default="build,kernels,decode,encode,encode_sparse,cpu,"
+                            "profile,train,suite")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(ROOT, "tosem_tpu_torch")):
@@ -1344,6 +1843,9 @@ def main(argv=None):
     if "encode" in phases:
         for k, n in phase_encode(dev, SEED).items():
             launches[k] += n
+    if "encode_sparse" in phases:
+        for k, n in phase_encode_sparse(dev, SEED).items():
+            launches[k] += n
     if "cpu" in phases:
         phase_cpu(dev, SEED)
     if "profile" in phases:
@@ -1371,7 +1873,13 @@ def main(argv=None):
             "ln_fwd": ("fused_norms.cu", "tosem_tpu/ops/fused_norms.py:39"),
             "ln_bwd": ("fused_norms.cu", "tosem_tpu/ops/fused_norms.py:55"),
             "sm_fwd": ("fused_norms.cu", "tosem_tpu/ops/fused_norms.py:145"),
-            "sm_bwd": ("fused_norms.cu", "tosem_tpu/ops/fused_norms.py:152")}
+            "sm_bwd": ("fused_norms.cu", "tosem_tpu/ops/fused_norms.py:152"),
+            "flash_fwd_sched": ("flash_fwd.cu",
+                                "tosem_tpu/ops/flash_attention.py:272"),
+            "flash_bwd_dkv_sched": ("flash_bwd.cu",
+                                    "tosem_tpu/ops/flash_attention.py:402"),
+            "flash_bwd_dq_sched": ("flash_bwd.cu",
+                                   "tosem_tpu/ops/flash_attention.py:471")}
     kernels = []
     for name, (f, replaces) in meta.items():
         rec = lines.get(name, {})

@@ -7,9 +7,10 @@ import torch
 
 torch.set_num_threads(1)
 
-# the scenario modes this slice ports: dense, causal, segment ids, both
-# layouts (mask programs wait for the schedule slice)
-PORTED = ("dense", "causal", "segments", "causal_segments", "bthd_layout")
+# the scenario modes of the flash matrix: dense, causal, segment ids,
+# both layouts, and the block-sparse mask programs (with segment ids)
+PORTED = ("dense", "causal", "segments", "causal_segments", "bthd_layout",
+          "local_mask", "prefix_mask", "doc_mask", "doc_mask_segments")
 
 
 def _scenarios():
@@ -26,22 +27,27 @@ def to_torch(x):
     return array_to_tensor(np.asarray(x))
 
 
-def _port_args(args, kwargs):
+def _port_args(args, kwargs, spec=None):
     from tosem_tpu_torch.ops.flash_attention import SegmentIds
     q, k, v = (to_torch(a) for a in args)
     seg = kwargs.get("segment_ids")
     if seg is not None:
         seg = SegmentIds(to_torch(seg.q), to_torch(seg.kv))
+    layout = kwargs.get("layout", "bhtd")
+    mask = None
+    if spec is not None:
+        # the same mask program, built by the port from the scenario's spec
+        from tosem_tpu_torch.ops.mask_programs import mask_from_spec
+        mask = mask_from_spec(spec, q.shape[2 if layout == "bhtd" else 1])
     return q, k, v, dict(causal=bool(kwargs.get("causal")),
-                         segment_ids=seg,
-                         layout=kwargs.get("layout", "bhtd"))
+                         segment_ids=seg, mask=mask, layout=layout)
 
 
 def _run_port(sc):
     from tosem_tpu.ops import parity
     from tosem_tpu_torch.ops.flash_attention import flash_attention
     args, kwargs = parity.build_case(sc)
-    q, k, v, kw = _port_args(args, kwargs)
+    q, k, v, kw = _port_args(args, kwargs, sc.p().get("mask"))
     return flash_attention(q, k, v, backend="torch", **kw).float().numpy()
 
 

@@ -39,6 +39,21 @@ def test_import_loads_neither_jax_nor_triton():
     assert out.stdout.strip() == "[]"
 
 
+@pytest.mark.parametrize("module", ["tosem_tpu_torch.ops.mask_programs",
+                                    "tosem_tpu_torch.data.feeding"])
+def test_copied_modules_import_alone(module):
+    """The mask-program compiler and the feeding rule are copies of JAX
+    package modules: importing either loads neither JAX nor the JAX
+    package."""
+    code = (f"import sys, {module}; "
+            "print(sorted(m for m in ('jax', 'triton', 'tosem_tpu') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.stdout.strip() == "[]"
+
+
 def test_no_module_imports_the_jax_package():
     offenders = []
     for path in _package_files():
@@ -90,7 +105,7 @@ def test_cuda_tensor_never_resolves_to_the_plain_version():
         registry.resolve("flash", platform="cuda", dtype="float16")
 
 
-@pytest.mark.parametrize("family", ["flash", "paged", "norms"])
+@pytest.mark.parametrize("family", ["flash", "schedule", "paged", "norms"])
 @pytest.mark.parametrize("backend,platform,dtype,served", [
     (None, "cuda", "bfloat16", "cuda"), (None, "cuda", "float32", "cuda"),
     ("cuda", "cuda", None, "cuda"), (None, "cpu", "float16", "torch"),
@@ -111,7 +126,7 @@ def test_resolve_decides_by_platform_and_dtype_alone(family, backend,
 def test_resolve_rejects_an_unknown_family():
     from tosem_tpu_torch.ops import registry
     with pytest.raises(ValueError, match="family"):
-        registry.resolve("schedule", platform="cpu")
+        registry.resolve("nope", platform="cpu")
 
 
 def test_registry_has_the_norms_family_and_its_counts():

@@ -190,10 +190,16 @@ def test_device_loop_bench_times_on_the_host_for_cpu_tensors():
     assert gflops(2e9, 2.0) == 1.0
 
 
-def test_sparse_suite_names_its_roadmap_item():
-    from tosem_tpu_torch.ops.kernel_suite import sparse_kernel_suite
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sparse_kernel_suite(seq=8192)
+def test_sparse_suite_names_its_roadmap_item(capsys):
+    """The flash_sparse leg runs (plain versions on the CPU) without a
+    block sweep, and says that block selection is ROADMAP.md A4."""
+    import argparse
+    from tosem_tpu_torch import cli
+    rows = cli.run_flash_sparse(argparse.Namespace(batch=None, seq=128),
+                                torch.device("cpu"))
+    assert len(rows) == 6
+    assert {r.extra["blocks_src"] for r in rows} == {"fixed"}
+    assert "ROADMAP.md A4" in capsys.readouterr().out
 
 
 def _cli(*args):
@@ -220,7 +226,7 @@ def test_cli_writes_the_suite_csv_on_cpu(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--device=cpu", "--config=gemm"], "A12"),
     (["--device=cpu", "--config=bert_train"], "A12"),
-    (["--device=cpu", "--config=flash_sparse"], "Next slices"),
+    (["--device=cpu", "--config=flash_autotune"], "A4"),
     (["microbench"], "A12")])
 def test_cli_names_the_roadmap_item_of_an_unported_config(argv, item):
     out = _cli(*argv)

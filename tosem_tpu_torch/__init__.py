@@ -4,12 +4,17 @@ H100.
 The JAX package ``tosem_tpu`` stays the reference; this package is built
 beside it slice by slice, with every Pallas kernel on a slice's path
 rewritten by hand in CUDA C++ for ``sm_90a``. Ported so far (the BERT
-serving and training slices, and the BERT kernel suite):
+serving and training slices, the BERT kernel suite, and block-sparse
+mask programs):
 
-- ``tosem_tpu_torch.ops``     flash attention forward and backward, paged
+- ``tosem_tpu_torch.ops``     flash attention forward and backward (dense,
+                              causal, segment ids, and the schedule mode
+                              of a block-sparse mask program), paged
                               decode, fused layernorm and softmax kernels
                               (``ops/csrc``), their plain versions, the
-                              backend registry, the BERT kernel suite
+                              mask-program compiler, the backend
+                              registry, the BERT and sparse kernel suites
+- ``tosem_tpu_torch.data``    padding buckets and the sparse routing rule
 - ``tosem_tpu_torch.nn``      layers and attention as ``nn.Module``s
 - ``tosem_tpu_torch.models``  BERT encoder / causal decoder, and the
                               converter for JAX-package parameters
@@ -19,7 +24,8 @@ serving and training slices, and the BERT kernel suite):
                               ``fit`` with atomic checkpoints and resume
 - ``tosem_tpu_torch.chaos``   the chaos injection seam (``train.step``)
 - ``tosem_tpu_torch.utils``   result CSVs, device timing, the roofline
-- ``tosem_tpu_torch.cli``     the experiment runner (``bert_kernels``)
+- ``tosem_tpu_torch.cli``     the experiment runner (``bert_kernels``,
+                              ``flash_sparse``)
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 ``import tosem_tpu_torch`` loads neither JAX nor Triton, and builds no
@@ -37,6 +43,16 @@ _LAZY_EXPORTS = {
     "flash_attention": ("tosem_tpu_torch.ops.flash_attention",
                         "flash_attention"),
     "BlockSizes": ("tosem_tpu_torch.ops.flash_blocks", "BlockSizes"),
+    # block-sparse mask programs: the schedule mode of B1-B3
+    "FullMask": ("tosem_tpu_torch.ops.mask_programs", "FullMask"),
+    "CausalMask": ("tosem_tpu_torch.ops.mask_programs", "CausalMask"),
+    "LocalMask": ("tosem_tpu_torch.ops.mask_programs", "LocalMask"),
+    "PrefixLMMask": ("tosem_tpu_torch.ops.mask_programs", "PrefixLMMask"),
+    "DocumentMask": ("tosem_tpu_torch.ops.mask_programs", "DocumentMask"),
+    "MultiHeadMask": ("tosem_tpu_torch.ops.mask_programs", "MultiHeadMask"),
+    "mask_from_spec": ("tosem_tpu_torch.ops.mask_programs", "mask_from_spec"),
+    "compile_mask_programs": ("tosem_tpu_torch.ops.mask_programs",
+                              "compile_mask_programs"),
     "select_page_size": ("tosem_tpu_torch.ops.flash_blocks",
                          "select_page_size"),
     "paged_attention": ("tosem_tpu_torch.ops.paged_attention",

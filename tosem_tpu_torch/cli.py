@@ -14,6 +14,13 @@ JAX package's CPU shapes (batch 1, seq 128, heads 2, head_dim 32, hidden
 64). ``--device=cuda`` (the default) with no card exits 1. Every other
 config of the JAX package exits 2 and names the ``ROADMAP.md`` item that
 ports it.
+
+``--config=flash_sparse`` runs ``sparse_kernel_suite``: flash forward and
+forward+backward under the block-sparse mask programs causal,
+``local:1024`` and ``doc:2048+causal`` at [1, 12, 8192, 64] bf16 on the
+card (the JAX package's on-chip defaults), or at seq 512, 2 heads of 32,
+fp32, window 128 with ``--device=cpu``. It has no block sweep: the
+kernels' tiles are fixed (block selection is ``ROADMAP.md`` A4).
 """
 from __future__ import annotations
 
@@ -34,7 +41,6 @@ NOT_PORTED = {
     "bert_train": "A12 (the CLI's bert_train leg)",
     "flash_autotune": "A4 (block selection and its cache)",
     "autotune_decode_pages": "A4 (block selection and its cache)",
-    "flash_sparse": "'Next slices' item 1 (A1, A4: mask programs)",
     "detection_train": "A13 (models/efficientdet.py)",
     "detection_infer": "A13 (models/efficientdet.py)",
     "pointpillars_infer": "A13 (models/pointpillars.py)",
@@ -68,7 +74,31 @@ def run_bert_kernels(args, device) -> List[Any]:
     return rows
 
 
-RUNNERS = {"bert_kernels": run_bert_kernels}
+def run_flash_sparse(args, device) -> List[Any]:
+    from tosem_tpu_torch.ops.kernel_suite import sparse_kernel_suite
+    if device.type == "cpu":
+        # plain versions at the JAX package's CPU smoke shape
+        rows = sparse_kernel_suite(batch=args.batch or 1, seq=args.seq or 512,
+                                   heads=2, head_dim=32, dtype="float32",
+                                   window=128, n_iter=1, reps=1,
+                                   device=device)
+    else:
+        seq = args.seq or 8192
+        rows = sparse_kernel_suite(batch=args.batch or max(1, 4096 // seq),
+                                   seq=seq, heads=12, head_dim=64,
+                                   dtype="bfloat16", window=1024,
+                                   device=device)
+    print("  no block sweep: the CUDA kernels' tiles are fixed at 64 x 64 "
+          "(block selection and its sparse cache: ROADMAP.md A4)")
+    for r in rows:
+        print(f"  {r.bench_id} {r.metric}: {r.value:.2f} {r.unit} "
+              f"(executed {r.extra['executed_block_fraction']:.3f}, "
+              f"blocks {r.extra['blocks_src']})")
+    return rows
+
+
+RUNNERS = {"bert_kernels": run_bert_kernels,
+           "flash_sparse": run_flash_sparse}
 
 
 def make_parser() -> argparse.ArgumentParser:

@@ -6,8 +6,12 @@ is the dense reference (masked with ``finfo(float32).min``, as there);
 kernel (``cuda`` on CUDA tensors, its plain ``torch`` version on CPU
 tensors). A ``[B, 1, 1, Tk]`` key-padding mask rides the kernel as
 segment ids (q ids all 1, kv ids the mask), so padded batches stay on the
-kernel. Only a query- or head-dependent dense mask, which no kernel mode
-covers, takes the dense path, and that fallback is counted.
+kernel. ``flash_attn_fn(mask=...)`` takes a block-sparse mask program
+(``LocalMask``, ``DocumentMask``, ...): the kernels run its schedule, and
+the key-padding mask still rides on top as segment ids. Only a query- or
+head-dependent dense mask, which no kernel mode covers, takes the dense
+path, with causality and the mask program folded in, and that fallback
+is counted.
 """
 from __future__ import annotations
 
@@ -70,15 +74,24 @@ def flash_attn_fn(causal: bool = False, precision: str = "default",
                   mask=None, backend: Optional[str] = None):
     """An ``attn_fn`` for :class:`MultiHeadAttention` that runs the flash
     kernel. ``backend`` (``"cuda"``/``"torch"``) must match the operands'
-    device. ``mask`` (a block-sparse mask program) is not ported yet."""
+    device. ``mask`` is a static
+    :class:`~tosem_tpu_torch.ops.mask_programs.Mask` (sliding window,
+    prefix-LM, packed documents, per-head compositions) compiled once
+    into a block schedule, e.g. ``flash_attn_fn(mask=LocalMask(128,
+    right=127))`` for a long-document encoder; on the card the sequence
+    length must then be a multiple of 64. Every call is tallied in
+    :data:`FLASH_DISPATCH_COUNTS` under the backend that served it and
+    the effective mask signature (``mask & CausalMask()`` when
+    causal)."""
     from tosem_tpu_torch.ops import registry
     from tosem_tpu_torch.ops.flash_attention import (SegmentIds,
                                                      mha_flash_attention)
     if mask is not None:
-        raise NotImplementedError(
-            "block-sparse mask programs are not ported yet "
-            "(ROADMAP.md A1 mask_programs.py, B1 schedule mode)")
-    sig = "causal" if causal else "dense"
+        from tosem_tpu_torch.ops.mask_programs import CausalMask
+        sig = (mask & CausalMask()).signature() if causal \
+            else mask.signature()
+    else:
+        sig = "causal" if causal else "dense"
 
     def core(q, k, v, attn_mask):
         B, Tq, Tk = q.shape[0], q.shape[1], k.shape[1]
@@ -92,17 +105,24 @@ def flash_attn_fn(causal: bool = False, precision: str = "default",
                                  device=q.device),
                     kv=kv_mask.to(torch.int32).contiguous())
             out = mha_flash_attention(q, k, v, causal=causal,
-                                      segment_ids=seg, backend=backend)
+                                      segment_ids=seg, mask_program=mask,
+                                      backend=backend)
             _tally(served, sig)
             return out
         # a query- or head-dependent dense mask: no kernel mode covers
         # it, so the dense path serves and the event is counted
         registry.FALLBACK_COUNTS[f"flash:{served}->dense"] += 1
         _tally("dense", sig)
+        attn_mask = attn_mask.bool()
         if causal:
             cm = torch.tril(torch.ones((Tq, Tk), dtype=torch.bool,
                                        device=q.device))[None, None]
-            attn_mask = cm & attn_mask.bool()
+            attn_mask = cm & attn_mask
+        if mask is not None:
+            # [Tq, Tk] (uniform) or [H, Tq, Tk] (per head), over the batch
+            dm = torch.as_tensor(mask.dense(Tq, Tk), device=q.device)
+            attn_mask = attn_mask & (dm[None, None] if dm.ndim == 2
+                                     else dm[None])
         return dot_product_attention(q, k, v, attn_mask,
                                      precision=precision)
     return core

@@ -14,9 +14,23 @@
 // where bf() rounds to the input dtype, as the reference casts p and ds
 // before its dots. Modes: dense, causal (key <= query, top-left aligned,
 // as in flash_fwd.cu) and segment ids (attend where q-id == kv-id), in
-// any combination; Q/K/V/dO and the gradients are addressed through
-// (batch, time, head) strides with a contiguous head dimension, so the
-// [B,H,T,D] and [B,T,H,D] layouts both run without a transposed copy.
+// any combination, or the block schedule of a mask program
+// (`flash_bwd_dkv_sched` / `flash_bwd_dq_sched`, the reference kernels'
+// `scheduled=True` path) with or without segment ids; Q/K/V/dO and the
+// gradients are addressed through (batch, time, head) strides with a
+// contiguous head dimension, so the [B,H,T,D] and [B,T,H,D] layouts both
+// run without a transposed copy.
+//
+// Schedule mode (ops/mask_programs.py compiles it; Tq, Tk multiples of
+// 64): head h reads schedule row hs = min(h, Hs-1). dQ walks the q-major
+// `dq` schedule over K/V tiles, as flash_fwd.cu does. dK/dV walks the
+// kv-major `dkv` schedule: its resident rows are keys and the entries
+// name query tiles. The bitmaps keep (query row, key column) orientation
+// in both majors (one 64-bit word per query row, key j at bit j), so a
+// dK/dV block stages the 64 words of a PARTIAL entry in shared memory and
+// resident key r reads bit r of streamed query i's word. KIND_FULL
+// entries skip the compare; segment ids refine after the bitmap. Entries
+// run in ascending order, the dense loop's order.
 //
 // What bounds it on this card: B2 does 8*B*H*Tq*Tk*d operations (four
 // products per visible pair) and B3 6*B*H*Tq*Tk*d, over about
@@ -40,12 +54,15 @@
 // dimension; a causal dQ block stops at its diagonal tile, a causal dKV
 // block starts at the query tile holding its first key row, and only a
 // tile that crosses the diagonal pays the causal compare. Ragged Tq/Tk
-// are masked here, so no length has to tile.
+// are masked here, so no length has to tile. A schedule takes the place of
+// the tile counter (a template flag; dK/dV's schedule mode has its own
+// entry point, so the dense kernels are compiled as before) and cuts the
+// work to the executed fraction of the tile grid.
 //
 // Determinism: every output element is written by one thread after a
 // loop in a fixed order; there are no atomics, and dQ is its own kernel
 // (as in the reference), so two launches on the same inputs agree bit
-// for bit.
+// for bit, in schedule mode too.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -55,6 +72,7 @@ constexpr int BR = 64;   // resident rows per block (queries for dQ, keys for dK
 constexpr int BS = 64;   // streamed rows per tile
 constexpr int EPT = 16;  // elements of a row each thread holds
 constexpr float NEG_INF = -1e30f;
+constexpr int KIND_PARTIAL = 2;  // ops/mask_programs.py
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -76,6 +94,27 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 struct Strides {
   long long b, t, h;
 };
+
+// A block schedule on the device (q-major for dQ, kv-major for dK/dV):
+// num [Hs, n_major], blk / kind / mid [Hs, n_major, L] int32, bits
+// [M, 64] 64-bit bitmap rows (one per query row).
+struct Sched {
+  const int* num;
+  const int* blk;
+  const int* kind;
+  const int* mid;
+  const unsigned long long* bits;
+  int Hs, n_major, L;
+};
+
+// The number of streamed tiles of this block's schedule row, and the
+// row's offset into blk/kind/mid.
+__device__ __forceinline__ int sched_row(const Sched& sc, int h,
+                                         long long* srow) {
+  const long long r = (long long)min(h, sc.Hs - 1) * sc.n_major + blockIdx.x;
+  *srow = r * sc.L;
+  return sc.num[r];
+}
 
 // Element e of thread slice `sl` (of TPR) for register index i in
 // [0, EPT): the row is cut into float4 chunks dealt round-robin to the
@@ -157,7 +196,7 @@ __device__ __forceinline__ void stage_tile(float* dst, const T* x,
 }
 
 // B3: dQ. One block per (64-query tile, b*h); K/V tiles stream.
-template <typename T, int D>
+template <typename T, int D, bool SCHED>
 __global__ void __launch_bounds__(BR * (D / EPT))
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -166,7 +205,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int* __restrict__ qseg,
                     const int* __restrict__ kseg, T* __restrict__ dq, int H,
                     int Tq, int Tk, Strides sq, Strides sk, Strides sv,
-                    Strides sdo, Strides sdq, float scale, int causal) {
+                    Strides sdo, Strides sdq, float scale, int causal,
+                    Sched sc) {
   constexpr int TPR = D / EPT;
   constexpr int NT = BR * TPR;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -198,12 +238,23 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                                : 0;
 
   int n_tiles = (Tk + BS - 1) / BS;
-  if (causal) {
+  long long srow = 0;
+  if constexpr (SCHED) {
+    n_tiles = sched_row(sc, h, &srow);
+  } else if (causal) {
     const int last_row = min(q0 + BR, Tq) - 1;
     n_tiles = min(last_row, Tk - 1) / BS + 1;
   }
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int it = 0; it < n_tiles; ++it) {
+    int kt = it;
+    bool partial = false;
+    unsigned long long bits = 0ull;
+    if constexpr (SCHED) {
+      kt = sc.blk[srow + it];
+      partial = sc.kind[srow + it] == KIND_PARTIAL;
+      if (partial) bits = sc.bits[(long long)sc.mid[srow + it] * BR + r];
+    }
     const int k0 = kt * BS;
     const int kn = min(BS, Tk - k0);
     stage_tile<T, D, NT>(ks, k, sk, b, h, k0, kn, tid);
@@ -219,6 +270,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s = row_sum<TPR>(dot_slice<TPR>(qr, ks + j * D, sl)) * scale;
       const float dp = row_sum<TPR>(dot_slice<TPR>(dor, vs + j * D, sl));
       if (diag && k0 + j > row) s = NEG_INF;
+      if (SCHED && partial && !((bits >> j) & 1ull)) s = NEG_INF;
       if (kseg != nullptr && kseg_s[j] != qs_row) s = NEG_INF;
       const float p = expf(s - lse_r);
       const float ds = round_to<T>(p * (dp - dlt));
@@ -233,17 +285,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // B2: dK and dV. One block per (64-key tile, b*h); Q/dO/LSE/Delta stream.
-template <typename T, int D>
-__global__ void __launch_bounds__(BR * (D / EPT))
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const int* __restrict__ qseg,
-                     const int* __restrict__ kseg, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Tq, int Tk, Strides sq,
-                     Strides sk, Strides sv, Strides sdo, Strides sdk,
-                     Strides sdv, float scale, int causal) {
+// The body, shared by the dense-mode and schedule-mode entry points below.
+template <typename T, int D, bool SCHED>
+__device__ __forceinline__ void flash_bwd_dkv_body(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ qseg, const int* __restrict__ kseg,
+    T* __restrict__ dk, T* __restrict__ dv, int H, int Tq, int Tk,
+    Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
+    Strides sdv, float scale, int causal, Sched sc) {
   constexpr int TPR = D / EPT;
   constexpr int NT = BR * TPR;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -252,6 +303,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* lse_s = dos + BS * D;                      // [BS]
   float* dlt_s = lse_s + BS;                        // [BS]
   int* qseg_s = reinterpret_cast<int*>(dlt_s + BS);   // [BS]
+  // [BS] bitmap words of the current PARTIAL entry (schedule mode)
+  unsigned long long* bits_s =
+      reinterpret_cast<unsigned long long*>(qseg_s + BS);
 
   const int tid = threadIdx.x;
   const int r = tid / TPR;
@@ -278,9 +332,25 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long stat0 = ((long long)b * H + h) * Tq;
 
   // a causal key tile sees only queries at or below its first key row
-  const int first = causal ? k0 / BS : 0;
-  const int n_tiles = (Tq + BS - 1) / BS;
-  for (int qt = first; qt < n_tiles; ++qt) {
+  int first = causal ? k0 / BS : 0;
+  int n_tiles = (Tq + BS - 1) / BS;
+  long long srow = 0;
+  if constexpr (SCHED) {
+    first = 0;
+    n_tiles = sched_row(sc, h, &srow);
+  }
+  for (int it = first; it < n_tiles; ++it) {
+    int qt = it;
+    bool partial = false;
+    if constexpr (SCHED) {
+      qt = sc.blk[srow + it];
+      partial = sc.kind[srow + it] == KIND_PARTIAL;
+      if (partial) {
+        const unsigned long long* words =
+            sc.bits + (long long)sc.mid[srow + it] * BS;
+        for (int i = tid; i < BS; i += NT) bits_s[i] = words[i];
+      }
+    }
     const int q0 = qt * BS;
     const int qn = min(BS, Tq - q0);
     stage_tile<T, D, NT>(qs, q, sq, b, h, q0, qn, tid);
@@ -299,6 +369,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s = row_sum<TPR>(dot_slice<TPR>(kr, qrow, sl)) * scale;
       const float dp = row_sum<TPR>(dot_slice<TPR>(vr, dorow, sl));
       if (diag && q0 + i < key) s = NEG_INF;
+      if (SCHED && partial && !((bits_s[i] >> r) & 1ull)) s = NEG_INF;
       if (qseg != nullptr && qseg_s[i] != ks_key) s = NEG_INF;
       const float p = expf(s - lse_s[i]);
       axpy_slice<TPR>(dva, round_to<T>(p), dorow, sl);
@@ -316,6 +387,36 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+#define TOSEM_DKV_PARAMS                                                   \
+  const T *__restrict__ q, const T *__restrict__ k,                       \
+      const T *__restrict__ v, const T *__restrict__ dout,                \
+      const float *__restrict__ lse, const float *__restrict__ delta,     \
+      const int *__restrict__ qseg, const int *__restrict__ kseg,         \
+      T *__restrict__ dk, T *__restrict__ dv, int H, int Tq, int Tk,      \
+      Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,       \
+      Strides sdv, float scale, int causal, Sched sc
+#define TOSEM_DKV_ARGS                                                    \
+  q, k, v, dout, lse, delta, qseg, kseg, dk, dv, H, Tq, Tk, sq, sk, sv, \
+      sdo, sdk, sdv, scale, causal, sc
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BR * (D / EPT))
+flash_bwd_dkv_kernel(TOSEM_DKV_PARAMS) {
+  flash_bwd_dkv_body<T, D, false>(TOSEM_DKV_ARGS);
+}
+
+// Schedule mode's extra state (the PARTIAL entry's bitmap words) took the
+// D = 64 body from 128 registers to 185: one 256-thread block an SM
+// instead of two. Its entry point asks for the dense mode's occupancy,
+// 128 registers a thread (2, 4 or 8 blocks of 4*D threads). (The floor
+// stays off the dense entry point: any explicit floor, even 1, changes how
+// ptxas allocates it.)
+template <typename T, int D>
+__global__ void __launch_bounds__(BR * (D / EPT), 128 / D)
+flash_bwd_dkv_sched_kernel(TOSEM_DKV_PARAMS) {
+  flash_bwd_dkv_body<T, D, true>(TOSEM_DKV_ARGS);
+}
+
 template <typename K>
 cudaError_t prepare(K kern, size_t smem) {
   if (smem > 48 * 1024)
@@ -324,14 +425,14 @@ cudaError_t prepare(K kern, size_t smem) {
   return cudaSuccess;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SCHED>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* qseg,
               const void* kseg, void* dq, int B, int H, int Tq, int Tk,
               Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq,
-              float scale, int causal, cudaStream_t stream) {
+              float scale, int causal, Sched sc, cudaStream_t stream) {
   const size_t smem = 2 * BS * D * sizeof(float) + BS * sizeof(int);
-  auto kern = flash_bwd_dq_kernel<T, D>;
+  auto kern = flash_bwd_dq_kernel<T, D, SCHED>;
   cudaError_t err = prepare(kern, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tq + BR - 1) / BR, B * H);
@@ -340,20 +441,23 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int*>(qseg), static_cast<const int*>(kseg),
-      static_cast<T*>(dq), H, Tq, Tk, sq, sk, sv, sdo, sdq, scale, causal);
+      static_cast<T*>(dq), H, Tq, Tk, sq, sk, sv, sdo, sdq, scale, causal,
+      sc);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SCHED>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, const void* qseg,
                const void* kseg, void* dk, void* dv, int B, int H, int Tq,
                int Tk, Strides sq, Strides sk, Strides sv, Strides sdo,
-               Strides sdk, Strides sdv, float scale, int causal,
+               Strides sdk, Strides sdv, float scale, int causal, Sched sc,
                cudaStream_t stream) {
   const size_t smem = 2 * BS * D * sizeof(float) + 2 * BS * sizeof(float) +
-                      BS * sizeof(int);
-  auto kern = flash_bwd_dkv_kernel<T, D>;
+                      BS * sizeof(int) +
+                      (SCHED ? BS * sizeof(unsigned long long) : 0);
+  auto kern = SCHED ? flash_bwd_dkv_sched_kernel<T, D>
+                    : flash_bwd_dkv_kernel<T, D>;
   cudaError_t err = prepare(kern, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tk + BR - 1) / BR, B * H);
@@ -363,42 +467,86 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int*>(qseg), static_cast<const int*>(kseg),
       static_cast<T*>(dk), static_cast<T*>(dv), H, Tq, Tk, sq, sk, sv, sdo,
-      sdk, sdv, scale, causal);
+      sdk, sdv, scale, causal, sc);
   return (int)cudaGetLastError();
 }
 
-#define TOSEM_DISPATCH_D(LAUNCH, T, ...)                \
+#define TOSEM_DISPATCH_D(LAUNCH, T, S, ...)             \
   switch (D) {                                          \
     case 16:                                            \
-      return LAUNCH<T, 16>(__VA_ARGS__);                \
+      return LAUNCH<T, 16, S>(__VA_ARGS__);             \
     case 32:                                            \
-      return LAUNCH<T, 32>(__VA_ARGS__);                \
+      return LAUNCH<T, 32, S>(__VA_ARGS__);             \
     case 64:                                            \
-      return LAUNCH<T, 64>(__VA_ARGS__);                \
+      return LAUNCH<T, 64, S>(__VA_ARGS__);             \
     default:                                            \
       return (int)cudaErrorInvalidValue;                \
   }
 
-template <typename T>
+template <typename T, bool SCHED>
 int dq_d(int D, const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, const void* qseg,
          const void* kseg, void* dq, int B, int H, int Tq, int Tk, Strides sq,
          Strides sk, Strides sv, Strides sdo, Strides sdq, float scale,
-         int causal, cudaStream_t st) {
-  TOSEM_DISPATCH_D(launch_dq, T, q, k, v, dout, lse, delta, qseg, kseg, dq, B,
-                   H, Tq, Tk, sq, sk, sv, sdo, sdq, scale, causal, st)
+         int causal, Sched sc, cudaStream_t st) {
+  TOSEM_DISPATCH_D(launch_dq, T, SCHED, q, k, v, dout, lse, delta, qseg, kseg,
+                   dq, B, H, Tq, Tk, sq, sk, sv, sdo, sdq, scale, causal, sc,
+                   st)
 }
 
-template <typename T>
+template <typename T, bool SCHED>
 int dkv_d(int D, const void* q, const void* k, const void* v,
           const void* dout, const void* lse, const void* delta,
           const void* qseg, const void* kseg, void* dk, void* dv, int B,
           int H, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
           Strides sdo, Strides sdk, Strides sdv, float scale, int causal,
-          cudaStream_t st) {
-  TOSEM_DISPATCH_D(launch_dkv, T, q, k, v, dout, lse, delta, qseg, kseg, dk,
-                   dv, B, H, Tq, Tk, sq, sk, sv, sdo, sdk, sdv, scale, causal,
-                   st)
+          Sched sc, cudaStream_t st) {
+  TOSEM_DISPATCH_D(launch_dkv, T, SCHED, q, k, v, dout, lse, delta, qseg,
+                   kseg, dk, dv, B, H, Tq, Tk, sq, sk, sv, sdo, sdk, sdv,
+                   scale, causal, sc, st)
+}
+
+template <bool SCHED>
+int dq_t(int dtype, int D, const void* q, const void* k, const void* v,
+         const void* dout, const void* lse, const void* delta,
+         const void* qseg, const void* kseg, void* dq, int B, int H, int Tq,
+         int Tk, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq,
+         float scale, int causal, Sched sc, cudaStream_t st) {
+  if (dtype == 0)
+    return dq_d<float, SCHED>(D, q, k, v, dout, lse, delta, qseg, kseg, dq, B,
+                              H, Tq, Tk, sq, sk, sv, sdo, sdq, scale, causal,
+                              sc, st);
+  if (dtype == 1)
+    return dq_d<__nv_bfloat16, SCHED>(D, q, k, v, dout, lse, delta, qseg,
+                                      kseg, dq, B, H, Tq, Tk, sq, sk, sv, sdo,
+                                      sdq, scale, causal, sc, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool SCHED>
+int dkv_t(int dtype, int D, const void* q, const void* k, const void* v,
+          const void* dout, const void* lse, const void* delta,
+          const void* qseg, const void* kseg, void* dk, void* dv, int B,
+          int H, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
+          Strides sdo, Strides sdk, Strides sdv, float scale, int causal,
+          Sched sc, cudaStream_t st) {
+  if (dtype == 0)
+    return dkv_d<float, SCHED>(D, q, k, v, dout, lse, delta, qseg, kseg, dk,
+                               dv, B, H, Tq, Tk, sq, sk, sv, sdo, sdk, sdv,
+                               scale, causal, sc, st);
+  if (dtype == 1)
+    return dkv_d<__nv_bfloat16, SCHED>(D, q, k, v, dout, lse, delta, qseg,
+                                       kseg, dk, dv, B, H, Tq, Tk, sq, sk, sv,
+                                       sdo, sdk, sdv, scale, causal, sc, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+Sched make_sched(const void* num, const void* blk, const void* kind,
+                 const void* mid, const void* bits, int Hs, int n_major,
+                 int L) {
+  return Sched{static_cast<const int*>(num), static_cast<const int*>(blk),
+               static_cast<const int*>(kind), static_cast<const int*>(mid),
+               static_cast<const unsigned long long*>(bits), Hs, n_major, L};
 }
 
 }  // namespace
@@ -421,15 +569,9 @@ extern "C" int flash_bwd_dq(int dtype, int D, const void* q, const void* k,
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0) return (int)cudaErrorInvalidValue;
   const Strides sq{sqb, sqt, sqh}, sk{skb, skt, skh}, sv{svb, svt, svh},
       sdo{sdob, sdot, sdoh}, sdq{sdqb, sdqt, sdqh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dq_d<float>(D, q, k, v, dout, lse, delta, qseg, kseg, dq, B, H, Tq,
-                       Tk, sq, sk, sv, sdo, sdq, scale, causal, st);
-  if (dtype == 1)
-    return dq_d<__nv_bfloat16>(D, q, k, v, dout, lse, delta, qseg, kseg, dq,
-                               B, H, Tq, Tk, sq, sk, sv, sdo, sdq, scale,
-                               causal, st);
-  return (int)cudaErrorInvalidValue;
+  return dq_t<false>(dtype, D, q, k, v, dout, lse, delta, qseg, kseg, dq, B,
+                     H, Tq, Tk, sq, sk, sv, sdo, sdq, scale, causal, Sched{},
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dkv(int dtype, int D, const void* q, const void* k,
@@ -447,14 +589,56 @@ extern "C" int flash_bwd_dkv(int dtype, int D, const void* q, const void* k,
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0) return (int)cudaErrorInvalidValue;
   const Strides sq{sqb, sqt, sqh}, sk{skb, skt, skh}, sv{svb, svt, svh},
       sdo{sdob, sdot, sdoh}, sdk{sdkb, sdkt, sdkh}, sdv{sdvb, sdvt, sdvh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dkv_d<float>(D, q, k, v, dout, lse, delta, qseg, kseg, dk, dv, B,
-                        H, Tq, Tk, sq, sk, sv, sdo, sdk, sdv, scale, causal,
-                        st);
-  if (dtype == 1)
-    return dkv_d<__nv_bfloat16>(D, q, k, v, dout, lse, delta, qseg, kseg, dk,
-                                dv, B, H, Tq, Tk, sq, sk, sv, sdo, sdk, sdv,
-                                scale, causal, st);
-  return (int)cudaErrorInvalidValue;
+  return dkv_t<false>(dtype, D, q, k, v, dout, lse, delta, qseg, kseg, dk, dv,
+                      B, H, Tq, Tk, sq, sk, sv, sdo, sdk, sdv, scale, causal,
+                      Sched{}, static_cast<cudaStream_t>(stream));
+}
+
+// The schedule modes: as flash_bwd_dq / flash_bwd_dkv with no causal flag
+// (a mask program carries it), plus a schedule of ops/mask_programs.py at
+// 64 x 64 tiles: the q-major `dq` schedule (num [Hs,Tq/64]) for dQ, the
+// kv-major `dkv` schedule (num [Hs,Tk/64]) for dK/dV; blk/kind/mid
+// [Hs,n_major,L] int32 and bits [M,64] 64-bit words. Tq and Tk must be
+// multiples of 64.
+extern "C" int flash_bwd_dq_sched(
+    int dtype, int D, const void* q, const void* k, const void* v,
+    const void* dout, const void* lse, const void* delta, const void* qseg,
+    const void* kseg, void* dq, int B, int H, int Tq, int Tk, long long sqb,
+    long long sqt, long long sqh, long long skb, long long skt, long long skh,
+    long long svb, long long svt, long long svh, long long sdob,
+    long long sdot, long long sdoh, long long sdqb, long long sdqt,
+    long long sdqh, float scale, const void* num, const void* blk,
+    const void* kind, const void* mid, const void* bits, int Hs, int L,
+    void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || Tq % BR || Tk % BS ||
+      Hs <= 0 || L <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Strides sq{sqb, sqt, sqh}, sk{skb, skt, skh}, sv{svb, svt, svh},
+      sdo{sdob, sdot, sdoh}, sdq{sdqb, sdqt, sdqh};
+  return dq_t<true>(dtype, D, q, k, v, dout, lse, delta, qseg, kseg, dq, B, H,
+                    Tq, Tk, sq, sk, sv, sdo, sdq, scale, 0,
+                    make_sched(num, blk, kind, mid, bits, Hs, Tq / BR, L),
+                    static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_bwd_dkv_sched(
+    int dtype, int D, const void* q, const void* k, const void* v,
+    const void* dout, const void* lse, const void* delta, const void* qseg,
+    const void* kseg, void* dk, void* dv, int B, int H, int Tq, int Tk,
+    long long sqb, long long sqt, long long sqh, long long skb, long long skt,
+    long long skh, long long svb, long long svt, long long svh,
+    long long sdob, long long sdot, long long sdoh, long long sdkb,
+    long long sdkt, long long sdkh, long long sdvb, long long sdvt,
+    long long sdvh, float scale, const void* num, const void* blk,
+    const void* kind, const void* mid, const void* bits, int Hs, int L,
+    void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || Tq % BS || Tk % BR ||
+      Hs <= 0 || L <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Strides sq{sqb, sqt, sqh}, sk{skb, skt, skh}, sv{svb, svt, svh},
+      sdo{sdob, sdot, sdoh}, sdk{sdkb, sdkt, sdkh}, sdv{sdvb, sdvt, sdvh};
+  return dkv_t<true>(dtype, D, q, k, v, dout, lse, delta, qseg, kseg, dk, dv,
+                     B, H, Tq, Tk, sq, sk, sv, sdo, sdk, sdv, scale, 0,
+                     make_sched(num, blk, kind, mid, bits, Hs, Tk / BR, L),
+                     static_cast<cudaStream_t>(stream));
 }

@@ -4,11 +4,25 @@
 // forward kernel, B1), driven there by `_flash_fwd`.
 //
 // Computes O = softmax(scale * Q K^T, masked) V and LSE = m + log(l) per
-// query row, with an online softmax over K/V tiles, in three modes that
+// query row, with an online softmax over K/V tiles, in modes that
 // compose: dense, causal (key <= query, top-left aligned) and segment ids
-// (attend where q-id == kv-id). Q/K/V/O are addressed through (batch,
-// time, head) strides with a contiguous head dimension, so the [B,H,T,D]
-// and [B,T,H,D] layouts both run without a transposed copy.
+// (attend where q-id == kv-id), or the block schedule of a mask program
+// (`flash_fwd_sched`, the reference kernel's `scheduled=True` path) with
+// or without segment ids. Q/K/V/O are addressed through (batch, time,
+// head) strides with a contiguous head dimension, so the [B,H,T,D] and
+// [B,T,H,D] layouts both run without a transposed copy.
+//
+// Schedule mode (ops/mask_programs.py compiles it): for head h the block
+// reads row hs = min(h, Hs-1) of the q-major schedule, so a uniform mask
+// has Hs = 1 and a per-head mask Hs = H. It walks entries s < num[hs,i]
+// of its q tile i, streaming K/V tile blk[hs,i,s] in ascending order (the
+// dense loop's order, so FullMask and CausalMask reproduce the dense and
+// causal modes bit for bit). A KIND_FULL entry skips the compare; a
+// KIND_PARTIAL entry sets -1e30 where bit j of its bitmap row is 0 (one
+// 64-bit word per query row, key j at bit j, packed from the reference's
+// [M,64,64] int32 pool), then segment ids refine. A fully masked tile has
+// one all-zero PARTIAL entry, which runs: its rows average that V tile,
+// the reference's finite result. Tq and Tk are multiples of 64 here.
 //
 // What bounds it on this card: the work is 4*B*H*Tq*Tk*d operations over
 // 8*B*H*T*d bytes of bf16 Q/K/V in and O out, i.e. T/2 operations per
@@ -29,7 +43,10 @@
 // block takes the place of the TPU grid's sequential stream dimension;
 // a causal block stops at its diagonal tile, and only a tile that crosses
 // the diagonal pays the causal compare. Ragged Tq/Tk are masked here, so
-// no length has to tile.
+// no length has to tile. A schedule takes the place of the tile counter
+// (a template flag of the body, behind its own entry point, so the dense
+// kernel is compiled as before), and it cuts the work to the executed
+// fraction of the 64 x 64 tile grid.
 //
 // Numerics follow the reference kernel: operands stay in the input dtype
 // (bf16 products are exact in fp32), scores and row statistics are fp32,
@@ -44,6 +61,7 @@ namespace {
 constexpr int BQ = 64;   // query rows per block, one per thread
 constexpr int BK = 64;   // keys per streamed tile
 constexpr float NEG_INF = -1e30f;
+constexpr int KIND_PARTIAL = 2;  // ops/mask_programs.py
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -62,14 +80,26 @@ struct Strides {
   long long b, t, h;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(BQ)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, const int* __restrict__ qseg,
-                 const int* __restrict__ kseg, int H, int Tq, int Tk,
-                 Strides sq, Strides sk, Strides sv, Strides so,
-                 float scale, int causal) {
+// A q-major block schedule on the device: num [Hs, n_major], blk / kind /
+// mid [Hs, n_major, L] int32, bits [M, 64] 64-bit bitmap rows.
+struct Sched {
+  const int* num;
+  const int* blk;
+  const int* kind;
+  const int* mid;
+  const unsigned long long* bits;
+  int Hs, n_major, L;
+};
+
+// The kernel body, shared by the dense-mode and schedule-mode entry
+// points below.
+template <typename T, int D, bool SCHED>
+__device__ __forceinline__ void flash_fwd_body(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    const int* __restrict__ qseg, const int* __restrict__ kseg, int H,
+    int Tq, int Tk, Strides sq, Strides sk, Strides sv, Strides so,
+    float scale, int causal, Sched sc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);                 // [BK][D]
   T* vs = ks + BK * D;                                     // [BK][D]
@@ -99,13 +129,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float l = 0.f;
 
   int n_tiles = (Tk + BK - 1) / BK;
-  if (causal) {
+  long long srow = 0;  // this block's schedule row
+  if constexpr (SCHED) {
+    srow = ((long long)min(h, sc.Hs - 1) * sc.n_major + blockIdx.x);
+    n_tiles = sc.num[srow];
+    srow *= sc.L;
+  } else if (causal) {
     const int last_row = min(q0 + BQ, Tq) - 1;
     const int last_key = min(last_row, Tk - 1);
     n_tiles = last_key / BK + 1;
   }
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  for (int it = 0; it < n_tiles; ++it) {
+    int kt = it;
+    bool partial = false;
+    unsigned long long bits = 0ull;
+    if constexpr (SCHED) {
+      kt = sc.blk[srow + it];
+      partial = sc.kind[srow + it] == KIND_PARTIAL;
+      if (partial) bits = sc.bits[(long long)sc.mid[srow + it] * BQ + tid];
+    }
     const int k0 = kt * BK;
     const int kn = min(BK, Tk - k0);
     for (int e = tid; e < BK * D; e += BQ) {
@@ -143,6 +186,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (jj < kn) {
           float s = a[u] * scale;
           if (diag && k0 + jj > row) s = NEG_INF;
+          if (SCHED && partial && !((bits >> jj) & 1ull)) s = NEG_INF;
           if (kseg != nullptr && kseg_s[jj] != qs_row) s = NEG_INF;
           ss[jj * BQ + tid] = s;
           mx = fmaxf(mx, s);
@@ -177,14 +221,39 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+#define TOSEM_FWD_PARAMS                                                    \
+  const T *__restrict__ q, const T *__restrict__ k,                        \
+      const T *__restrict__ v, T *__restrict__ o, float *__restrict__ lse, \
+      const int *__restrict__ qseg, const int *__restrict__ kseg, int H,   \
+      int Tq, int Tk, Strides sq, Strides sk, Strides sv, Strides so,      \
+      float scale, int causal, Sched sc
+#define TOSEM_FWD_ARGS \
+  q, k, v, o, lse, qseg, kseg, H, Tq, Tk, sq, sk, sv, so, scale, causal, sc
+
 template <typename T, int D>
+__global__ void __launch_bounds__(BQ) flash_fwd_kernel(TOSEM_FWD_PARAMS) {
+  flash_fwd_body<T, D, false>(TOSEM_FWD_ARGS);
+}
+
+// Schedule mode's extra state took the bf16 D = 64 body from 168
+// registers to 201: five 64-thread blocks an SM instead of six, so the
+// encode shape's grid of 768 blocks ran in two waves, not one. Its entry
+// point asks for six blocks an SM. (The floor stays off the dense entry
+// point: any explicit floor, even 1, changes how ptxas allocates it.)
+template <typename T, int D>
+__global__ void __launch_bounds__(BQ, 6)
+flash_fwd_sched_kernel(TOSEM_FWD_PARAMS) {
+  flash_fwd_body<T, D, true>(TOSEM_FWD_ARGS);
+}
+
+template <typename T, int D, bool SCHED>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            const void* qseg, const void* kseg, int B, int H, int Tq, int Tk,
            Strides sq, Strides sk, Strides sv, Strides so, float scale,
-           int causal, cudaStream_t stream) {
+           int causal, Sched sc, cudaStream_t stream) {
   const size_t smem = 2 * BK * D * sizeof(T) + BK * BQ * sizeof(float) +
                       BK * sizeof(int);
-  auto kern = flash_fwd_kernel<T, D>;
+  auto kern = SCHED ? flash_fwd_sched_kernel<T, D> : flash_fwd_kernel<T, D>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -195,28 +264,45 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       static_cast<const int*>(qseg), static_cast<const int*>(kseg), H, Tq, Tk,
-      sq, sk, sv, so, scale, causal);
+      sq, sk, sv, so, scale, causal, sc);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool SCHED>
 int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
                void* lse, const void* qseg, const void* kseg, int B, int H,
                int Tq, int Tk, Strides sq, Strides sk, Strides sv, Strides so,
-               float scale, int causal, cudaStream_t stream) {
+               float scale, int causal, Sched sc, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, lse, qseg, kseg, B, H, Tq, Tk, sq, sk,
-                           sv, so, scale, causal, stream);
+      return launch<T, 16, SCHED>(q, k, v, o, lse, qseg, kseg, B, H, Tq, Tk,
+                                  sq, sk, sv, so, scale, causal, sc, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, lse, qseg, kseg, B, H, Tq, Tk, sq, sk,
-                           sv, so, scale, causal, stream);
+      return launch<T, 32, SCHED>(q, k, v, o, lse, qseg, kseg, B, H, Tq, Tk,
+                                  sq, sk, sv, so, scale, causal, sc, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, qseg, kseg, B, H, Tq, Tk, sq, sk,
-                           sv, so, scale, causal, stream);
+      return launch<T, 64, SCHED>(q, k, v, o, lse, qseg, kseg, B, H, Tq, Tk,
+                                  sq, sk, sv, so, scale, causal, sc, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+template <bool SCHED>
+int dispatch_t(int dtype, int D, const void* q, const void* k, const void* v,
+               void* o, void* lse, const void* qseg, const void* kseg, int B,
+               int H, int Tq, int Tk, Strides sq, Strides sk, Strides sv,
+               Strides so, float scale, int causal, Sched sc,
+               cudaStream_t st) {
+  if (dtype == 0)
+    return dispatch_d<float, SCHED>(D, q, k, v, o, lse, qseg, kseg, B, H, Tq,
+                                    Tk, sq, sk, sv, so, scale, causal, sc,
+                                    st);
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16, SCHED>(D, q, k, v, o, lse, qseg, kseg, B,
+                                            H, Tq, Tk, sq, sk, sv, so, scale,
+                                            causal, sc, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -235,12 +321,36 @@ extern "C" int flash_fwd(int dtype, int D, const void* q, const void* k,
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0) return (int)cudaErrorInvalidValue;
   const Strides sq{sqb, sqt, sqh}, sk{skb, skt, skh}, sv{svb, svt, svh},
       so{sob, sot, soh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, o, lse, qseg, kseg, B, H, Tq, Tk, sq,
-                             sk, sv, so, scale, causal, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, qseg, kseg, B, H, Tq,
-                                     Tk, sq, sk, sv, so, scale, causal, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_t<false>(dtype, D, q, k, v, o, lse, qseg, kseg, B, H, Tq,
+                           Tk, sq, sk, sv, so, scale, causal, Sched{},
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The schedule mode: as flash_fwd with no causal flag (a mask program
+// carries it), plus the q-major schedule of ops/mask_programs.py at 64 x 64
+// tiles: num [Hs,Tq/64], blk/kind/mid [Hs,Tq/64,L] int32 and bits [M,64]
+// 64-bit words. Tq and Tk must be multiples of 64.
+extern "C" int flash_fwd_sched(int dtype, int D, const void* q, const void* k,
+                               const void* v, void* o, void* lse,
+                               const void* qseg, const void* kseg, int B,
+                               int H, int Tq, int Tk, long long sqb,
+                               long long sqt, long long sqh, long long skb,
+                               long long skt, long long skh, long long svb,
+                               long long svt, long long svh, long long sob,
+                               long long sot, long long soh, float scale,
+                               const void* num, const void* blk,
+                               const void* kind, const void* mid,
+                               const void* bits, int Hs, int L,
+                               void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || Tq % BQ || Tk % BK ||
+      Hs <= 0 || L <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Strides sq{sqb, sqt, sqh}, sk{skb, skt, skh}, sv{svb, svt, svh},
+      so{sob, sot, soh};
+  const Sched sc{static_cast<const int*>(num), static_cast<const int*>(blk),
+                 static_cast<const int*>(kind), static_cast<const int*>(mid),
+                 static_cast<const unsigned long long*>(bits), Hs, Tq / BQ, L};
+  return dispatch_t<true>(dtype, D, q, k, v, o, lse, qseg, kseg, B, H, Tq, Tk,
+                          sq, sk, sv, so, scale, 0, sc,
+                          static_cast<cudaStream_t>(stream));
 }

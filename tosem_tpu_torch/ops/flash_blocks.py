@@ -41,11 +41,16 @@ class BlockSizes:
 
 
 def select_block_sizes(Tq: int, d: int, dtype: str,
-                       Tk: Optional[int] = None) -> BlockSizes:
+                       Tk: Optional[int] = None, *,
+                       mask_sig: Optional[str] = None,
+                       backend: Optional[str] = None) -> BlockSizes:
     """The CUDA kernels' tiles for a (T, d, dtype) configuration. They
     are fixed, so every configuration gets the same tiles; a causal
     kernel skips the (64, 64) tile pairs past the diagonal whatever T
-    is. Sets ``select_block_sizes.last_source`` to ``"fixed"``."""
+    is, and a mask program is compiled at these tiles. ``mask_sig`` and
+    ``backend`` are the JAX package's keys of its sparse autotune cache;
+    there is no such cache here yet, so they change nothing. Sets
+    ``select_block_sizes.last_source`` to ``"fixed"``."""
     select_block_sizes.last_source = "fixed"
     return BlockSizes()
 

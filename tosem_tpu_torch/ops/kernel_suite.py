@@ -15,6 +15,11 @@ ids); ``fused_layernorm`` forward and forward+backward over
 ``[B*T, hidden]`` (B6, B7); ``fused_softmax`` forward and
 forward+backward over ``[B*H*T, T]`` (B8, B9). Times are device time per
 call from :class:`tosem_tpu_torch.utils.timing.DeviceLoopBench`.
+
+:func:`sparse_kernel_suite` is the ``flash_sparse`` leg's: flash forward
+and forward+backward under block-sparse mask programs (B1-B3's schedule
+mode) at long context, GFLOPS counting only the tiles the schedules
+execute.
 """
 from __future__ import annotations
 
@@ -207,9 +212,76 @@ def bert_kernel_suite(*, batch: int = 8, seq: int = 512, heads: int = 12,
     return rows
 
 
-def sparse_kernel_suite(**_):
-    """The JAX package's block-sparse rows need B1-B3's schedule mode and
-    ``ops/mask_programs.py``, not ported yet."""
-    raise NotImplementedError(
-        "sparse_kernel_suite needs B1-B3's block-schedule mode and "
-        "mask_programs.py: ROADMAP.md 'Next slices' item 1 (A1, A4)")
+def sparse_kernel_suite(*, batch: int = 1, seq: int = 8192,
+                        heads: int = 12, head_dim: int = 64,
+                        dtype: str = "bfloat16", window: int = 1024,
+                        doc_len: int = 0, reps: int = 3, n_iter: int = 0,
+                        device="cuda") -> List[ResultRow]:
+    """Block-sparse mask-program rows: one forward and one
+    forward+backward row per scenario, all at the same shape: causal
+    (``CausalMask`` as a program, the comparison anchor), the causal
+    sliding window ``LocalMask(window)``, and packed documents of
+    ``doc_len`` (default ``seq // 4``) intersected with causal. The FLOP
+    model counts only the tiles each schedule executes
+    (``extra["executed_block_fraction"]``, from :func:`program_stats` at
+    the kernels' 64 x 64 tiles), so a sparse row cannot claim skipped
+    work. Ids, units and ``extra`` keys are the JAX package's."""
+    from tosem_tpu_torch.ops.mask_programs import (mask_from_spec,
+                                                   program_stats)
+    dev = resolve_device(device)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(dev).manual_seed(0)
+    B, H, T, D = batch, heads, seq, head_dim
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    q, k, v = randn(B, H, T, D), randn(B, H, T, D), randn(B, H, T, D)
+    lq, lk, lv = _leaf(q), _leaf(k), _leaf(v)
+    doc_len = doc_len or max(seq // 4, 1)
+    scenarios = [("causal", "causal"),
+                 (f"local{window}", f"local:{window}"),
+                 (f"docpack{doc_len}", f"doc:{doc_len}+causal")]
+    rows: List[ResultRow] = []
+    for name, spec in scenarios:
+        mask = mask_from_spec(spec, T)
+        sig = mask.signature()
+        blocks = select_block_sizes(T, D, dtype, mask_sig=sig)
+        blocks_src = select_block_sizes.last_source
+        stats = program_stats(mask, T, T, blocks, heads=H)
+        frac_fwd, frac_bwd = stats["fwd"].fraction, stats["bwd"].fraction
+        extra_base = {"shape": [B, H, T, D], "dtype": dtype, "mask": sig,
+                      "blocks": blocks.as_list(), "blocks_src": blocks_src}
+
+        def fwd(a, b, c, m=mask):
+            return flash_attention(a, b, c, mask=m)
+        sec = DeviceLoopBench(op=fwd, args=(q, k, v)).time(reps=reps,
+                                                          n_iter=n_iter)
+        fl = attention_flops(B, H, T, D, bwd=False, causal_fraction=frac_fwd)
+        rows.append(_row(f"attention_fwd_{name}_b{B}_t{T}_{dtype}", "gflops",
+                         fl / sec / 1e9, "GFLOPS",
+                         dict(extra_base,
+                              flop_model=f"4BHT^2D x {frac_fwd:.4g} "
+                                         "(executed blocks only)",
+                              executed_block_fraction=frac_fwd,
+                              time_us=sec * 1e6),
+                         dev, config="flash_sparse"))
+        sec = DeviceLoopBench(
+            op=lambda a, b, c, f=fwd: _grads(f, a, b, c),
+            args=(lq, lk, lv)).time(reps=reps, n_iter=n_iter)
+        fl = (attention_flops(B, H, T, D, bwd=False,
+                              causal_fraction=frac_fwd)
+              + (attention_flops(B, H, T, D, bwd=True,
+                                 causal_fraction=frac_bwd)
+                 - attention_flops(B, H, T, D, bwd=False,
+                                   causal_fraction=frac_bwd)))
+        rows.append(_row(f"attention_fwdbwd_{name}_b{B}_t{T}_{dtype}",
+                         "gflops", fl / sec / 1e9, "GFLOPS",
+                         dict(extra_base,
+                              flop_model=f"(4 x {frac_fwd:.4g} + 10 x "
+                                         f"{frac_bwd:.4g})BHT^2D "
+                                         "(executed blocks only)",
+                              executed_block_fraction=frac_bwd,
+                              time_us=sec * 1e6),
+                         dev, config="flash_sparse"))
+    return rows

@@ -1,8 +1,9 @@
 """Kernel-backend registry: which lowering serves a call, and how often
 each kernel launched.
 
-Three kernel families (``flash``, ``paged``, ``norms``), each with two
-backends:
+Four kernel families (``flash``, ``schedule``, ``paged``, ``norms``),
+each with two backends (``schedule`` is flash attention driven by a
+block-sparse mask program: B1-B3's schedule mode):
 
 - ``cuda`` — the hand-written CUDA C++ kernel for ``sm_90a``
   (``ops/csrc``). Runs on CUDA tensors only, in fp32 or bf16.
@@ -25,7 +26,7 @@ from __future__ import annotations
 import collections
 from typing import Dict, Optional
 
-FAMILIES = ("flash", "paged", "norms")
+FAMILIES = ("flash", "schedule", "paged", "norms")
 
 BACKEND_CUDA = "cuda"
 BACKEND_TORCH = "torch"
@@ -34,9 +35,12 @@ BACKEND_TORCH = "torch"
 _PLATFORM = {BACKEND_CUDA: "cuda", BACKEND_TORCH: "cpu"}
 _CUDA_DTYPES = ("float32", "bfloat16")
 
-# kernel name -> launches since the last reset
+# kernel name -> launches since the last reset. The ``*_sched`` keys count
+# B1-B3's schedule mode; the plain keys their dense/causal/segment modes
 LAUNCH_COUNTS: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkv": 0,
-                                 "flash_bwd_dq": 0, "paged_decode": 0,
+                                 "flash_bwd_dq": 0, "flash_fwd_sched": 0,
+                                 "flash_bwd_dkv_sched": 0,
+                                 "flash_bwd_dq_sched": 0, "paged_decode": 0,
                                  "paged_decode_multi": 0, "ln_fwd": 0,
                                  "ln_bwd": 0, "sm_fwd": 0, "sm_bwd": 0}
 

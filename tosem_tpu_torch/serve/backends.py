@@ -6,7 +6,11 @@ Counterpart of the BERT backends in ``tosem_tpu/serve/backends.py``.
 ``(max_batch, bucket)`` batch with a key-padding mask and runs the
 encoder; with ``use_flash`` the padding rides the flash kernel as segment
 ids. Every batch is padded to ``max_batch`` rows, so a request's result
-never depends on what it was batched with.
+never depends on what it was batched with. With ``local_window`` or
+``doc_len`` a long bucket (``data.feeding.sparse_mask_spec``) rides a
+block-sparse mask program (the symmetric band ``local:W:W-1`` or the
+block-diagonal ``doc:L``) through the kernels' schedule mode, with the
+padding as segment ids on top; short buckets keep the dense program.
 
 :class:`BertDecodeBackend` serves greedy decode over the paged KV cache
 through the decode-client protocol a scheduler drives (``admit`` /
@@ -21,8 +25,7 @@ sequential one-token step would.
 
 Not ported yet (each raises ``NotImplementedError``): sliding-window
 decode, speculative decode (``spec_k``), ``n > 1`` beam/sampling groups,
-sessions, export/send/spill of sequences, and the encoder's
-``local_window``/``doc_len`` mask programs.
+sessions, and export/send/spill of sequences.
 """
 from __future__ import annotations
 
@@ -87,7 +90,9 @@ class BertEncodeBackend(CompiledBackendMixin):
     """``{"ids": [int, ...]}`` -> ``{"pooled": np.ndarray[dim], "len"}``
     (fp32 mean over real tokens), or ``{"encoding": [T_i, dim]}`` with
     ``pooled=False``. ``params`` is a JAX-package parameter tree of numpy
-    arrays to load instead of the seed's random init."""
+    arrays to load instead of the seed's random init. ``local_window``
+    and ``doc_len`` route long buckets onto a block-sparse schedule (see
+    the module docstring)."""
 
     def __init__(self, preset: str = "tiny", seed: int = 0,
                  max_batch: int = 8, use_flash: bool = True,
@@ -97,9 +102,6 @@ class BertEncodeBackend(CompiledBackendMixin):
                  params=None):
         from tosem_tpu_torch.models.bert import BertConfig
         from tosem_tpu_torch.nn.attention import flash_attn_fn
-        if local_window is not None or doc_len is not None:
-            raise _not_ported("long-document encode (local_window/doc_len "
-                              "mask programs)", "A1 mask_programs.py")
         if preset == "base":
             cfg = BertConfig.base()
         else:
@@ -108,20 +110,48 @@ class BertEncodeBackend(CompiledBackendMixin):
         self.cfg = cfg
         self.max_batch = max_batch
         self.pooled = pooled
+        self.local_window = local_window
+        self.doc_len = doc_len
+        self._use_flash = use_flash
         self.model = _build_model(cfg, device, seed, params)
         self.device = self.model.device
         self._fwd = self.model.encode_fn(
             attn_fn=flash_attn_fn() if use_flash else None)
-        self._tag = model_tag("bert_encode", cfg, seed, use_flash=use_flash)
+        # pad target -> (encode fn over its mask program, mask signature)
+        self._sparse_fwd: Dict[int, Any] = {}
+        self._tag = model_tag("bert_encode", cfg, seed, use_flash=use_flash,
+                              local_window=local_window, doc_len=doc_len)
         self._steps = StepCache()
 
     @staticmethod
     def length_of(request: Dict[str, Any]) -> int:
         return len(request["ids"])
 
+    def _fwd_for(self, pad_to: int):
+        """(encode fn, mask signature) for a bucket: the feeding layer's
+        rule decides whether this pad target rides a sparse schedule; the
+        mask and its encode fn are built once per pad target."""
+        from tosem_tpu_torch.data.feeding import sparse_mask_spec
+        spec = None
+        if self._use_flash:
+            spec = sparse_mask_spec(pad_to, local_window=self.local_window,
+                                    doc_len=self.doc_len)
+        if spec is None:
+            return self._fwd, ""
+        if pad_to not in self._sparse_fwd:
+            from tosem_tpu_torch.nn.attention import flash_attn_fn
+            from tosem_tpu_torch.ops.mask_programs import mask_from_spec
+            mask = mask_from_spec(spec, pad_to)
+            self._sparse_fwd[pad_to] = (
+                self.model.encode_fn(attn_fn=flash_attn_fn(mask=mask)),
+                mask.signature())
+        return self._sparse_fwd[pad_to]
+
     def _compiled(self, pad_to: int):
-        key = shape_key(self._tag, (self.max_batch, pad_to), self.cfg.dtype)
-        return self._steps.get_or_build(key, lambda: self._fwd)
+        fwd, sig = self._fwd_for(pad_to)
+        key = shape_key(self._tag + (f";mask={sig}" if sig else ""),
+                        (self.max_batch, pad_to), self.cfg.dtype)
+        return self._steps.get_or_build(key, lambda: fwd)
 
     def call(self, request: Dict[str, Any]) -> Any:
         return self.call_batch([request])[0]
