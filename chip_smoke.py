@@ -13,8 +13,15 @@ Phases, each printing one JSON line:
               card, at the main path's shapes, bf16 and fp32, with its
               time (CUDA events), its bound from bytes and operations,
               and a library yardstick where one PyTorch call computes
-              the same function. The backward kernels (B2 dK/dV, B3 dQ)
-              also in both layouts, at a ragged length, and launched
+              the same function. B1 bf16 also at its tensor-core body's
+              edges (bhtd, Tq != Tk with a ragged Tk, rows whose segment
+              has no key, D = 32 and 16; two launches bit for bit), and
+              timed at the encode batch's shape, dense-segments and
+              schedule mode, beside every SDPA backend that accepts the
+              same call, by two methods in turns (CUDA-graph replays,
+              L2-cold; events around launches, warm L2). The backward
+              kernels (B2 dK/dV, B3 dQ) also in both layouts, at a
+              ragged length, and launched
               twice to show they are bit-deterministic. B6-B9 (fused
               layernorm and softmax, forward and backward) at the kernel
               suite's shapes, a ragged row count, odd widths and a long
@@ -135,6 +142,9 @@ SPARSE_T = 8192     # the flash_sparse leg's sequence length
 SCHED_MASKS = ("local:256", "local:128:127", "doc:256", "doc:256+causal",
                "prefix:200", "mh", "doc:256+segments")
 
+# how the profiler names the kernels of tosem_tpu_torch/ops/csrc
+PORT_KERNEL_NAMES = tuple(f"void (anonymous namespace)::{k}_"
+                          for k in ("flash", "paged", "ln", "sm"))
 SEED = 0            # weights, prompts and kernel inputs
 NEW_TOKENS = 32     # generated per decode prompt
 
@@ -248,6 +258,177 @@ def sdpa(q, k, v, seg, causal):
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         attn_mask=mask, is_causal=causal and mask is None, scale=1.0 / 8.0)
+
+
+# B1's bf16 edge cases: (mode, layout, B, Tq, Tk, D). "orphan" is segment
+# ids with a block of query rows whose id no key carries
+B1_EDGES = (("dense", "bhtd", 2, 512, 512, 64),
+            ("causal", "bhtd", 1, 333, 333, 64),
+            ("segments", "bhtd", 8, 512, 512, 64),
+            ("dense", "bthd", 2, 512, 333, 64),
+            ("causal", "bthd", 2, 512, 333, 64),
+            ("orphan", "bthd", 2, 512, 333, 64),
+            ("orphan", "bhtd", 2, 512, 512, 64),
+            ("causal", "bthd", 2, 512, 512, 32),
+            ("segments", "bthd", 2, 300, 300, 16))
+# SDPA's backends, each timed where it accepts the call (yardstick only)
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+
+
+def b1_edge_cases(dev, gen):
+    """bf16 B1 at the tensor-core body's edges against its plain version
+    (2e-2, LSE 1e-3): the bhtd layout, Tq != Tk with a ragged Tk, rows
+    whose segment has no key (their -1e30 average and LSE), D = 32 and
+    16; every case launched twice, bit for bit."""
+    import torch
+    from tosem_tpu_torch.ops import flash_attention as fa
+    cases = []
+    for mode, layout, B, Tq, Tk, D in B1_EDGES:
+        H = 12
+        shape = ((lambda T: (B, T, H, D)) if layout == "bthd"
+                 else (lambda T: (B, H, T, D)))
+        q = torch.randn(*shape(Tq), generator=gen)
+        k, v = (torch.randn(*shape(Tk), generator=gen) for _ in range(2))
+        if mode == "orphan":
+            # V's mean of 1 makes a padded key that counted in an orphan
+            # row's average show: at Tk 333 it would pull the row toward
+            # 0 by the padded share of the last tile (51 of 384 keys)
+            v = v + 1.0
+        q, k, v = (x.to(torch.bfloat16).to(dev) for x in (q, k, v))
+        seg = None
+        if mode in ("segments", "orphan"):
+            qi = torch.ones(B, Tq, dtype=torch.int32)
+            ki = torch.ones(B, Tk, dtype=torch.int32)
+            ki[:, Tk // 2:] = 2
+            qi[:, Tq // 2:] = 2
+            if mode == "orphan":
+                qi[:, 100:164] = 7      # no key has id 7
+            else:
+                for b in range(B):
+                    ki[b, Tk - 13 * (b + 1):] = 3
+                    qi[b, Tq - 29 * (b + 1):] = 3
+            seg = fa.SegmentIds(qi.to(dev), ki.to(dev))
+        causal = mode == "causal"
+        out, lse = fa._flash_fwd_cuda(q, k, v, seg, causal, 1.0 / 8.0, layout)
+        again, lse2 = fa._flash_fwd_cuda(q, k, v, seg, causal, 1.0 / 8.0,
+                                         layout)
+        ref, ref_lse = fa._flash_attention_torch(q, k, v, seg, causal,
+                                                 1.0 / 8.0, layout)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        bits = torch.equal(out, again) and torch.equal(lse, lse2)
+        what = f"flash_fwd bf16 {mode} {layout} [{B},{Tq}x{Tk},{D}]"
+        check(err <= TOL["flash"]["bfloat16"] and lse_err <= 1e-3,
+              f"{what}: err {err}, lse {lse_err}")
+        check(bits, f"{what} differs between two launches")
+        rec = {"kernel": "flash_fwd", "mode": mode, "dtype": "bfloat16",
+               "layout": layout, "shape": [B, Tq, Tk, H, D],
+               "max_abs_err": err, "lse_err": lse_err,
+               "bit_deterministic": bits}
+        if mode == "orphan":
+            rows = (slice(None), slice(100, 164))
+            rows = rows if layout == "bthd" else (slice(None), slice(None),
+                                                  slice(100, 164))
+            rec["orphan_rows_err"] = (out[rows].float() - ref[rows].float()
+                                      ).abs().max().item()
+            rec["orphan_lse"] = lse[:, :, 100:164].max().item()
+        cases.append(rec)
+    return cases
+
+
+def sdpa_backends(call, args):
+    """The SDPA backends that accept ``call(*args)``, each pinned by
+    ``torch.nn.attention.sdpa_kernel``: ``({name: op}, {name: why
+    refused})``. The yardstick only: the port never calls SDPA."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    ok, refused = {}, {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            refused[name] = "not in this torch"
+            continue
+
+        def op(*a, backend=backend):
+            with sdpa_kernel(backend):
+                return call(*a)
+        try:
+            op(*args)
+            torch.cuda.synchronize()
+        except RuntimeError as e:       # this backend refuses the call
+            refused[name] = str(e).strip().splitlines()[0][:160]
+            continue
+        ok[name] = op
+    return ok, refused
+
+
+def time_b1_turns(kernel, kargs, library, largs):
+    """B1 (``kernel(*kargs)``) and SDPA (each op of ``library``, a map
+    from backend to op, on ``largs``) timed by two methods in one call,
+    in turns (kernel, library, library, kernel) for each: ``graph`` is
+    ``DeviceLoopBench`` (a CUDA graph of calls over L2-cold operand
+    copies; no host launch cost), ``events`` CUDA events around 20 calls
+    launched one by one on warm operands (the host's launch cost included
+    where it exceeds the kernel's). Returns the record's timing keys."""
+    def graph(op, args):
+        return device_ms(op, *args)
+
+    def events(op, args):
+        return cuda_ms(lambda: op(*args))
+    out = {"ms_turns": {}, "sdpa_ms_by_backend": {}}
+    for method, timer in (("graph", graph), ("events", events)):
+        k1 = timer(kernel, kargs)
+        lib = {n: [timer(op, largs)] for n, op in library.items()}
+        for n, op in library.items():
+            lib[n].append(timer(op, largs))
+        k2 = timer(kernel, kargs)
+        out["ms_turns"][method] = [k1, k2]
+        for n, ts in lib.items():
+            out["sdpa_ms_by_backend"].setdefault(n, {})[method] = ts
+    mean = {m: sum(ts) / 2 for m, ts in out["ms_turns"].items()}
+    lib_mean = {n: {m: sum(ts) / 2 for m, ts in by.items()}
+                for n, by in out["sdpa_ms_by_backend"].items()}
+    best = min(lib_mean, key=lambda n: lib_mean[n]["graph"])
+    out.update({"ms": mean["graph"], "ms_events": mean["events"],
+                "library_ms": lib_mean[best]["graph"],
+                "library_ms_events": lib_mean[best]["events"],
+                "library_is": f"sdpa, {best} backend (the fastest by the "
+                              "graph method of those that accept the call)",
+                "timing": "ms and library_ms: DeviceLoopBench (CUDA graph, "
+                          "L2-cold), mean of two turns; *_events: CUDA "
+                          "events over 20 launches, warm L2"})
+    return out
+
+
+def sdpa_masked(q, k, v, am):
+    """SDPA on bthd operands with a boolean attn_mask (yardstick only)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=am, scale=1.0 / 8.0)
+
+
+def time_b1_dense(q, k, v, seg, lines, rec):
+    """B1 bf16 at the encode batch's [8, 512, 12, 64] with key padding
+    (segments): the kernels line of flash_fwd."""
+    from tosem_tpu_torch.ops import flash_attention as fa
+    nbytes, ops = flash_work(q, seg, False)
+    am = (seg.q[:, :, None] == seg.kv[:, None, :])[:, None]
+
+    def kernel(q, k, v, sq, skv):
+        return fa._flash_fwd_cuda(q, k, v, fa.SegmentIds(sq, skv), False,
+                                  1.0 / 8.0, "bthd")
+    library, refused = sdpa_backends(sdpa_masked, (q, k, v, am))
+    check(library, f"no SDPA backend accepts the B1 yardstick: {refused}")
+    rec.update(time_b1_turns(kernel, (q, k, v, seg.q, seg.kv), library,
+                             (q, k, v, am)))
+    rec["sdpa_refused"] = refused
+    rec["plain_ms"] = cuda_ms(lambda: plain_flash(q, k, v, seg, False),
+                              iters=5)
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, "bfloat16")
+    lines["flash_fwd"] = rec
 
 
 def bwd_work(q, seg, which):
@@ -696,18 +877,24 @@ def time_sched(dev, gen, lines):
     am = sdpa_mask(mask, seg, T, dev)
     nbytes, ops = sched_work(q, "bthd", frac, "fwd", seg)
     b_ms, b_by = bound(nbytes, ops, "bfloat16")
-    lines["flash_fwd_sched"] = out["flash_fwd_sched"] = {
-        "ms": cuda_ms(lambda: fa._flash_fwd_cuda(q, k, v, seg, False,
-                                                 1.0 / 8.0, "bthd", progs)),
+
+    def kernel(q, k, v, sq, skv):
+        return fa._flash_fwd_cuda(q, k, v, fa.SegmentIds(sq, skv), False,
+                                  1.0 / 8.0, "bthd", progs)
+    library, refused = sdpa_backends(sdpa_masked, (q, k, v, am))
+    check(library, f"no SDPA backend accepts the B1 sched yardstick: "
+                   f"{refused}")
+    rec = time_b1_turns(kernel, (q, k, v, seg.q, seg.kv), library,
+                        (q, k, v, am))
+    rec["library_is"] += ", with the same dense boolean attn_mask"
+    rec.update({
         "plain_ms": cuda_ms(lambda: fa._flash_attention_torch(
             q, k, v, seg, False, 1.0 / 8.0, "bthd", mask), iters=5),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=am, scale=1.0 / 8.0)),
-        "library_is": "sdpa with the same dense boolean attn_mask",
-        "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-        "executed_block_fraction": frac, "mask": "local:128:127+segments",
-        "dtype": "bfloat16", "shape": [B, T, H, D]}
+        "sdpa_refused": refused, "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": err, "executed_block_fraction": frac,
+        "mask": "local:128:127+segments", "dtype": "bfloat16",
+        "shape": [B, T, H, D]})
+    lines["flash_fwd_sched"] = out["flash_fwd_sched"] = rec
     del q, k, v, got, ref, am
     # B2 / B3 at the flash_sparse leg's shape
     B, H, T, D = 1, 12, SPARSE_T, 64
@@ -985,7 +1172,9 @@ def phase_kernels(dev, seed):
             rec = {"kernel": "flash_fwd", "mode": mode, "dtype": dtype,
                    "shape": [B, T, 12, 64], "max_abs_err": err,
                    "lse_err": lse_err}
-            if (mode, B, T) in (("segments", 8, 512), ("causal", 1, 512)):
+            if (mode, B, T, dtype) == ("segments", 8, 512, "bfloat16"):
+                time_b1_dense(q, k, v, seg, lines, rec)
+            elif (mode, B, T) in (("segments", 8, 512), ("causal", 1, 512)):
                 nbytes, ops = flash_work(q, seg, causal)
                 rec["ms"] = cuda_ms(lambda: run_flash(q, k, v, seg, causal))
                 rec["plain_ms"] = cuda_ms(
@@ -993,9 +1182,8 @@ def phase_kernels(dev, seed):
                 rec["library_ms"] = cuda_ms(lambda: sdpa(q, k, v, seg,
                                                          causal))
                 rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, dtype)
-                if (mode, dtype) == ("segments", "bfloat16"):
-                    lines["flash_fwd"] = rec
             cases.append(rec)
+    cases += b1_edge_cases(dev, gen)
     # ---- B4: 8 sequences with ragged lengths up to 512, one idle row
     lens = [0, 1, 77, 128, 129, 300, 511, 512]
     for dtype in ("bfloat16", "float32"):
@@ -1339,7 +1527,10 @@ def _device_breakdown(prof, wall_ms, traced_ms, n, top=8):
     """Device time per iteration from a profiler trace, over the wall
     time of ``n`` iterations run without the profiler (``wall_ms``) and
     under it (``traced_ms``): the device's busy share of the unprofiled
-    wall time, and the kernels that took most of the device time."""
+    wall time, the kernels that took most of the device time, and the
+    device time of each of the port's own kernels (those of ``csrc/``:
+    flash, paged-decode, layernorm and softmax kernels in an anonymous
+    namespace) wherever it ranks."""
     import collections
 
     import torch
@@ -1353,7 +1544,10 @@ def _device_breakdown(prof, wall_ms, traced_ms, n, top=8):
     busy = sum(per.values())
     return {"wall_ms": wall_ms / n, "traced_wall_ms": traced_ms / n,
             "device_ms": busy, "device_busy_share": busy / (wall_ms / n),
-            "top": [[name[:80], ms] for name, ms in per.most_common(top)]}
+            "top": [[name[:80], ms] for name, ms in per.most_common(top)],
+            "port_kernels": {name.split("::")[1].split("(")[0]: ms
+                             for name, ms in per.items()
+                             if name.startswith(PORT_KERNEL_NAMES)}}
 
 
 def _timed(fn, prof=None):
@@ -1891,6 +2085,8 @@ def main(argv=None):
                         "bound_by": rec.get("bound_by"),
                         "library_ms": rec.get("library_ms"),
                         "library_is": rec.get("library_is"),
+                        "ms_events": rec.get("ms_events"),
+                        "library_ms_events": rec.get("library_ms_events"),
                         "port_fwd_bwd_ms": rec.get("port_fwd_bwd_ms"),
                         "dtype": rec.get("dtype"),
                         "shape": rec.get("shape") or rec.get("lens")})

@@ -1,6 +1,10 @@
 """The port's flash attention (plain ``torch`` arm, on the CPU) held
 against the JAX package's lowerings on the parity matrix's own inputs,
 at the parity harness's tolerances (fp32 2e-5, bf16 2e-2)."""
+import ctypes
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -135,3 +139,56 @@ def test_wrapper_rejects_what_it_does_not_take():
         mha_flash_attention(q, q, q, mask=torch.ones(1, 1, 8, 8))
     with pytest.raises(ValueError):
         flash_attention(q[0], q[0], q[0])
+
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "tosem_tpu_torch", "ops", "csrc")
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}
+
+
+def _c_params(source, name):
+    """The ctypes types of the parameters of ``extern "C" int name(...)``
+    in ``csrc/<source>``, parsed from the source (a pointer is
+    ``c_void_p``)."""
+    with open(os.path.join(CSRC, source)) as f:
+        src = f.read()
+    found = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{", src,
+                      re.S)
+    assert found, f"{name} not in {source}"
+    types = []
+    for param in found.group(1).split(","):
+        param = " ".join(param.split())
+        types.append(ctypes.c_void_p if "*" in param
+                     else _C_TYPES[param.rsplit(" ", 1)[0]])
+    return types
+
+
+@pytest.mark.parametrize("name,source", [
+    ("flash_fwd", "flash_fwd.cu"), ("flash_fwd_sched", "flash_fwd.cu"),
+    ("flash_bwd_dq", "flash_bwd.cu"), ("flash_bwd_dkv", "flash_bwd.cu"),
+    ("flash_bwd_dq_sched", "flash_bwd.cu"),
+    ("flash_bwd_dkv_sched", "flash_bwd.cu")])
+def test_ctypes_signatures_match_the_c_interface(name, source):
+    """Each ``_ARGTYPES`` entry has the C function's parameters, one for
+    one and of the same width: an int where a pointer belongs cuts the
+    pointer to 32 bits on the card and nowhere else."""
+    from tosem_tpu_torch.ops.flash_attention import _ARGTYPES
+    assert _ARGTYPES[name] == _c_params(source, name)
+
+
+def test_bf16_kernel_takes_16_byte_rows_only():
+    """The bf16 forward copies rows in 16-byte pieces: the wrapper
+    refuses an operand that starts off 16 bytes or whose (batch, time,
+    head) strides are not multiples of 8 elements."""
+    from tosem_tpu_torch.ops.flash_attention import _check_rows_aligned
+    x = torch.zeros(2, 64, 4, 16, dtype=torch.bfloat16)
+    _check_rows_aligned((("q", x),), "bthd")
+    _check_rows_aligned((("q", x.transpose(1, 2)),), "bhtd")
+    shifted = torch.zeros(x.numel() + 8, dtype=torch.bfloat16)[1:][
+        :x.numel()].view(x.shape)
+    with pytest.raises(ValueError, match="16 bytes"):
+        _check_rows_aligned((("k", shifted),), "bthd")
+    wide = torch.zeros(2, 64, 4, 20, dtype=torch.bfloat16)[..., :16]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        _check_rows_aligned((("v", wide),), "bthd")

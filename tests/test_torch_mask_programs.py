@@ -151,6 +151,35 @@ def test_device_upload_packs_the_reference_bitmaps(name):
         assert (ds.Hs, ds.n_major, ds.L) == ws.blk.shape
 
 
+@pytest.mark.parametrize("name", list(MASKS))
+def test_launch_order_puts_the_heaviest_tiles_first(name):
+    """The forward kernel's launch order of the resident tiles, uploaded
+    beside the schedule: a permutation of range(n_major) along which the
+    entry count (summed over head rows; per row where there is one) does
+    not rise, ties in tile order."""
+    from tosem_tpu_torch.ops import flash_attention as fa
+    T, build = MASKS[name]
+    port = _port()
+    progs = port.compile_mask_programs(build(port), T, T,
+                                       _blocks("tosem_tpu_torch", 64),
+                                       heads=2)
+    num = np.asarray(progs.fwd.num)
+    order = fa.launch_order(num)
+    assert order.dtype == np.int32
+    assert sorted(order.tolist()) == list(range(num.shape[1]))
+    work = num.sum(axis=0)[order]
+    assert (np.diff(work) <= 0).all()
+    for a, b, wa, wb in zip(order, order[1:], work, work[1:]):
+        assert wa > wb or a < b
+    if num.shape[0] == 1:
+        assert (np.diff(num[0][order]) <= 0).all()
+    if name in ("causal", "m:causal"):
+        assert order.tolist() == list(range(num.shape[1]))[::-1]
+    dev = fa._device_programs(progs, "cpu")
+    assert dev.fwd.order.dtype == torch.int32
+    np.testing.assert_array_equal(dev.fwd.order.numpy(), order)
+
+
 def test_schedule_checks_raise_value_error():
     """What the CUDA wrappers refuse before a launch: a schedule compiled
     at other tiles than the kernels' 64 x 64, lengths that do not divide

@@ -207,11 +207,12 @@ def _flash_bwd_torch(q, k, v, out, lse, do, segment_ids, causal, sm_scale,
     return dq, dk, dv
 
 
-def _argtypes(pointers, strides, sched):
+def _argtypes(pointers, strides, sched=0):
     """ctypes signature: dtype and D, the pointers, (B, H, Tq, Tk), the
-    strides, the scale, then the causal flag (dense modes) or the five
-    schedule pointers and (Hs, L) (schedule mode), then the stream."""
-    mode = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 if sched
+    strides, the scale, then the causal flag (dense modes, ``sched=0``)
+    or the ``sched`` schedule pointers and (Hs, L) (schedule mode), then
+    the stream."""
+    mode = ([ctypes.c_void_p] * sched + [ctypes.c_int] * 2 if sched
             else [ctypes.c_int])
     return ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * pointers
             + [ctypes.c_int] * 4 + [ctypes.c_longlong] * strides
@@ -219,12 +220,12 @@ def _argtypes(pointers, strides, sched):
 
 
 _ARGTYPES = {
-    "flash_fwd": _argtypes(7, 12, False),
-    "flash_bwd_dq": _argtypes(9, 15, False),
-    "flash_bwd_dkv": _argtypes(10, 18, False),
-    "flash_fwd_sched": _argtypes(7, 12, True),
-    "flash_bwd_dq_sched": _argtypes(9, 15, True),
-    "flash_bwd_dkv_sched": _argtypes(10, 18, True),
+    "flash_fwd": _argtypes(7, 12),
+    "flash_bwd_dq": _argtypes(9, 15),
+    "flash_bwd_dkv": _argtypes(10, 18),
+    "flash_fwd_sched": _argtypes(7, 12, sched=6),   # + the launch order
+    "flash_bwd_dq_sched": _argtypes(9, 15, sched=5),
+    "flash_bwd_dkv_sched": _argtypes(10, 18, sched=5),
 }
 
 
@@ -282,13 +283,15 @@ def _ptr(x):
 class _DeviceSchedule(NamedTuple):
     """One :class:`~tosem_tpu_torch.ops.mask_programs.BlockSchedule` on
     the device: int32 ``num``/``blk``/``kind``/``mid``, the bitmaps
-    packed into int64 words (:func:`pack_bitmaps`), and the sizes the
-    launch checks."""
+    packed into int64 words (:func:`pack_bitmaps`), the int32
+    :func:`launch_order` of the resident tiles, and the sizes the launch
+    checks."""
     num: torch.Tensor
     blk: torch.Tensor
     kind: torch.Tensor
     mid: torch.Tensor
     bits: torch.Tensor
+    order: torch.Tensor
     Hs: int
     n_major: int
     n_minor: int        # the stream tiles it names: max(blk) + 1
@@ -307,6 +310,17 @@ _DEVICE_PROGRAMS: "collections.OrderedDict" = collections.OrderedDict()
 _DEVICE_PROGRAMS_MAX = 128
 
 
+def launch_order(num) -> np.ndarray:
+    """The order in which the forward launches its resident tiles: a
+    permutation of ``range(n_major)`` by descending entry count, summed
+    over the schedule's head rows (``num`` [Hs, n_major]), ties in tile
+    order. The heaviest tiles start first, so the longest rows do not
+    trail in the last wave. It is the port's launch order only: the
+    tiles of a row still stream in the schedule's own order."""
+    work = np.asarray(num, np.int64).sum(axis=0)
+    return np.argsort(-work, kind="stable").astype(np.int32)
+
+
 def _upload_schedule(sched, device) -> _DeviceSchedule:
     mb = np.asarray(sched.mask_blocks)
     if tuple(mb.shape[1:]) != (FLASH_BQ, FLASH_BK):
@@ -323,6 +337,7 @@ def _upload_schedule(sched, device) -> _DeviceSchedule:
         num=dev(sched.num), blk=dev(blk), kind=dev(sched.kind),
         mid=dev(sched.mid),
         bits=torch.as_tensor(pack_bitmaps(mb), device=device),
+        order=dev(launch_order(sched.num)),
         Hs=int(blk.shape[0]), n_major=int(blk.shape[1]),
         n_minor=int(blk.max()) + 1, L=int(blk.shape[2]))
 
@@ -344,9 +359,10 @@ def _device_programs(programs: MaskPrograms, device) -> _DevicePrograms:
 
 
 def _sched_args(programs, which, device, H, n_major, n_minor):
-    """The launch arguments of one schedule (five pointers, Hs, L), after
-    checking it against the operands: ``n_major`` resident tiles, at most
-    ``n_minor`` streamed ones, one or H head rows."""
+    """The launch arguments of one schedule (five pointers, and the
+    launch order's for the forward; then Hs, L), after checking it
+    against the operands: ``n_major`` resident tiles, at most ``n_minor``
+    streamed ones, one or H head rows."""
     ds = getattr(_device_programs(programs, device), which)
     if ds.n_major != n_major or ds.n_minor > n_minor or ds.Hs not in (1, H):
         raise ValueError(
@@ -354,8 +370,10 @@ def _sched_args(programs, which, device, H, n_major, n_minor):
             f"{ds.n_minor} streamed and {ds.Hs} head rows; the operands "
             f"have {n_major}, {n_minor} and {H} heads: recompile the mask "
             "programs for this shape")
-    return (ds.num.data_ptr(), ds.blk.data_ptr(), ds.kind.data_ptr(),
-            ds.mid.data_ptr(), ds.bits.data_ptr(), ds.Hs, ds.L)
+    ptrs = [ds.num, ds.blk, ds.kind, ds.mid, ds.bits]
+    if which == "fwd":
+        ptrs.append(ds.order)
+    return (*(p.data_ptr() for p in ptrs), ds.Hs, ds.L)
 
 
 def _check_tiles(Tq, Tk, causal):
@@ -370,12 +388,27 @@ def _check_tiles(Tq, Tk, causal):
                          "mask & CausalMask() instead of passing causal")
 
 
+def _check_rows_aligned(tensors, layout):
+    """The bf16 forward copies 16-byte pieces of each row with
+    ``cp.async``: every operand must start on 16 bytes, and its (batch,
+    time, head) strides must be whole multiples of 8 elements."""
+    for name, x in tensors:
+        if x.data_ptr() % 16 or any(st % 8 for st in _strides(x, layout)):
+            raise ValueError(
+                f"{name} must start on 16 bytes with (batch, time, head) "
+                f"strides that are multiples of 8 for the bf16 flash "
+                f"kernel; got strides {tuple(x.stride())} at offset "
+                f"{x.storage_offset()}")
+
+
 def _flash_fwd_cuda(q, k, v, segment_ids, causal, sm_scale, layout,
                     programs=None):
     """Launch ``csrc/flash_fwd.cu`` (``flash_fwd``, or ``flash_fwd_sched``
     over ``programs.fwd``). Returns ``(out, lse)``."""
     B, Tq, Tk, H, d, qseg, kseg = _check_operands(q, k, v, segment_ids,
                                                   layout)
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned((("q", q), ("k", k), ("v", v)), layout)
     out_shape = (B, Tq, H, d) if layout == "bthd" else (B, H, Tq, d)
     out = torch.empty(out_shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
