@@ -8,35 +8,43 @@ result when either is missing or when the package is not beside it.
 Phases, each printing one JSON line:
 
 1. build    — nvcc builds every kernel source of ``tosem_tpu_torch/ops/csrc``
-              (one process per source, started together).
+              (one process per source, started together); the bf16 B2/B3
+              bodies at D = 16, 32 and 64 must hold HMMA, LDSM and LDGSTS
+              in their SASS (``cuobjdump -sass``) and spill nothing
+              (``ptxas -v``), and report the blocks an SM holds.
 2. kernels  — each CUDA kernel against its plain PyTorch version on the
               card, at the main path's shapes, bf16 and fp32, with its
-              time (CUDA events), its bound from bytes and operations,
-              and a library yardstick where one PyTorch call computes
-              the same function. B1 bf16 also at its tensor-core body's
-              edges (bhtd, Tq != Tk with a ragged Tk, rows whose segment
-              has no key, D = 32 and 16; two launches bit for bit), and
-              timed at the encode batch's shape, dense-segments and
-              schedule mode, beside every SDPA backend that accepts the
-              same call, by two methods in turns (CUDA-graph replays,
-              L2-cold; events around launches, warm L2). The backward
-              kernels (B2 dK/dV, B3 dQ) also in both layouts, at a
-              ragged length, and launched
-              twice to show they are bit-deterministic. B6-B9 (fused
-              layernorm and softmax, forward and backward) at the kernel
-              suite's shapes, a ragged row count, odd widths and a long
-              row, fp32 and bf16, B7 launched twice; timed as device time
-              (``utils/timing.DeviceLoopBench``: a CUDA graph of many
-              calls over L2-cold operand copies). B1-B3's schedule mode
-              (``flash_*_sched``) under seven mask programs at [2, 1024,
-              12, 64], both layouts, fp32 and bf16, with a PARTIAL-as-FULL
-              yardstick, FullMask == dense and CausalMask == causal bit
-              for bit, B2/B3 launched twice; timed at the main paths'
-              shapes beside SDPA with the same dense boolean mask.
+              time, its bound from bytes and operations, and a library
+              yardstick where one PyTorch call computes the same
+              function. Every kernel, library and whole-step time is
+              device time (``utils/timing.DeviceLoopBench``: a CUDA graph
+              of many calls over L2-cold operand copies); only the plain
+              versions are timed by CUDA events around launches. B1 bf16
+              also at its tensor-core body's edges (bhtd, Tq != Tk with a
+              ragged Tk, rows whose segment has no key, D = 32 and 16; two
+              launches bit for bit), and timed at the encode batch's
+              shape, dense-segments and schedule mode, beside every SDPA
+              backend that accepts the same call, in turns. The backward
+              kernels (B2 dK/dV, B3 dQ) in both layouts, at a ragged
+              length and at B1's edges, launched twice to show they are
+              bit-deterministic, and timed beside SDPA's backward alone
+              (the aten backward op of each fused backend, fed its own
+              forward's outputs) and, as whole steps, the port's B1 +
+              Delta + B2 + B3 beside SDPA's forward and backward. B6-B9
+              (fused layernorm and softmax, forward and backward) at the
+              kernel suite's shapes, a ragged row count, odd widths and a
+              long row, fp32 and bf16, B7 launched twice. B1-B3's schedule
+              mode (``flash_*_sched``) under seven mask programs at [2,
+              1024, 12, 64], both layouts, fp32 and bf16, with a
+              PARTIAL-as-FULL yardstick, FullMask == dense and CausalMask
+              == causal bit for bit, B2/B3 launched twice; timed at the
+              main paths' shapes beside SDPA with the same dense mask.
 3. decode   — BERT-base greedy decode through ``BertDecodeBackend``'s
               client protocol: 8 packed prompts x 32 new tokens, then a
               prompt that hits the prefix cache, whose stream must equal
-              its cold stream with the prefix cache off.
+              its cold stream with the prefix cache off (where they
+              part, the top-1 minus top-2 logit margin at that step is
+              printed before the run fails).
 4. encode   — one padded BERT-base batch through ``BertEncodeBackend``.
 4b. encode_sparse — long-document BERT-base encode: ``BertEncodeBackend``
               with ``local_window=128`` and with ``doc_len=128``, 8
@@ -60,7 +68,7 @@ Phases, each printing one JSON line:
               against dense and card against CPU (with a wrong-model
               yardstick), remat full/dots against none bit for bit,
               ``fit`` resumed after a preemption bit for bit, and a
-              profile of the step.
+              profile of the flash and of the dense step.
 8. suite    — north-star config 5 through the port's experiment runner,
               ``tosem_tpu_torch.cli --config=bert_kernels`` (BERT-base:
               8 x 512, 12 heads of 64, hidden 768, bf16) into a
@@ -200,6 +208,78 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+# the bf16 bodies of B2 and B3 (csrc/flash_bwd.cu), and the SASS
+# instructions each must hold: tensor-core products, ldmatrix, cp.async
+BWD_TC = {"flash_bwd_dq_tc_kernel": (0, 0),
+          "flash_bwd_dq_tc_sched_kernel": (0, 1),
+          "flash_bwd_dkv_tc_kernel": (1, 0),
+          "flash_bwd_dkv_tc_sched_kernel": (1, 1)}
+SASS_NEEDS = ("HMMA", "LDSM", "LDGSTS")
+
+
+def sass_counts(lib):
+    """``{mangled kernel: {instruction: count}}`` of SASS_NEEDS in the
+    ``cuobjdump -sass`` listing of a built library."""
+    import re
+    from tosem_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {lib}: {out.stderr[:300]}")
+    funcs, name = {}, None
+    for ln in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            funcs[name] = {op: 0 for op in SASS_NEEDS}
+        elif name is not None:
+            for op in SASS_NEEDS:
+                funcs[name][op] += f" {op}" in ln
+    return funcs
+
+
+def bwd_tc_report():
+    """The four bf16 entry points of B2/B3 at D = 16, 32 and 64, with the
+    blocks an SM holds (``flash_bwd_tc_blocks_per_sm``) and, where this
+    run built the library, the ``ptxas -v`` line. Returns (report,
+    faults): a body whose SASS lacks HMMA, LDSM or LDGSTS, or that
+    spills, is a fault."""
+    import ctypes
+    import re
+    from tosem_tpu_torch.ops import _build
+    lib = _build._lib_path("flash_bwd")
+    sass = sass_counts(lib)
+    built = "flash_bwd" in _build.BUILD_LOG
+    ptx = ptxas_summary(_build.BUILD_LOG["flash_bwd"][1]) if built else {}
+    blocks = _build.load("flash_bwd").flash_bwd_tc_blocks_per_sm
+    blocks.argtypes = [ctypes.c_int] * 3
+    blocks.restype = ctypes.c_int
+    report, faults = {}, []
+    for base, (dkv, sched) in BWD_TC.items():
+        for D in (16, 32, 64):
+            what = f"{base}<{D}>"
+            names = [n for n in sass if re.search(rf"\d{base}ILi{D}E", n)]
+            check(len(names) == 1, f"{what}: {len(names)} SASS functions")
+            ops = sass[names[0]]
+            if not all(ops.values()):
+                faults.append(f"{what}: SASS lacks {ops}")
+            rec = {"sass": ops, "blocks_per_sm": blocks(dkv, sched, D)}
+            if built:
+                line = ptx.get(names[0], "")
+                regs = re.search(r"Used (\d+) registers", line)
+                spills = [int(x) for x in
+                          re.findall(r"(\d+) bytes spill", line)]
+                if regs is None or len(spills) != 2:
+                    faults.append(f"{what}: no ptxas line ({line!r})")
+                elif any(spills):
+                    faults.append(f"{what} spills: {line}")
+                rec["ptxas"] = line
+            else:
+                rec["ptxas"] = "not rebuilt in this run"
+            report[what] = rec
+    return report, faults
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -276,6 +356,37 @@ SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
                  "MATH")
 
 
+def edge_inputs(dev, gen, mode, layout, B, Tq, Tk, D, H=12):
+    """bf16 q, k, v, dO and segment ids (or None) of one B1_EDGES case."""
+    import torch
+    from tosem_tpu_torch.ops import flash_attention as fa
+    shape = ((lambda T: (B, T, H, D)) if layout == "bthd"
+             else (lambda T: (B, H, T, D)))
+    q = torch.randn(*shape(Tq), generator=gen)
+    k, v = (torch.randn(*shape(Tk), generator=gen) for _ in range(2))
+    do = torch.randn(*shape(Tq), generator=gen)
+    if mode == "orphan":
+        # V's mean of 1 makes a padded key that counted in an orphan
+        # row's average show: at Tk 333 it would pull the row toward
+        # 0 by the padded share of the last tile (51 of 384 keys)
+        v = v + 1.0
+    q, k, v, do = (x.to(torch.bfloat16).to(dev) for x in (q, k, v, do))
+    seg = None
+    if mode in ("segments", "orphan"):
+        qi = torch.ones(B, Tq, dtype=torch.int32)
+        ki = torch.ones(B, Tk, dtype=torch.int32)
+        ki[:, Tk // 2:] = 2
+        qi[:, Tq // 2:] = 2
+        if mode == "orphan":
+            qi[:, 100:164] = 7      # no key has id 7
+        else:
+            for b in range(B):
+                ki[b, Tk - 13 * (b + 1):] = 3
+                qi[b, Tq - 29 * (b + 1):] = 3
+        seg = fa.SegmentIds(qi.to(dev), ki.to(dev))
+    return q, k, v, do, seg
+
+
 def b1_edge_cases(dev, gen):
     """bf16 B1 at the tensor-core body's edges against its plain version
     (2e-2, LSE 1e-3): the bhtd layout, Tq != Tk with a ragged Tk, rows
@@ -286,29 +397,7 @@ def b1_edge_cases(dev, gen):
     cases = []
     for mode, layout, B, Tq, Tk, D in B1_EDGES:
         H = 12
-        shape = ((lambda T: (B, T, H, D)) if layout == "bthd"
-                 else (lambda T: (B, H, T, D)))
-        q = torch.randn(*shape(Tq), generator=gen)
-        k, v = (torch.randn(*shape(Tk), generator=gen) for _ in range(2))
-        if mode == "orphan":
-            # V's mean of 1 makes a padded key that counted in an orphan
-            # row's average show: at Tk 333 it would pull the row toward
-            # 0 by the padded share of the last tile (51 of 384 keys)
-            v = v + 1.0
-        q, k, v = (x.to(torch.bfloat16).to(dev) for x in (q, k, v))
-        seg = None
-        if mode in ("segments", "orphan"):
-            qi = torch.ones(B, Tq, dtype=torch.int32)
-            ki = torch.ones(B, Tk, dtype=torch.int32)
-            ki[:, Tk // 2:] = 2
-            qi[:, Tq // 2:] = 2
-            if mode == "orphan":
-                qi[:, 100:164] = 7      # no key has id 7
-            else:
-                for b in range(B):
-                    ki[b, Tk - 13 * (b + 1):] = 3
-                    qi[b, Tq - 29 * (b + 1):] = 3
-            seg = fa.SegmentIds(qi.to(dev), ki.to(dev))
+        q, k, v, _, seg = edge_inputs(dev, gen, mode, layout, B, Tq, Tk, D)
         causal = mode == "causal"
         out, lse = fa._flash_fwd_cuda(q, k, v, seg, causal, 1.0 / 8.0, layout)
         again, lse2 = fa._flash_fwd_cuda(q, k, v, seg, causal, 1.0 / 8.0,
@@ -338,14 +427,48 @@ def b1_edge_cases(dev, gen):
     return cases
 
 
-def sdpa_backends(call, args):
-    """The SDPA backends that accept ``call(*args)``, each pinned by
-    ``torch.nn.attention.sdpa_kernel``: ``({name: op}, {name: why
-    refused})``. The yardstick only: the port never calls SDPA."""
+def bwd_edge_cases(dev, gen):
+    """bf16 B2 and B3 at the same edges as B1 (B1_EDGES: bhtd, Tq != Tk
+    with a ragged Tk in dense and causal mode, causal 333 x 333, rows
+    whose segment has no key, D = 32 and 16), each held to BWD_TOL
+    against the fp32 plain backward and to BWD_REL with its yardsticks,
+    and launched twice, bit for bit."""
+    import torch
+    from tosem_tpu_torch.ops.common import precision
+    cases = []
+    for mode, layout, B, Tq, Tk, D in B1_EDGES:
+        q, k, v, do, seg = edge_inputs(dev, gen, mode, layout, B, Tq, Tk, D)
+        causal = mode == "causal"
+        got, lse, delta = run_bwd(q, k, v, do, seg, causal, layout)
+        again, _, _ = run_bwd(q, k, v, do, seg, causal, layout)
+        with precision("float32"):
+            ref32 = plain_bwd_fp32(q, k, v, do, seg, causal, layout)
+            same = plain_bwd(q, k, v, do, lse, delta, seg, causal, layout)
+        torch.cuda.synchronize()
+        what = f"flash bwd bf16 {mode} {layout} [{B},{Tq}x{Tk},{D}]"
+        atol, rtol = BWD_TOL["bfloat16"]
+        errs, ok = sched_grad_errs(got, ref32, same, atol, rtol)
+        check(ok, f"{what} outside atol {atol} / rtol {rtol}: {errs}")
+        rel = bwd_rel_check(q, k, v, do, lse, delta, seg, causal, layout,
+                            got, same, ref32)
+        bits = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(bits, f"{what} differs between two launches")
+        cases.append({"kernel": "flash_bwd", "mode": mode,
+                      "dtype": "bfloat16", "layout": layout,
+                      "shape": [B, Tq, Tk, 12, D], "max_abs_err": errs,
+                      "rel_err": rel, "bit_deterministic": bits})
+        del got, again, ref32, same
+    return cases
+
+
+def sdpa_backends(call, args, names=SDPA_BACKENDS):
+    """The SDPA backends of ``names`` that accept ``call(*args)``, each
+    pinned by ``torch.nn.attention.sdpa_kernel``: ``({name: op}, {name:
+    why refused})``. The yardstick only: the port never calls SDPA."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
     ok, refused = {}, {}
-    for name in SDPA_BACKENDS:
+    for name in names:
         backend = getattr(SDPBackend, name, None)
         if backend is None:
             refused[name] = "not in this torch"
@@ -364,42 +487,24 @@ def sdpa_backends(call, args):
     return ok, refused
 
 
-def time_b1_turns(kernel, kargs, library, largs):
-    """B1 (``kernel(*kargs)``) and SDPA (each op of ``library``, a map
-    from backend to op, on ``largs``) timed by two methods in one call,
-    in turns (kernel, library, library, kernel) for each: ``graph`` is
-    ``DeviceLoopBench`` (a CUDA graph of calls over L2-cold operand
-    copies; no host launch cost), ``events`` CUDA events around 20 calls
-    launched one by one on warm operands (the host's launch cost included
-    where it exceeds the kernel's). Returns the record's timing keys."""
-    def graph(op, args):
-        return device_ms(op, *args)
-
-    def events(op, args):
-        return cuda_ms(lambda: op(*args))
-    out = {"ms_turns": {}, "sdpa_ms_by_backend": {}}
-    for method, timer in (("graph", graph), ("events", events)):
-        k1 = timer(kernel, kargs)
-        lib = {n: [timer(op, largs)] for n, op in library.items()}
-        for n, op in library.items():
-            lib[n].append(timer(op, largs))
-        k2 = timer(kernel, kargs)
-        out["ms_turns"][method] = [k1, k2]
-        for n, ts in lib.items():
-            out["sdpa_ms_by_backend"].setdefault(n, {})[method] = ts
-    mean = {m: sum(ts) / 2 for m, ts in out["ms_turns"].items()}
-    lib_mean = {n: {m: sum(ts) / 2 for m, ts in by.items()}
-                for n, by in out["sdpa_ms_by_backend"].items()}
-    best = min(lib_mean, key=lambda n: lib_mean[n]["graph"])
-    out.update({"ms": mean["graph"], "ms_events": mean["events"],
-                "library_ms": lib_mean[best]["graph"],
-                "library_ms_events": lib_mean[best]["events"],
-                "library_is": f"sdpa, {best} backend (the fastest by the "
-                              "graph method of those that accept the call)",
-                "timing": "ms and library_ms: DeviceLoopBench (CUDA graph, "
-                          "L2-cold), mean of two turns; *_events: CUDA "
-                          "events over 20 launches, warm L2"})
-    return out
+def time_turns(kernel, kargs, library, largs):
+    """A kernel (``kernel(*kargs)``) and SDPA (each op of ``library``, a
+    map from backend to op, on ``largs``) by ``device_ms``, in turns
+    (kernel, library, library, kernel), so that a drift of the card's
+    clocks shows in the spread. Returns the record's timing keys."""
+    k1 = device_ms(kernel, *kargs)
+    lib = {n: [device_ms(op, *largs)] for n, op in library.items()}
+    for n, op in library.items():
+        lib[n].append(device_ms(op, *largs))
+    k2 = device_ms(kernel, *kargs)
+    lib_mean = {n: sum(ts) / 2 for n, ts in lib.items()}
+    best = min(lib_mean, key=lib_mean.get)
+    return {"ms": (k1 + k2) / 2, "ms_turns": [k1, k2],
+            "sdpa_ms_by_backend": lib, "library_ms": lib_mean[best],
+            "library_is": f"sdpa, {best} backend (the fastest of those that "
+                          "accept the call)",
+            "timing": "DeviceLoopBench (CUDA graph, L2-cold), mean of two "
+                      "turns"}
 
 
 def sdpa_masked(q, k, v, am):
@@ -422,8 +527,8 @@ def time_b1_dense(q, k, v, seg, lines, rec):
                                   1.0 / 8.0, "bthd")
     library, refused = sdpa_backends(sdpa_masked, (q, k, v, am))
     check(library, f"no SDPA backend accepts the B1 yardstick: {refused}")
-    rec.update(time_b1_turns(kernel, (q, k, v, seg.q, seg.kv), library,
-                             (q, k, v, am)))
+    rec.update(time_turns(kernel, (q, k, v, seg.q, seg.kv), library,
+                          (q, k, v, am)))
     rec["sdpa_refused"] = refused
     rec["plain_ms"] = cuda_ms(lambda: plain_flash(q, k, v, seg, False),
                               iters=5)
@@ -480,20 +585,119 @@ def plain_bwd_fp32(q, k, v, do, seg, causal, layout, mask=None):
     return plain_bwd(qf, kf, vf, dof, lse, delta, seg, causal, layout, mask)
 
 
-def sdpa_fwd_bwd(q, k, v, do, seg):
+def sdpa_fwd_bwd(q, k, v, do, am):
     """Library yardstick for the whole attention step, timed here only:
-    SDPA forward and its autograd backward (no single call computes dK/dV
-    or dQ alone)."""
+    SDPA's forward and its autograd backward on bhtd views of the bthd
+    operands, with ``am`` (a boolean attn_mask) or none."""
     import torch
     import torch.nn.functional as F
-    mask = None
-    if seg is not None:
-        mask = (seg.q[:, :, None] == seg.kv[:, None, :])[:, None]
     qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am,
                                          scale=1.0 / 8.0)
     return torch.autograd.grad(out, (qs, ks, vs), do.transpose(1, 2))
+
+
+# SDPA's fused backends, each with its aten forward and backward ops (the
+# MATH backend has no backward op of its own, and materializes the scores)
+SDPA_FUSED = ("CUDNN_ATTENTION", "EFFICIENT_ATTENTION", "FLASH_ATTENTION")
+SDPA_ATEN = {"CUDNN_ATTENTION": "cudnn", "EFFICIENT_ATTENTION": "efficient",
+             "FLASH_ATTENTION": "flash"}
+
+
+def _by_name(op, vals):
+    """Call an aten op with the values of ``vals`` that its schema names."""
+    return op(**{a.name: vals[a.name] for a in op._schema.arguments
+                 if a.name in vals})
+
+
+def sdpa_bwd_ops(q, k, v, do, bias):
+    """SDPA's backward alone, the library call for Delta + B2 + B3: for each
+    fused backend, its aten backward op fed the outputs of its own aten
+    forward op on bhtd views of the bthd operands, with ``bias`` (an
+    additive mask, [B|1, 1, Tq, Tk]) or none. Flash attention takes no
+    mask. Returns ``({name: (op, args)}, {name: why refused})``; ``op``
+    takes (dO, q, k, v, out, LSE) and returns (dq, dk, dv, ...)."""
+    import torch
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    B, H, Tq, _ = qh.shape
+    if bias is not None:
+        bias = bias.expand(B, H, Tq, kh.shape[2])
+    ok, refused = {}, {}
+    for name in SDPA_FUSED:
+        if bias is not None and name == "FLASH_ATTENTION":
+            refused[name] = "the flash backend takes no mask"
+            continue
+        aten = SDPA_ATEN[name]
+        vals = {"query": qh, "key": kh, "value": vh, "attn_bias": bias,
+                "compute_log_sumexp": True, "dropout_p": 0.0,
+                "is_causal": False, "return_debug_mask": False,
+                "scale": 1.0 / 8.0}
+        try:
+            fwd = getattr(torch.ops.aten,
+                          f"_scaled_dot_product_{aten}_attention").default
+            bwd = getattr(torch.ops.aten, f"_scaled_dot_product_{aten}"
+                          "_attention_backward").default
+            outs = dict(zip((r.name for r in fwd._schema.returns),
+                            _by_name(fwd, vals)))
+            # the names of the RNG state and the LSE differ by backend
+            outs.setdefault("philox_seed", outs.get("rng_state"))
+            outs.setdefault("philox_offset", outs.get("unused"))
+            outs.setdefault("logsumexp", outs.get("log_sumexp"))
+
+            def op(do, q, k, v, out, lse, bwd=bwd, outs=outs):
+                return _by_name(bwd, {
+                    **vals, **outs, "grad_out": do, "grad_out_": do,
+                    "query": q, "key": k, "value": v, "out": out,
+                    "logsumexp": lse,
+                    "grad_input_mask": [True, True, True, False]})
+            args = (doh, qh, kh, vh, outs["output"], outs["logsumexp"])
+            op(*args)
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError, ValueError, AttributeError) as e:
+            refused[name] = str(e).strip().splitlines()[0][:160]
+            continue
+        ok[name] = (op, args)
+    return ok, refused
+
+
+def time_library(ops, refused):
+    """``device_ms`` of each ``(op, args)`` of ``ops``; a backend whose
+    call cannot be captured joins ``refused``. Returns (fastest ms, its
+    backend, ms by backend)."""
+    by = {}
+    for name, (op, args) in ops.items():
+        try:
+            by[name] = device_ms(op, *args)
+        except RuntimeError as e:
+            refused[name] = "capture: " + str(e).strip().splitlines()[0][:150]
+    check(by, f"no SDPA backend could be timed: {refused}")
+    best = min(by, key=by.get)
+    return by[best], best, by
+
+
+def sdpa_yardsticks(q, k, v, do, am):
+    """SDPA's backward alone (``sdpa_bwd_ops``) and its forward with the
+    autograd backward, every fused backend that accepts the case, each by
+    ``device_ms``; ``am`` is a boolean mask [B|1, 1, Tq, Tk] or None."""
+    import torch
+    bias = None
+    if am is not None:
+        bias = torch.zeros(am.shape, dtype=q.dtype, device=q.device)
+        bias.masked_fill_(~am, float("-inf"))
+    ops, refused = sdpa_bwd_ops(q, k, v, do, bias)
+    bwd_ms, bwd_by, bwd_all = time_library(ops, refused)
+    del ops
+    steps, step_refused = sdpa_backends(sdpa_fwd_bwd, (q, k, v, do, am),
+                                        SDPA_FUSED)
+    step_ms, step_by, step_all = time_library(
+        {n: (op, (q, k, v, do, am)) for n, op in steps.items()},
+        step_refused)
+    return {"sdpa_bwd_ms": bwd_ms, "sdpa_bwd_backend": bwd_by,
+            "sdpa_bwd_ms_by_backend": bwd_all, "sdpa_bwd_refused": refused,
+            "sdpa_fwd_bwd_ms": step_ms, "sdpa_fwd_bwd_backend": step_by,
+            "sdpa_fwd_bwd_ms_by_backend": step_all,
+            "sdpa_fwd_bwd_refused": step_refused}
 
 
 def bwd_cases(dev, gen, lines):
@@ -579,35 +783,53 @@ def bwd_rel_check(q, k, v, do, lse, delta, seg, causal, layout, got, same,
     the mask dropped."""
     names = ("dq", "dk", "dv")
     out = {"limit": BWD_REL}
+
+    def within(errs):
+        # a NaN error is not within the limit (max() would drop it)
+        return all(e <= BWD_REL for e in errs)
     for against, want in (("same", same), ("fp32", ref32)):
         r = {n: rel_err(g, w) for n, g, w in zip(names, got, want)}
         out[against] = r
-        check(max(r.values()) <= BWD_REL,
+        check(within(r.values()),
               f"flash bwd bf16 {layout}: max|g - w| / max|w| against "
               f"{against} above {BWD_REL}: {r}")
     wrong = {"dk_x1.05": (same[0], same[1].float() * 1.05, same[2])}
     if causal or seg is not None or mask is not None:
+        # on the masked LSE: a row that sees no key (LSE -1e30) reads
+        # NaN here, which the check rejects as it must
         wrong["mask_dropped"] = plain_bwd(q, k, v, do, lse, delta, None,
                                           False, layout)
     out["yardsticks"] = {}
     for what, bad in wrong.items():
-        worst = max(rel_err(b, w) for b, w in zip(bad, same))
-        out["yardsticks"][what] = worst
-        check(worst > BWD_REL, f"the bf16 gradient check missed the "
-                               f"yardstick {what}: {worst}")
+        errs = [rel_err(b, w) for b, w in zip(bad, same)]
+        out["yardsticks"][what] = errs
+        check(not within(errs), f"the bf16 gradient check missed the "
+                                f"yardstick {what}: {errs}")
     return out
 
 
 def time_bwd(q, k, v, do, lse, delta, seg, errs, lines, mode):
-    """B2 and B3 timed alone, their plain versions, the bound of each,
-    and the whole port step (B1 + Delta + B2 + B3) beside SDPA's forward
-    and backward. Dense mode fills the kernel lines (the train step's
-    mode)."""
+    """B2 and B3 timed alone by ``device_ms``, their plain versions (CUDA
+    events), the bound of each, the port's backward (Delta + B2 + B3)
+    beside SDPA's backward alone, and the port's whole step (B1 + Delta +
+    B2 + B3) beside SDPA's forward and backward. Dense mode fills the
+    kernel lines (the train step's mode)."""
     from tosem_tpu_torch.ops import flash_attention as fa
-    args = (q, k, v, do, lse, delta, seg, False, 1.0 / 8.0, "bthd")
-    port_ms = cuda_ms(lambda: run_bwd(q, k, v, do, seg, False, "bthd"))
-    sdpa_ms = cuda_ms(lambda: sdpa_fwd_bwd(q, k, v, do, seg))
-    out = {"port_fwd_bwd_ms": port_ms, "sdpa_fwd_bwd_ms": sdpa_ms}
+    out, _ = run_flash(q, k, v, seg, False)
+    am = None
+    if seg is not None:
+        am = (seg.q[:, :, None] == seg.kv[:, None, :])[:, None]
+    yard = sdpa_yardsticks(q, k, v, do, am)
+    timed = {
+        "port_fwd_bwd_ms": device_ms(
+            lambda q, k, v, do: run_bwd(q, k, v, do, seg, False, "bthd"),
+            q, k, v, do),
+        "port_bwd_ms": device_ms(
+            lambda q, k, v, o, lse, do: fa._flash_bwd_cuda(
+                q, k, v, o, lse, do, seg, False, 1.0 / 8.0, "bthd"),
+            q, k, v, out, lse, do),
+        **yard}
+    out = dict(timed)
     for name, kern, plain, err in (
             ("flash_bwd_dkv", fa._flash_bwd_dkv_cuda,
              fa._flash_bwd_dkv_torch, max(errs["dk"], errs["dv"])),
@@ -615,15 +837,23 @@ def time_bwd(q, k, v, do, lse, delta, seg, errs, lines, mode):
              errs["dq"])):
         nbytes, ops = bwd_work(q, seg, name[len("flash_bwd_"):])
         b_ms, b_by = bound(nbytes, ops, "bfloat16")
-        rec = {"ms": cuda_ms(lambda: kern(*args)),
-               "plain_ms": cuda_ms(lambda: plain(*args), iters=5),
+        rec = {"ms": device_ms(
+                   lambda q, k, v, do, lse, delta, kern=kern: kern(
+                       q, k, v, do, lse, delta, seg, False, 1.0 / 8.0,
+                       "bthd"), q, k, v, do, lse, delta),
+               "plain_ms": cuda_ms(lambda: plain(
+                   q, k, v, do, lse, delta, seg, False, 1.0 / 8.0, "bthd"),
+                   iters=5),
                "bound_ms": b_ms, "bound_by": b_by,
-               # no single PyTorch call computes this kernel's function:
-               # the yardstick is SDPA's forward + backward, combined
-               "library_ms": sdpa_ms, "library_is": "sdpa fwd+bwd, "
-               "combined; compare port_fwd_bwd_ms",
-               "port_fwd_bwd_ms": port_ms, "max_abs_err": err,
-               "dtype": "bfloat16", "shape": list(q.shape), "mode": mode}
+               "library_ms": yard["sdpa_bwd_ms"],
+               "library_is": f"SDPA's backward alone, aten "
+                             f"{SDPA_ATEN[yard['sdpa_bwd_backend']]} op "
+                             "(computes Delta, dK/dV and dQ together: "
+                             "compare port_bwd_ms)",
+               **timed, "max_abs_err": err, "dtype": "bfloat16",
+               "shape": list(q.shape), "mode": mode,
+               "timing": "ms, library and port figures: DeviceLoopBench "
+                         "(CUDA graph, L2-cold); plain_ms: CUDA events"}
         out[name] = rec
         if mode == "dense":
             lines[name] = rec
@@ -845,10 +1075,11 @@ def time_sched(dev, gen, lines):
     its main path gives it: B1 at the long-document encode's [8, 512, 12,
     64] bthd bf16 under local:128:127 with key padding; B2/B3 at the
     flash_sparse leg's [1, 12, 8192, 64] bhtd bf16 under local:1024.
-    Each checked against its plain version, timed by CUDA events beside
-    its plain version, its bound and SDPA with the same dense mask."""
+    Each checked against its plain version and timed by ``device_ms``
+    beside its bound, its plain version (CUDA events) and SDPA with the
+    same dense mask: B1 beside SDPA's forward, B2/B3 beside SDPA's
+    backward alone, the port's backward and whole step beside SDPA's."""
     import torch
-    import torch.nn.functional as F
     from tosem_tpu_torch.ops import flash_attention as fa
     from tosem_tpu_torch.ops.common import precision
     from tosem_tpu_torch.ops.flash_blocks import BlockSizes
@@ -884,8 +1115,8 @@ def time_sched(dev, gen, lines):
     library, refused = sdpa_backends(sdpa_masked, (q, k, v, am))
     check(library, f"no SDPA backend accepts the B1 sched yardstick: "
                    f"{refused}")
-    rec = time_b1_turns(kernel, (q, k, v, seg.q, seg.kv), library,
-                        (q, k, v, am))
+    rec = time_turns(kernel, (q, k, v, seg.q, seg.kv), library,
+                     (q, k, v, am))
     rec["library_is"] += ", with the same dense boolean attn_mask"
     rec.update({
         "plain_ms": cuda_ms(lambda: fa._flash_attention_torch(
@@ -914,16 +1145,20 @@ def time_sched(dev, gen, lines):
             for n, g, w in zip(("dq", "dk", "dv"), got, ref32)}
     del ref32
     am = sdpa_mask(mask, None, T, dev)
-
-    def sdpa_step():
-        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am,
-                                           scale=1.0 / 8.0)
-        return torch.autograd.grad(o, (qs, ks, vs), do)
-    port_ms = cuda_ms(lambda: run_sched(q, k, v, do, None, progs, "bhtd"),
-                      iters=10)
-    sdpa_ms = cuda_ms(sdpa_step, iters=10)
-    args = (q, k, v, do, lse, delta, None, False, 1.0 / 8.0, "bhtd")
+    # the bthd views of the bhtd operands, as the yardsticks take them
+    yard = sdpa_yardsticks(*(x.transpose(1, 2) for x in (q, k, v, do)), am)
+    out_, _ = fa._flash_fwd_cuda(q, k, v, None, False, 1.0 / 8.0, "bhtd",
+                                 progs)
+    timed = {
+        "port_fwd_bwd_ms": device_ms(
+            lambda q, k, v, do: run_sched(q, k, v, do, None, progs, "bhtd"),
+            q, k, v, do),
+        "port_bwd_ms": device_ms(
+            lambda q, k, v, o, lse, do: fa._flash_bwd_cuda(
+                q, k, v, o, lse, do, None, False, 1.0 / 8.0, "bhtd", progs),
+            q, k, v, out_, lse, do),
+        **yard}
+    del out_
     for name, kern, plain, err in (
             ("flash_bwd_dkv_sched", fa._flash_bwd_dkv_cuda,
              fa._flash_bwd_dkv_torch, max(errs["dk"], errs["dv"])),
@@ -933,16 +1168,25 @@ def time_sched(dev, gen, lines):
         nbytes, ops = sched_work(q, "bhtd", frac, which, None)
         b_ms, b_by = bound(nbytes, ops, "bfloat16")
         lines[name] = out[name] = {
-            "ms": cuda_ms(lambda: kern(*args, progs), iters=10),
-            "plain_ms": cuda_ms(lambda: plain(*args, mask), iters=3,
-                                warmup=1),
-            "library_ms": sdpa_ms, "library_is": "sdpa fwd+bwd with the "
-            "same dense boolean attn_mask, combined; compare "
-            "port_fwd_bwd_ms", "port_fwd_bwd_ms": port_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "ms": device_ms(
+                lambda q, k, v, do, lse, delta, kern=kern: kern(
+                    q, k, v, do, lse, delta, None, False, 1.0 / 8.0, "bhtd",
+                    progs), q, k, v, do, lse, delta),
+            "plain_ms": cuda_ms(lambda: plain(
+                q, k, v, do, lse, delta, None, False, 1.0 / 8.0, "bhtd",
+                mask), iters=3, warmup=1),
+            "library_ms": yard["sdpa_bwd_ms"],
+            "library_is": f"SDPA's backward alone, aten "
+                          f"{SDPA_ATEN[yard['sdpa_bwd_backend']]} op, with "
+                          "the same mask as an additive bias (computes "
+                          "Delta, dK/dV and dQ together: compare "
+                          "port_bwd_ms)",
+            **timed, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
             "rel_err": rel, "executed_block_fraction": frac,
             "mask": "local:1024", "dtype": "bfloat16",
-            "shape": [B, H, T, D]}
+            "shape": [B, H, T, D],
+            "timing": "ms, library and port figures: DeviceLoopBench (CUDA "
+                      "graph, L2-cold); plain_ms: CUDA events"}
     del q, k, v, do, got, same, am
     torch.cuda.empty_cache()
     return out
@@ -1176,11 +1420,12 @@ def phase_kernels(dev, seed):
                 time_b1_dense(q, k, v, seg, lines, rec)
             elif (mode, B, T) in (("segments", 8, 512), ("causal", 1, 512)):
                 nbytes, ops = flash_work(q, seg, causal)
-                rec["ms"] = cuda_ms(lambda: run_flash(q, k, v, seg, causal))
+                rec["ms"] = device_ms(
+                    lambda q, k, v: run_flash(q, k, v, seg, causal), q, k, v)
                 rec["plain_ms"] = cuda_ms(
                     lambda: plain_flash(q, k, v, seg, causal), iters=5)
-                rec["library_ms"] = cuda_ms(lambda: sdpa(q, k, v, seg,
-                                                         causal))
+                rec["library_ms"] = device_ms(
+                    lambda q, k, v: sdpa(q, k, v, seg, causal), q, k, v)
                 rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, dtype)
             cases.append(rec)
     cases += b1_edge_cases(dev, gen)
@@ -1203,8 +1448,8 @@ def phase_kernels(dev, seed):
                "b5_k1_bit_exact": True}
         if dtype == "bfloat16":
             nbytes, ops = paged_work(q, lens, 0)
-            rec["ms"] = cuda_ms(lambda: pa._paged_decode_cuda(
-                q, kp, vp, bt, sl, 1.0 / 8.0), iters=50)
+            rec["ms"] = device_ms(lambda q, kp, vp: pa._paged_decode_cuda(
+                q, kp, vp, bt, sl, 1.0 / 8.0), q, kp, vp)
             rec["plain_ms"] = cuda_ms(lambda: pa.paged_attention_reference(
                 q, kp, vp, bt, sl), iters=10)
             rec["library_ms"] = None
@@ -1230,8 +1475,10 @@ def phase_kernels(dev, seed):
                    "lens": lens5, "q_rows": q_rows, "max_abs_err": err}
             if (K, dtype, q_rows) == (64, "bfloat16", [64]):
                 nbytes, ops = paged_work(q, lens5, K)
-                rec["ms"] = cuda_ms(lambda: pa._paged_decode_multi_cuda(
-                    q, kp, vp, bt, sl, kr, None, 1.0 / 8.0, None), iters=50)
+                rec["ms"] = device_ms(
+                    lambda q, kp, vp: pa._paged_decode_multi_cuda(
+                        q, kp, vp, bt, sl, kr, None, 1.0 / 8.0, None),
+                    q, kp, vp)
                 rec["plain_ms"] = cuda_ms(
                     lambda: pa.paged_attention_reference(
                         q, kp, vp, bt, sl, q_rows=kr), iters=5)
@@ -1240,6 +1487,7 @@ def phase_kernels(dev, seed):
                 lines["paged_decode_multi"] = rec
             cases.append(rec)
     cases += bwd_cases(dev, gen, lines)
+    cases += bwd_edge_cases(dev, gen)
     cases += sched_cases(dev, gen)
     cases.append({"kernel": "flash_*_sched", "timed": time_sched(dev, gen,
                                                                  lines)})
@@ -1310,6 +1558,9 @@ def phase_decode(dev, seed, new_tokens):
 
     cold = BertDecodeBackend(prefix_cache=False, **kw)
     cold_stream = cold.call({"ids": hit_prompt})["generated"]
+    if hit_stream != cold_stream:
+        emit({"phase": "decode", "prefix_hit_mismatch": logit_margin(
+            cold.model, hit_prompt, cold_stream, hit_stream)})
     check(hit_stream == cold_stream,
           f"prefix-hit stream {hit_stream} != cold stream {cold_stream}")
     gen_tokens = 8 * (new_tokens - 1)
@@ -1325,6 +1576,24 @@ def phase_decode(dev, seed, new_tokens):
     del be, cold
     torch.cuda.empty_cache()
     return counts
+
+
+def logit_margin(model, prompt, stream, other):
+    """Where two greedy streams of one prompt part: the first step that
+    differs, and the top-1 minus top-2 logit margin there on ``model``
+    (a cold prefill of the prompt and the common tokens). A margin within
+    bf16 rounding of a tie points at rounding, a wide one at the cache."""
+    import torch
+    step = next((i for i, (a, b) in enumerate(zip(stream, other)) if a != b),
+                min(len(stream), len(other)))
+    ids = torch.as_tensor([prompt + stream[:step]], dtype=torch.int32,
+                          device=model.device)
+    lg, _, _ = model.prefill_fn()(ids, torch.ones_like(ids))
+    top = torch.topk(lg[0, -1].float(), 2)
+    return {"first_differing_step": step,
+            "tokens": [stream[step:step + 1], other[step:step + 1]],
+            "top2_ids": top.indices.tolist(),
+            "top1_minus_top2": (top.values[0] - top.values[1]).item()}
 
 
 def phase_encode(dev, seed):
@@ -1760,7 +2029,12 @@ def phase_train(dev, seed, steps=10, warmup=2):
         model, init, batch, None, seed, warmup, steps)
     check(all(np.isfinite(dense_losses)), f"dense loss {dense_losses}")
     mem = torch.cuda.max_memory_allocated() / 2**30
-    del st, step, model, init
+    wall = _timed(lambda: step(st, batch, step_generator(seed, 92, dev)))
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    traced = _timed(lambda: step(st, batch, step_generator(seed, 93, dev)),
+                    prof)
+    dense_breakdown = _device_breakdown(prof, wall, traced, 1, top=12)
+    del st, step, model, init, prof
     torch.cuda.empty_cache()
     emit({"phase": "train", "config": "BERT-base bf16 dropout 0.1",
           "batch": [B, T], "params": n_params, "flops_per_step": flops,
@@ -1768,10 +2042,12 @@ def phase_train(dev, seed, steps=10, warmup=2):
           "step_ms": flash_ms, "tokens_per_s": B * T / flash_ms * 1e3,
           "share_of_989_tflops": flops / (flash_ms * 1e-3) / 989e12,
           "dense_losses": dense_losses, "dense_step_ms": dense_ms,
+          "dense_tokens_per_s": B * T / dense_ms * 1e3,
           "flash_vs_dense_speedup": dense_ms / flash_ms,
           "padded_lens": lens, "padded_loss": padded_loss,
           "launches_timed_steps": counts, "launches_padded_step": pcounts,
-          "max_memory_gib": mem, "profile": breakdown})
+          "max_memory_gib": mem, "profile": breakdown,
+          "dense_profile": dense_breakdown})
     return launches
 
 
@@ -2024,11 +2300,14 @@ def main(argv=None):
     gpu = gpu_line()
     t0 = time.perf_counter()
     took = _build.build_all(verbose_ptxas=True)
+    bodies, faults = bwd_tc_report()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": took, "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "ptxas": {k: ptxas_summary(v[1])
-                    for k, v in _build.BUILD_LOG.items()}})
+                    for k, v in _build.BUILD_LOG.items()},
+          "bwd_bf16_bodies": bodies})
+    check(not faults, "bf16 B2/B3 bodies: " + "; ".join(faults))
     lines = phase_kernels(dev, SEED) if "kernels" in phases else {}
     launches = {k: 0 for k in KERNELS}
     if "decode" in phases:
@@ -2085,9 +2364,9 @@ def main(argv=None):
                         "bound_by": rec.get("bound_by"),
                         "library_ms": rec.get("library_ms"),
                         "library_is": rec.get("library_is"),
-                        "ms_events": rec.get("ms_events"),
-                        "library_ms_events": rec.get("library_ms_events"),
                         "port_fwd_bwd_ms": rec.get("port_fwd_bwd_ms"),
+                        "port_bwd_ms": rec.get("port_bwd_ms"),
+                        "sdpa_fwd_bwd_ms": rec.get("sdpa_fwd_bwd_ms"),
                         "dtype": rec.get("dtype"),
                         "shape": rec.get("shape") or rec.get("lens")})
     print(gpu, flush=True)

@@ -145,3 +145,94 @@ def test_segment_ids_get_no_gradient_and_lse_is_unchanged():
     assert torch.equal(plain[1], tracked[1])
     tracked[0].sum().backward()
     assert ids.q.grad is None and ids.kv.grad is None
+
+
+def _orphan_inputs(seed, layout, T=64):
+    """fp32 q, k, v and segment ids in which query rows 8-23 carry an id
+    (7) that no key carries: rows that see no key."""
+    q, k, v, _ = _inputs(seed, 1, 2, T, T, 16, layout, "dense")
+    qi = np.ones((1, T), np.int32)
+    kv = np.ones((1, T), np.int32)
+    qi[:, T // 2:] = 2
+    kv[:, T // 2:] = 2
+    qi[:, 8:24] = 7
+    return q, k, v, (qi, kv)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_orphan_row_grads_match_reference_pallas_interpret(layout):
+    """A row that sees no key: the reference's forward gives the average
+    of V (LSE -1e30), and its backward takes p = exp(-1e30 - (-1e30)) = 1
+    for each key of that row. The plain backward keeps those semantics,
+    which the kernels' exp2 fold must keep too."""
+    q, k, v, seg = _orphan_inputs(5, layout)
+    want = _ref_grads(q, k, v, seg, "segments", layout, bq=32, bk=32,
+                      backend="pallas-interpret")
+    _close(_port_grads(q, k, v, seg, "segments", layout), want, FP32)
+
+
+class _Recorder:
+    """Stands in for a C function of ``csrc/flash_bwd.cu``: records its
+    arguments and returns 0 (cudaSuccess)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("which", ["dkv", "dq"])
+@pytest.mark.parametrize("scheduled", [False, True])
+def test_bf16_backward_wrappers_refuse_misaligned_rows(which, scheduled,
+                                                       monkeypatch):
+    """The bf16 backward kernels copy 16-byte pieces of q, k, v and dO
+    rows: a wrapper refuses an operand off 16 bytes before any launch,
+    and an aligned call reaches the C function with as many arguments as
+    its ``_ARGTYPES`` entry names."""
+    import types
+
+    from tosem_tpu_torch.ops import flash_attention as fa
+    from tosem_tpu_torch.ops.mask_programs import LocalMask
+    from tosem_tpu_torch.ops.registry import LAUNCH_COUNTS
+    rec = {}
+
+    def kernel(source, name):
+        assert source == "flash_bwd"
+        return rec.setdefault(name, _Recorder())
+    monkeypatch.setattr(fa, "_kernel", kernel)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    name = "flash_bwd_" + which + ("_sched" if scheduled else "")
+    monkeypatch.setitem(LAUNCH_COUNTS, name, 0)
+    B, T, H, D = 1, 128, 2, 16
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    lse = torch.zeros(B, H, T)
+    delta = torch.zeros(B, H, T)
+    programs = None
+    if scheduled:
+        programs = fa.compile_mask_programs(LocalMask(64), T, T,
+                                            fa.select_block_sizes(
+                                                T, D, "bfloat16", T),
+                                            heads=H)
+    run = fa._flash_bwd_dkv_cuda if which == "dkv" else fa._flash_bwd_dq_cuda
+
+    def off16(x):
+        """x's values in a buffer shifted by one element (2 bytes)."""
+        buf = torch.empty(x.numel() + 8, dtype=x.dtype)[1:][:x.numel()]
+        return buf.view(x.shape).copy_(x)
+    for bad in ("q", "dO"):
+        args = {"q": q, "dO": do}
+        args[bad] = off16(args[bad])
+        with pytest.raises(ValueError, match="16 bytes"):
+            run(args["q"], k, v, args["dO"], lse, delta, None, False, 0.25,
+                "bthd", programs)
+    assert not rec
+    run(q, k, v, do, lse, delta, None, False, 0.25, "bthd", programs)
+    assert LAUNCH_COUNTS[name] == 1
+    assert list(rec) == [name] and len(rec[name].calls) == 1
+    assert len(rec[name].calls[0]) == len(fa._ARGTYPES[name])

@@ -223,9 +223,10 @@ _ARGTYPES = {
     "flash_fwd": _argtypes(7, 12),
     "flash_bwd_dq": _argtypes(9, 15),
     "flash_bwd_dkv": _argtypes(10, 18),
-    "flash_fwd_sched": _argtypes(7, 12, sched=6),   # + the launch order
-    "flash_bwd_dq_sched": _argtypes(9, 15, sched=5),
-    "flash_bwd_dkv_sched": _argtypes(10, 18, sched=5),
+    # schedule mode: five schedule arrays and the launch order
+    "flash_fwd_sched": _argtypes(7, 12, sched=6),
+    "flash_bwd_dq_sched": _argtypes(9, 15, sched=6),
+    "flash_bwd_dkv_sched": _argtypes(10, 18, sched=6),
 }
 
 
@@ -311,7 +312,7 @@ _DEVICE_PROGRAMS_MAX = 128
 
 
 def launch_order(num) -> np.ndarray:
-    """The order in which the forward launches its resident tiles: a
+    """The order in which the bf16 kernels launch their resident tiles: a
     permutation of ``range(n_major)`` by descending entry count, summed
     over the schedule's head rows (``num`` [Hs, n_major]), ties in tile
     order. The heaviest tiles start first, so the longest rows do not
@@ -359,8 +360,8 @@ def _device_programs(programs: MaskPrograms, device) -> _DevicePrograms:
 
 
 def _sched_args(programs, which, device, H, n_major, n_minor):
-    """The launch arguments of one schedule (five pointers, and the
-    launch order's for the forward; then Hs, L), after checking it
+    """The launch arguments of one schedule (five pointers and the
+    launch order's; then Hs, L), after checking it
     against the operands: ``n_major`` resident tiles, at most ``n_minor``
     streamed ones, one or H head rows."""
     ds = getattr(_device_programs(programs, device), which)
@@ -370,9 +371,7 @@ def _sched_args(programs, which, device, H, n_major, n_minor):
             f"{ds.n_minor} streamed and {ds.Hs} head rows; the operands "
             f"have {n_major}, {n_minor} and {H} heads: recompile the mask "
             "programs for this shape")
-    ptrs = [ds.num, ds.blk, ds.kind, ds.mid, ds.bits]
-    if which == "fwd":
-        ptrs.append(ds.order)
+    ptrs = (ds.num, ds.blk, ds.kind, ds.mid, ds.bits, ds.order)
     return (*(p.data_ptr() for p in ptrs), ds.Hs, ds.L)
 
 
@@ -389,7 +388,7 @@ def _check_tiles(Tq, Tk, causal):
 
 
 def _check_rows_aligned(tensors, layout):
-    """The bf16 forward copies 16-byte pieces of each row with
+    """The bf16 kernels copy 16-byte pieces of each row with
     ``cp.async``: every operand must start on 16 bytes, and its (batch,
     time, head) strides must be whole multiples of 8 elements."""
     for name, x in tensors:
@@ -441,6 +440,9 @@ def _bwd_operands(q, k, v, do, lse, delta, segment_ids, layout):
             or do.stride(-1) != 1:
         raise ValueError(f"dO must be {q.dtype} {tuple(q.shape)} with a "
                          "contiguous head dimension")
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned((("q", q), ("k", k), ("v", v), ("dO", do)),
+                            layout)
     for name, x in (("LSE", lse), ("Delta", delta)):
         if (x.dtype != torch.float32 or tuple(x.shape) != (B, H, Tq)
                 or not x.is_contiguous()):
