@@ -11,7 +11,10 @@ Phases, each printing one JSON line:
               (one process per source, started together); the bf16 B2/B3
               bodies at D = 16, 32 and 64 must hold HMMA, LDSM and LDGSTS
               in their SASS (``cuobjdump -sass``) and spill nothing
-              (``ptxas -v``), and report the blocks an SM holds.
+              (``ptxas -v``), and report the blocks an SM holds; every
+              instantiation of B6's and B8's warp-row bodies must hold
+              16-byte global loads and stores (LDG.E.128, STG.E.128) and
+              spill nothing.
 2. kernels  — each CUDA kernel against its plain PyTorch version on the
               card, at the main path's shapes, bf16 and fp32, with its
               time, its bound from bytes and operations, and a library
@@ -32,13 +35,17 @@ Phases, each printing one JSON line:
               forward's outputs) and, as whole steps, the port's B1 +
               Delta + B2 + B3 beside SDPA's forward and backward. B6-B9
               (fused layernorm and softmax, forward and backward) at the
-              kernel suite's shapes, a ragged row count, odd widths and a
-              long row, fp32 and bf16, B7 launched twice. B1-B3's schedule
-              mode (``flash_*_sched``) under seven mask programs at [2,
-              1024, 12, 64], both layouts, fp32 and bf16, with a
-              PARTIAL-as-FULL yardstick, FullMask == dense and CausalMask
-              == causal bit for bit, B2/B3 launched twice; timed at the
-              main paths' shapes beside SDPA with the same dense mask.
+              kernel suite's shapes, a ragged row count, odd widths, a
+              long row, the edges of B6/B8's warp-row body (1024, 1025,
+              1032 and 1 wide) and operands off 16 bytes, fp32 and bf16,
+              B6, B7 and B8 launched twice; each case names the body
+              B6/B8 ran, and the suite's shapes must run the warp-row
+              one. B1-B3's schedule mode (``flash_*_sched``) under seven
+              mask programs at [2, 1024, 12, 64], both layouts, fp32
+              and bf16, with a PARTIAL-as-FULL yardstick, FullMask ==
+              dense and CausalMask == causal bit for bit, B2/B3 launched
+              twice; timed at the main paths' shapes beside SDPA with the
+              same dense mask.
 3. decode   — BERT-base greedy decode through ``BertDecodeBackend``'s
               client protocol: 8 packed prompts x 32 new tokens, then a
               prompt that hits the prefix cache, whose stream must equal
@@ -129,15 +136,23 @@ NORM_TOL = {"ln_fwd": {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)},
 # checked beside it, a gamma off by 2% and a softmax temperature off by
 # 5%, read about 0.018 and 0.046 at the suite's shapes on the CPU.
 NORM_REL = 1.0 / 128
+# At width 1 every B6-B9 output is a constant of the inputs (softmax 1,
+# layernorm beta, gradients 0): the ratio above is 0/0 there and no
+# yardstick can differ, so NORM_TOL alone holds those cases
+CONSTANT_ROWS = "width 1: outputs are constants; held by NORM_TOL alone"
 # the one PyTorch call that computes each of B6-B9 (timed here only)
 LIBRARY_IS = {"ln_fwd": "F.layer_norm",
               "ln_bwd": "aten.native_layer_norm_backward (the autograd "
                         "backward of F.layer_norm)",
               "sm_fwd": "torch.softmax",
               "sm_bwd": "torch._softmax_backward_data"}
-# the suite's shapes first, then a ragged row count, odd widths, a long row
-LN_SHAPES = ((4096, 768), (4095, 768), (300, 1000), (64, 77), (256, 8192))
-SM_SHAPES = ((49152, 512), (4095, 512), (300, 1000), (64, 77), (256, 8192))
+# the suite's shapes first, then a ragged row count, odd widths, a long
+# row, and the edges of B6/B8's warp-row body: its widest row (1024), one
+# element and one vector wider, and N = 1
+LN_SHAPES = ((4096, 768), (4095, 768), (300, 1000), (64, 77), (256, 8192),
+             (300, 1024), (300, 1025), (300, 1032), (64, 1))
+SM_SHAPES = ((49152, 512), (4095, 512), (300, 1000), (64, 77), (256, 8192),
+             (300, 1024), (300, 1025), (300, 1032), (64, 1))
 KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "paged_decode",
            "paged_decode_multi", "ln_fwd", "ln_bwd", "sm_fwd", "sm_bwd",
            "flash_fwd_sched", "flash_bwd_dkv_sched", "flash_bwd_dq_sched")
@@ -215,11 +230,17 @@ BWD_TC = {"flash_bwd_dq_tc_kernel": (0, 0),
           "flash_bwd_dkv_tc_kernel": (1, 0),
           "flash_bwd_dkv_tc_sched_kernel": (1, 1)}
 SASS_NEEDS = ("HMMA", "LDSM", "LDGSTS")
+# the warp-row bodies of B6 and B8 (csrc/fused_norms.cu), and what their
+# SASS must hold: 16-byte global loads and stores
+WARP_ROW_NEEDS = ("LDG.E.128", "STG.E.128")
+# their instantiations: B8 <T, V>, B6 <T, G, V>, V up to 4 (bf16 x) or 8
+WARP_ROW_BODIES = 4 + 8 + 2 * (4 + 8)
 
 
-def sass_counts(lib):
-    """``{mangled kernel: {instruction: count}}`` of SASS_NEEDS in the
-    ``cuobjdump -sass`` listing of a built library."""
+def sass_counts(lib, needs):
+    """``{mangled kernel: {instruction: count}}`` of the SASS
+    instructions ``needs`` in the ``cuobjdump -sass`` listing of a built
+    library."""
     import re
     from tosem_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
@@ -231,11 +252,24 @@ def sass_counts(lib):
         m = re.search(r"Function : (\S+)", ln)
         if m:
             name = m.group(1)
-            funcs[name] = {op: 0 for op in SASS_NEEDS}
+            funcs[name] = {op: 0 for op in needs}
         elif name is not None:
-            for op in SASS_NEEDS:
+            for op in needs:
                 funcs[name][op] += f" {op}" in ln
     return funcs
+
+
+def ptxas_record(what, line, faults):
+    """``ptxas -v``'s line of one entry function; a missing line or a
+    spill is a fault."""
+    import re
+    regs = re.search(r"Used (\d+) registers", line)
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+    if regs is None or len(spills) != 2:
+        faults.append(f"{what}: no ptxas line ({line!r})")
+    elif any(spills):
+        faults.append(f"{what} spills: {line}")
+    return line
 
 
 def bwd_tc_report():
@@ -248,7 +282,7 @@ def bwd_tc_report():
     import re
     from tosem_tpu_torch.ops import _build
     lib = _build._lib_path("flash_bwd")
-    sass = sass_counts(lib)
+    sass = sass_counts(lib, SASS_NEEDS)
     built = "flash_bwd" in _build.BUILD_LOG
     ptx = ptxas_summary(_build.BUILD_LOG["flash_bwd"][1]) if built else {}
     blocks = _build.load("flash_bwd").flash_bwd_tc_blocks_per_sm
@@ -264,19 +298,50 @@ def bwd_tc_report():
             if not all(ops.values()):
                 faults.append(f"{what}: SASS lacks {ops}")
             rec = {"sass": ops, "blocks_per_sm": blocks(dkv, sched, D)}
-            if built:
-                line = ptx.get(names[0], "")
-                regs = re.search(r"Used (\d+) registers", line)
-                spills = [int(x) for x in
-                          re.findall(r"(\d+) bytes spill", line)]
-                if regs is None or len(spills) != 2:
-                    faults.append(f"{what}: no ptxas line ({line!r})")
-                elif any(spills):
-                    faults.append(f"{what} spills: {line}")
-                rec["ptxas"] = line
-            else:
-                rec["ptxas"] = "not rebuilt in this run"
+            rec["ptxas"] = (ptxas_record(what, ptx.get(names[0], ""),
+                                         faults)
+                            if built else "not rebuilt in this run")
             report[what] = rec
+    return report, faults
+
+
+def warp_row_name(mangled):
+    """``sm_fwd_warp<bf16,2>`` / ``ln_fwd_warp<bf16,f32,3>`` from the
+    mangled name of a warp-row instantiation (a repeated bf16 argument
+    is mangled as a substitution, ``S0_``)."""
+    import re
+    m = re.search(r"(ln|sm)_fwd_warp_kernelI((?:13__nv_bfloat16|f|S\d*_)+)"
+                  r"Li(\d+)E", mangled)
+    if m is None:
+        return mangled
+    types = ["f32" if t == "f" else "bf16"
+             for t in re.findall(r"13__nv_bfloat16|f|S\d*_", m.group(2))]
+    return f"{m.group(1)}_fwd_warp<{','.join(types)},{m.group(3)}>"
+
+
+def warp_row_report():
+    """Every instantiation of B6's and B8's warp-row bodies
+    (``csrc/fused_norms.cu``): its SASS counts of 16-byte global loads
+    and stores and, where this run built the library, its ``ptxas -v``
+    line. Returns (report, faults): a body without LDG.E.128 or
+    STG.E.128, or one that spills, is a fault."""
+    from tosem_tpu_torch.ops import _build
+    sass = sass_counts(_build._lib_path("fused_norms"), WARP_ROW_NEEDS)
+    built = "fused_norms" in _build.BUILD_LOG
+    ptx = ptxas_summary(_build.BUILD_LOG["fused_norms"][1]) if built else {}
+    names = sorted(n for n in sass if "_fwd_warp_kernel" in n)
+    check(len(names) == WARP_ROW_BODIES,
+          f"{len(names)} warp-row bodies in the SASS, expected "
+          f"{WARP_ROW_BODIES}")
+    report, faults = {}, []
+    for name in names:
+        what = warp_row_name(name)
+        if not all(sass[name].values()):
+            faults.append(f"{what}: SASS lacks {sass[name]}")
+        report[what] = {
+            "sass": sass[name],
+            "ptxas": (ptxas_record(what, ptx.get(name, ""), faults)
+                      if built else "not rebuilt in this run")}
     return report, faults
 
 
@@ -1280,12 +1345,34 @@ def time_norm(name, err, kernel, plain, library, *args):
             "shape": [R, D]}
 
 
+def norm_body(n, *tensors):
+    """The body B6 or B8 ran on these operands (inputs and outputs), as
+    ``fused_norms._row_body`` chose it before the launch."""
+    from tosem_tpu_torch.ops import fused_norms as fn
+    body, vecs = fn._row_body(n, tensors[0].dtype,
+                              *(t.data_ptr() for t in tensors))
+    return {"body": body, "V": vecs}
+
+
+def off_16(randn, R, D, **kw):
+    """A contiguous [R, D] view at storage offset 1: its data_ptr() sits
+    2 (bf16) or 4 (fp32) bytes past a 16-byte boundary."""
+    x = randn(R * D + 1, **kw)[1:].view(R, D)
+    check(x.is_contiguous() and x.data_ptr() % 16 == x.element_size(),
+          f"off-16 view at {x.data_ptr() % 16}")
+    return x
+
+
 def norm_cases(dev, seed, lines):
     """B6-B9 against their plain versions on the card at every shape of
-    LN_SHAPES / SM_SHAPES in bf16 and fp32; B7 launched twice, bit for
-    bit. At the suite's bf16 shapes each kernel is timed beside its bound,
-    its plain version and its library call (``F.layer_norm``, its
-    autograd backward ``native_layer_norm_backward``, ``torch.softmax``,
+    LN_SHAPES / SM_SHAPES in bf16 and fp32, and at the suite's widths
+    with x (and, for B6, gamma) off 16 bytes; B6, B7 and B8 launched
+    twice, bit for bit; each case names the body B6/B8 ran (warp-row or
+    block) and its vectors a lane, and the suite's shapes must run the
+    warp-row body. At the suite's bf16 shapes each kernel is timed beside
+    its bound, its plain version and its library call
+    (``F.layer_norm``, its autograd backward
+    ``native_layer_norm_backward``, ``torch.softmax``,
     ``torch._softmax_backward_data``), which the port never calls."""
     import torch
     import torch.nn.functional as F
@@ -1298,11 +1385,18 @@ def norm_cases(dev, seed, lines):
                 + shift).to(getattr(torch, dtype))
 
     for dtype in ("bfloat16", "float32"):
-        for R, D in LN_SHAPES:
-            x = randn(R, D, scale=3.0, shift=1.0, dtype=dtype)
-            g, b = randn(D, dtype=dtype), randn(D, dtype=dtype)
+        ln_cases = [(R, D, None) for R, D in LN_SHAPES]
+        ln_cases += [(*LN_SHAPES[0], "x"), (*LN_SHAPES[0], "gamma")]
+        for R, D, off in ln_cases:
+            x = (off_16(randn, R, D, scale=3.0, shift=1.0, dtype=dtype)
+                 if off == "x" else
+                 randn(R, D, scale=3.0, shift=1.0, dtype=dtype))
+            g = (off_16(randn, 1, D, dtype=dtype)[0] if off == "gamma"
+                 else randn(D, dtype=dtype))
+            b = randn(D, dtype=dtype)
             dy = randn(R, D, dtype=dtype)
             y, mu, rstd = fn._ln_fwd_cuda(x, g, b, 1e-6)
+            fwd_again = fn._ln_fwd_cuda(x, g, b, 1e-6)
             py, pmu, prstd = fn._ln_fwd_torch(x, g, b, 1e-6)
             grads = fn._ln_bwd_cuda(x, g, mu, rstd, dy)
             again = fn._ln_bwd_cuda(x, g, mu, rstd, dy)
@@ -1312,20 +1406,33 @@ def norm_cases(dev, seed, lines):
             stats = max((mu - pmu).abs().max().item(),
                         ((rstd - prstd).abs() / prstd.abs()).max().item())
             errs = [norm_err("ln_bwd", dtype, a, w) for a, w in zip(grads, plain)]
+            fwd_bits = all(torch.equal(a, c)
+                           for a, c in zip((y, mu, rstd), fwd_again))
             bits = all(torch.equal(a, c) for a, c in zip(grads, again))
+            body = norm_body(D, x, g, b, y)
+            what = f"[{R},{D}]" + (f" {off} off 16 bytes" if off else "")
             check(ok_y and stats <= 1e-5,
-                  f"ln_fwd {dtype} [{R},{D}]: err {err_y}, mu/rstd {stats}")
+                  f"ln_fwd {dtype} {what} ({body}): err {err_y}, mu/rstd "
+                  f"{stats}")
+            check(fwd_bits, f"ln_fwd {dtype} {what} ({body}) differs "
+                            "between two launches")
             check(all(ok for _, ok in errs),
-                  f"ln_bwd {dtype} [{R},{D}]: dx/dg/db err {errs}")
-            check(bits, f"ln_bwd {dtype} [{R},{D}] differs between two "
+                  f"ln_bwd {dtype} {what}: dx/dg/db err {errs}")
+            check(bits, f"ln_bwd {dtype} {what} differs between two "
                         "launches")
+            if (R, D) == LN_SHAPES[0]:
+                check(body["body"] == ("block" if off else "warp"),
+                      f"ln_fwd {dtype} {what} ran the {body} body")
             rec = {"kernel": "ln_fwd+ln_bwd", "dtype": dtype,
-                   "shape": [R, D], "max_abs_err": err_y,
-                   "mu_rstd_err": stats,
+                   "shape": [R, D], "off_16": off, "ln_fwd_body": body,
+                   "max_abs_err": err_y, "mu_rstd_err": stats,
                    "grad_err": {n: e for n, (e, _) in
                                 zip(("dx", "dgamma", "dbeta"), errs)},
+                   "fwd_bit_deterministic": fwd_bits,
                    "bit_deterministic": bits}
-            if dtype == "bfloat16":
+            if dtype == "bfloat16" and D == 1:
+                rec["rel_vs_fp32"] = CONSTANT_ROWS
+            elif dtype == "bfloat16":
                 xf, gf, bf, dyf = (t.float() for t in (x, g, b, dy))
                 ry, rmu, rrstd = fn._ln_fwd_torch(xf, gf, bf, 1e-6)
                 rgrads = fn._ln_bwd_torch(xf, gf, rmu, rrstd, dyf)
@@ -1333,7 +1440,7 @@ def norm_cases(dev, seed, lines):
                     f"ln bf16 [{R},{D}]", ("y", "dx", "dgamma", "dbeta"),
                     (y, *grads), (ry, *rgrads), "gamma_x1.02",
                     fn._ln_fwd_torch(xf, gf * 1.02, bf, 1e-6)[0], ry)
-            if (dtype, R, D) == ("bfloat16",) + LN_SHAPES[0]:
+            if (dtype, R, D, off) == ("bfloat16", *LN_SHAPES[0], None):
                 # the library's backward takes its own saved statistics;
                 # the timed operands are (x, g, b, mu, rstd, dy)
                 _, lmu, lrstd = torch.native_layer_norm(x, [D], g, b, 1e-6)
@@ -1352,30 +1459,45 @@ def norm_cases(dev, seed, lines):
                                                 [True, True, True]),
                     x, g, b, mu, rstd, dy)
             cases.append(rec)
-            del x, dy, y, py, grads, again, plain
-        for R, N in SM_SHAPES:
-            x = randn(R, N, scale=5.0, dtype=dtype)
+            del x, dy, y, py, fwd_again, grads, again, plain
+        sm_cases = [(R, N, False) for R, N in SM_SHAPES]
+        sm_cases.append((*SM_SHAPES[0], True))
+        for R, N, off in sm_cases:
+            x = (off_16(randn, R, N, scale=5.0, dtype=dtype) if off else
+                 randn(R, N, scale=5.0, dtype=dtype))
             dy = randn(R, N, dtype=dtype)
             y = fn._sm_fwd_cuda(x)
+            fwd_again = fn._sm_fwd_cuda(x)
             py = fn._sm_fwd_torch(x)
             dx = fn._sm_bwd_cuda(y, dy)     # from the kernel's own y
             pdx = fn._sm_bwd_torch(y, dy)
             torch.cuda.synchronize()
             err_y, ok_y = norm_err("sm_fwd", dtype, y, py)
             err_dx, ok_dx = norm_err("sm_bwd", dtype, dx, pdx)
-            check(ok_y, f"sm_fwd {dtype} [{R},{N}] err {err_y}")
-            check(ok_dx, f"sm_bwd {dtype} [{R},{N}] err {err_dx}")
+            fwd_bits = torch.equal(y, fwd_again)
+            body = norm_body(N, x, y)
+            what = f"[{R},{N}]" + (" x off 16 bytes" if off else "")
+            check(ok_y, f"sm_fwd {dtype} {what} ({body}) err {err_y}")
+            check(fwd_bits, f"sm_fwd {dtype} {what} ({body}) differs "
+                            "between two launches")
+            check(ok_dx, f"sm_bwd {dtype} {what} err {err_dx}")
+            if (R, N) == SM_SHAPES[0]:
+                check(body["body"] == ("block" if off else "warp"),
+                      f"sm_fwd {dtype} {what} ran the {body} body")
             rec = {"kernel": "sm_fwd+sm_bwd", "dtype": dtype,
-                   "shape": [R, N], "max_abs_err": err_y,
-                   "grad_err": err_dx}
-            if dtype == "bfloat16":
+                   "shape": [R, N], "off_16": "x" if off else None,
+                   "sm_fwd_body": body, "max_abs_err": err_y,
+                   "grad_err": err_dx, "fwd_bit_deterministic": fwd_bits}
+            if dtype == "bfloat16" and N == 1:
+                rec["rel_vs_fp32"] = CONSTANT_ROWS
+            elif dtype == "bfloat16":
                 ry = fn._sm_fwd_torch(x.float())
                 rec["rel_vs_fp32"] = norm_rel_check(
                     f"softmax bf16 [{R},{N}]", ("y", "dx"), (y, dx),
                     (ry, fn._sm_bwd_torch(y.float(), dy.float())),
                     "temperature_x1.05", fn._sm_fwd_torch(x.float() * 1.05),
                     ry)
-            if (dtype, R, N) == ("bfloat16",) + SM_SHAPES[0]:
+            if (dtype, R, N, off) == ("bfloat16", *SM_SHAPES[0], False):
                 rec["sm_fwd"] = lines["sm_fwd"] = time_norm(
                     "sm_fwd", err_y, fn._sm_fwd_cuda, fn._sm_fwd_torch,
                     lambda a: torch.softmax(a, -1), x)
@@ -1385,7 +1507,7 @@ def norm_cases(dev, seed, lines):
                                                               a.dtype),
                     y, dy)
             cases.append(rec)
-            del x, dy, y, py, dx, pdx
+            del x, dy, y, py, fwd_again, dx, pdx
     torch.cuda.empty_cache()
     return cases
 
@@ -2301,13 +2423,15 @@ def main(argv=None):
     t0 = time.perf_counter()
     took = _build.build_all(verbose_ptxas=True)
     bodies, faults = bwd_tc_report()
+    rows, row_faults = warp_row_report()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": took, "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "ptxas": {k: ptxas_summary(v[1])
                     for k, v in _build.BUILD_LOG.items()},
-          "bwd_bf16_bodies": bodies})
+          "bwd_bf16_bodies": bodies, "warp_row_bodies": rows})
     check(not faults, "bf16 B2/B3 bodies: " + "; ".join(faults))
+    check(not row_faults, "B6/B8 warp-row bodies: " + "; ".join(row_faults))
     lines = phase_kernels(dev, SEED) if "kernels" in phases else {}
     launches = {k: 0 for k in KERNELS}
     if "decode" in phases:

@@ -7,6 +7,8 @@ seed go through both. Tolerances are the reference's own
 1e-4 gradients, softmax atol 1e-6 / rtol 1e-5 forward and atol 1e-5 /
 rtol 1e-4 gradients in fp32; 2e-2 in bf16."""
 import importlib
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -23,13 +25,26 @@ SM_FWD = {"float32": dict(atol=1e-6, rtol=1e-5),
 SM_GRAD = {"float32": dict(atol=1e-5, rtol=1e-4),
            "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 # 256 rows in a 3-D input; a row count no 256-row block divides; an odd
-# width; a wide one
-LN_SHAPES = [(4, 64, 96), (200, 96), (64, 77), (24, 1000)]
-SM_SHAPES = [(4, 16, 128), (200, 96), (64, 77), (8, 1000)]
+# width; a wide one; the widest row of the kernels' warp-row body (1024)
+# and one element wider
+LN_SHAPES = [(4, 64, 96), (200, 96), (64, 77), (24, 1000), (8, 1024),
+             (8, 1025)]
+SM_SHAPES = [(4, 16, 128), (200, 96), (64, 77), (8, 1000), (8, 1024),
+             (8, 1025)]
 
 
 def _ref():
     return importlib.import_module("tosem_tpu.ops.fused_norms")
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repository root: its module level only
+    defines constants and functions."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _port():
@@ -205,3 +220,101 @@ def test_default_backend_on_cpu_runs_the_plain_versions():
     _port().fused_layernorm(x, torch.ones(16), torch.zeros(16))
     assert all(registry.LAUNCH_COUNTS[k] == 0
                for k in ("ln_fwd", "ln_bwd", "sm_fwd", "sm_bwd"))
+
+
+# The body B6 and B8 take on the card for each row width, in each dtype,
+# over 16-byte-aligned operands: ("warp", V) holds a row in one warp as V
+# 16-byte vectors a lane (8 bf16 or 4 fp32 values a vector); ("block", 0)
+# streams it through one block. Every width of chip_smoke.py's LN_SHAPES
+# and SM_SHAPES and of this file's shapes is listed.
+ROW_BODY = {
+    512: {"bfloat16": ("warp", 2), "float32": ("warp", 4)},
+    768: {"bfloat16": ("warp", 3), "float32": ("warp", 6)},
+    1000: {"bfloat16": ("warp", 4), "float32": ("warp", 8)},
+    1024: {"bfloat16": ("warp", 4), "float32": ("warp", 8)},
+    96: {"bfloat16": ("warp", 1), "float32": ("warp", 1)},
+    128: {"bfloat16": ("warp", 1), "float32": ("warp", 1)},
+    77: {"bfloat16": ("block", 0), "float32": ("block", 0)},
+    1: {"bfloat16": ("block", 0), "float32": ("block", 0)},
+    1025: {"bfloat16": ("block", 0), "float32": ("block", 0)},
+    1032: {"bfloat16": ("block", 0), "float32": ("block", 0)},
+    8192: {"bfloat16": ("block", 0), "float32": ("block", 0)},
+}
+
+
+def test_row_body_table_covers_every_shape_checked():
+    smoke = _chip_smoke()
+    widths = {s[-1] for s in (*smoke.LN_SHAPES, *smoke.SM_SHAPES,
+                              *LN_SHAPES, *SM_SHAPES)}
+    assert widths == set(ROW_BODY)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", sorted(ROW_BODY))
+def test_row_body_maps_each_width_to_its_stated_body(n, dtype):
+    tdt = getattr(torch, dtype)
+    # four aligned operands at unrelated addresses, as B6 passes them
+    ptrs = (0x7f0000000000, 0x7f0000200010, 0x7f0000400200, 0x7f00006000f0)
+    assert _port()._row_body(n, tdt, *ptrs) == ROW_BODY[n][dtype]
+    assert _port()._row_body(n, tdt, *ptrs[:2]) == ROW_BODY[n][dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [1, 2, 4, 8, 12])
+def test_row_body_refuses_operands_off_16_bytes(offset, dtype):
+    """Any operand, input or output, off a 16-byte boundary sends the row
+    to the block body, at a width the warp body takes."""
+    port = _port()
+    tdt = getattr(torch, dtype)
+    aligned = [0x10000, 0x20000, 0x30000, 0x40000]
+    assert port._row_body(768, tdt, *aligned)[0] == "warp"
+    for i in range(len(aligned)):
+        ptrs = list(aligned)
+        ptrs[i] += offset
+        assert port._row_body(768, tdt, *ptrs) == ("block", 0)
+
+
+def test_row_body_refuses_a_view_at_storage_offset_one():
+    """The case chip_smoke.py launches: a contiguous view one element
+    into its storage is 2 (bf16) or 4 (fp32) bytes off 16."""
+    port = _port()
+    for dtype in (torch.bfloat16, torch.float32):
+        base = torch.zeros(64 * 768 + 16, dtype=dtype)
+        x = base[1:1 + 64 * 768].view(64, 768)
+        y = torch.empty_like(x)
+        assert x.is_contiguous() and x.data_ptr() % 16 == dtype.itemsize
+        assert port._row_body(768, dtype, x.data_ptr(),
+                              y.data_ptr()) == ("block", 0)
+        assert port._row_body(768, dtype, base.data_ptr(),
+                              y.data_ptr())[0] == "warp"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_row_body_refuses_widths_off_the_vector(dtype):
+    """A row that is not a whole number of 16-byte vectors never gets the
+    warp body, however narrow."""
+    tdt = getattr(torch, dtype)
+    per_vec = 16 // tdt.itemsize
+    for n in range(1, 1025):
+        body, vecs = _port()._row_body(n, tdt, 0, 16)
+        if n % per_vec:
+            assert (body, vecs) == ("block", 0), n
+        else:
+            assert (body, vecs) == ("warp", -(-n // (32 * per_vec))), n
+            assert 1 <= vecs <= 32 // per_vec
+
+
+def test_row_body_depends_on_shape_dtype_and_alignment_only():
+    """The same width, dtype and alignment class give the same body
+    wherever the operands lie and whatever else the call holds; the row
+    count is not an argument at all."""
+    port = _port()
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (1, 77, 96, 512, 768, 1000, 1024, 1025, 8192):
+            want = port._row_body(n, dtype, 0)
+            for base in (16, 4096, 0x7fff_ffff_fff0, 2 ** 40 + 48):
+                assert port._row_body(n, dtype, base, base + 16 * n) == want
+                assert port._row_body(n, dtype, base) == want
+        x = torch.zeros(4, 768, dtype=dtype)
+        assert port._row_body(768, dtype, x.data_ptr()) == \
+            port._row_body(768, dtype, x.data_ptr() + 16 * 1000)

@@ -12,14 +12,26 @@
 // about 3.8 us (B6, [4096, 768]), 5.6 us (B7), 30 us (B8, [49152, 512])
 // and 45 us (B9).
 //
-// What the design does about it, in this first version: one block per
-// row (B6, B8, B9), 32 to 256 threads by row length, neighbouring threads
-// on neighbouring elements so every load is coalesced; statistics in
-// fp32 registers, reduced across the block by warp shuffles and a
-// 32-float shared array. A row is read again for each pass rather than
-// held in registers, so any row length runs (a row streams through L1
-// and L2; at the suite's widths a row is 1-1.5 KB). Vector loads, rows
-// held in registers and several rows a block are later work.
+// What the design does about it. B6 and B8 have two bodies each, chosen
+// before launch by shape, dtype and alignment (fused_norms.py
+// `_row_body`), never after a failure:
+// - the warp-row body, for rows of whole 16-byte vectors, at most 32
+//   elements a lane (1024 a row), with every operand 16-byte aligned:
+//   one warp per row and the row held in registers. Each lane loads its
+//   V vectors once, all before it uses any, and widens them to fp32; row
+//   statistics are warp butterflies, with no shared memory and no
+//   barrier; outputs go out as 16-byte stores. Blocks of ROW_WARPS warps,
+//   no more than the card holds at once: each warp walks rows by grid
+//   stride and loads its next row before it reduces the current one. B6
+//   loads gamma and beta into registers once per warp. B8 computes
+//   exp(x - max) once per element, keeps it in registers for the sum and
+//   the write, and multiplies by one reciprocal of the row sum.
+// - the block body, for every other row (odd widths, wide rows, views
+//   off 16 bytes): one block per row, 32 to 256 threads by row length,
+//   neighbouring threads on neighbouring elements; statistics reduced
+//   across the block by warp shuffles and a 32-float shared array; the
+//   row read again for each pass, so any length runs.
+// B7 and B9 are block bodies of the second kind.
 //
 // Numerics follow the Pallas kernels: x is read in its dtype and
 // widened to fp32; layernorm takes the mean first and then the mean of
@@ -35,6 +47,7 @@
 // order: partial p goes to warp p % 8, each warp adds its partials in
 // ascending p, and the eight warp sums are added in warp order. No
 // atomics: two launches agree bit for bit.
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -124,6 +137,209 @@ __global__ void ln_fwd_kernel(const T* __restrict__ x,
   }
 }
 
+// ------------------------------------------------ warp-row bodies (B6, B8)
+
+constexpr int ROW_WARPS = 4;       // warps a block, each on its own row
+constexpr int ROW_MAX_ELEMS = 32;  // row elements a lane holds at most
+
+// elements of T in one 16-byte vector, and the most vectors a lane holds
+template <typename T>
+__host__ __device__ constexpr int vec_elems() {
+  return 16 / (int)sizeof(T);
+}
+template <typename T>
+__host__ __device__ constexpr int max_vecs() {
+  return ROW_MAX_ELEMS / vec_elems<T>();
+}
+
+// W elements of E as 32-bit words (W * sizeof(E) is 8, 16 or 32 bytes),
+// read through the read-only path in 8- or 16-byte loads
+template <typename E, int W>
+struct Chunk {
+  static constexpr int WORDS = W * (int)sizeof(E) / 4;
+  uint32_t w[WORDS];
+
+  __device__ __forceinline__ void load(const E* p) {
+    if constexpr (WORDS == 2) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+      w[0] = v.x;
+      w[1] = v.y;
+    } else {
+#pragma unroll
+      for (int i = 0; i < WORDS / 4; ++i) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
+        w[4 * i] = v.x;
+        w[4 * i + 1] = v.y;
+        w[4 * i + 2] = v.z;
+        w[4 * i + 3] = v.w;
+      }
+    }
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i) w[i] = 0u;
+  }
+  // element i widened to fp32 (a bf16 is the top half of its fp32)
+  __device__ __forceinline__ float operator[](int i) const {
+    if constexpr (sizeof(E) == 4)
+      return __uint_as_float(w[i]);
+    else
+      return __uint_as_float(i & 1 ? w[i >> 1] & 0xffff0000u
+                                   : w[i >> 1] << 16);
+  }
+};
+
+template <typename T> using Vec = Chunk<T, vec_elems<T>()>;
+
+// one 16-byte vector of T from fp32 values, rounded to nearest even
+template <typename T>
+__device__ __forceinline__ void store_vec(T* p,
+                                          const float (&v)[vec_elems<T>()]) {
+  uint32_t w[4];
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = __float_as_uint(v[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = reinterpret_cast<const uint32_t&>(h);
+    }
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// the lane's V vectors of row r of x ([R, nvec] vectors): vector
+// k * 32 + lane in c[k], zeros past the row's end or past R
+template <typename T, int V>
+__device__ __forceinline__ void load_row(Vec<T> (&c)[V], const T* x, int r,
+                                         int R, int nvec, int lane) {
+  const T* xr = x + (long long)r * nvec * vec_elems<T>();
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int j = k * 32 + lane;
+    if (r < R && j < nvec)
+      c[k].load(xr + j * vec_elems<T>());
+    else
+      c[k].zero();
+  }
+}
+
+// The floor of one block an SM in __launch_bounds__ is there for ptxas:
+// without it, ptxas spilled 4 to 12 bytes in some bodies to reach the
+// next occupancy step (64, 72 or 80 registers).
+template <typename T, typename G, int V>
+__global__ void __launch_bounds__(ROW_WARPS * 32, 1)
+ln_fwd_warp_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
+                   const G* __restrict__ beta, T* __restrict__ y,
+                   float* __restrict__ mu_out, float* __restrict__ rstd_out,
+                   int R, int D, float eps) {
+  constexpr int W = vec_elems<T>();
+  const int lane = threadIdx.x & 31;
+  const int nvec = D / W;
+  const int stride = gridDim.x * ROW_WARPS;
+  int r = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  if (r >= R) return;
+  Chunk<G, W> g[V], b[V];  // this lane's columns, for all its rows
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int j = k * 32 + lane;
+    if (j < nvec) {
+      g[k].load(gamma + j * W);
+      b[k].load(beta + j * W);
+    }
+  }
+  Vec<T> cur[V], nxt[V];
+  load_row<T, V>(cur, x, r, R, nvec, lane);
+  for (; r < R; r += stride) {
+    load_row<T, V>(nxt, x, r + stride, R, nvec, lane);
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (k * 32 + lane < nvec)
+#pragma unroll
+        for (int i = 0; i < W; ++i) s += cur[k][i];
+    const float mu = warp_sum(s) / (float)D;
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (k * 32 + lane < nvec)
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          const float c = cur[k][i] - mu;
+          ss = fmaf(c, c, ss);
+        }
+    const float rstd = rsqrtf(warp_sum(ss) / (float)D + eps);
+    T* yr = y + (long long)r * D;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int j = k * 32 + lane;
+      if (j < nvec) {
+        float o[W];
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          const float xh = (cur[k][i] - mu) * rstd;
+          o[i] = xh * g[k][i] + b[k][i];
+        }
+        store_vec<T>(yr + j * W, o);
+      }
+    }
+    if (lane == 0) {
+      mu_out[r] = mu;
+      rstd_out[r] = rstd;
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) cur[k] = nxt[k];
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(ROW_WARPS * 32, 1)
+sm_fwd_warp_kernel(const T* __restrict__ x, T* __restrict__ y, int R,
+                   int N) {
+  constexpr int W = vec_elems<T>();
+  const int lane = threadIdx.x & 31;
+  const int nvec = N / W;
+  const int stride = gridDim.x * ROW_WARPS;
+  int r = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  Vec<T> cur[V], nxt[V];
+  load_row<T, V>(cur, x, r, R, nvec, lane);
+  for (; r < R; r += stride) {
+    load_row<T, V>(nxt, x, r + stride, R, nvec, lane);
+    float m = -CUDART_INF_F;
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (k * 32 + lane < nvec)
+#pragma unroll
+        for (int i = 0; i < W; ++i) m = fmaxf(m, cur[k][i]);
+    m = warp_max(m);
+    float e[V][W];
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (k * 32 + lane < nvec)
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          e[k][i] = expf(cur[k][i] - m);
+          s += e[k][i];
+        }
+    const float inv = 1.f / warp_sum(s);
+    T* yr = y + (long long)r * N;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int j = k * 32 + lane;
+      if (j < nvec) {
+        float o[W];
+#pragma unroll
+        for (int i = 0; i < W; ++i) o[i] = e[k][i] * inv;
+        store_vec<T>(yr + j * W, o);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) cur[k] = nxt[k];
+  }
+}
+
 // ---------------------------------------------------------------- B7
 
 // One block per `rows_per_block` rows: dx row by row, and this block's
@@ -165,7 +381,10 @@ __global__ void ln_bwd_kernel(const T* __restrict__ x,
     for (int j = threadIdx.x; j < D; j += blockDim.x) {
       const float xh = (to_f(x[off + j]) - m) * rs;
       const float d = to_f(dy[off + j]);
-      const float w = d * to_f(gamma[j]);
+      // rounded as the first pass rounds it: contracted into an FMA with
+      // - c1, w - c1 kept the product's rounding error, which rs (1000
+      // at eps 1e-6) made 1e-4 where dx is 0 (D = 1)
+      const float w = __fmul_rn(d, to_f(gamma[j]));
       dx[off + j] = from_f<T>((w - c1 - xh * c2) * rs);
       ag[j] = fmaf(d, xh, ag[j]);
       ab[j] += d;
@@ -258,14 +477,100 @@ int row_threads(int n) {
   return 32 * warps;
 }
 
+// blocks of a warp-row kernel that one SM holds at once
+template <typename K>
+int row_blocks_per_sm(K kern) {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, ROW_WARPS * 32, 0);
+  return n > 0 ? n : 1;
+}
+
+// a warp-row grid: a warp for each row, but no more blocks than the card
+// holds at once (the warps then walk the rows by grid stride)
+int row_grid(int per_sm, int R) {
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long need = ((long long)R + ROW_WARPS - 1) / ROW_WARPS;
+  return (int)(need < (long long)per_sm * sms ? need
+                                              : (long long)per_sm * sms);
+}
+
+// what the warp-row body needs of its caller's choice: rows of whole
+// vectors, at most `vecs` of them a lane, every operand 16-byte aligned
+template <typename T, typename... P>
+bool warp_row_fits(int vecs, int n, P... ptrs) {
+  constexpr int W = vec_elems<T>();
+  return vecs >= 1 && vecs <= max_vecs<T>() && n % W == 0 &&
+         n <= 32 * W * vecs &&
+         ((reinterpret_cast<uintptr_t>(ptrs) % 16 == 0) && ...);
+}
+
+// launch the warp-row body with V = vecs (instantiated for 1..max_vecs)
+template <typename T, typename G, int V = 1>
+int launch_ln_fwd_warp(int vecs, const void* x, const void* gamma,
+                       const void* beta, void* y, void* mu, void* rstd,
+                       int R, int D, float eps, cudaStream_t stream) {
+  if constexpr (V > max_vecs<T>()) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (vecs != V)
+      return launch_ln_fwd_warp<T, G, V + 1>(vecs, x, gamma, beta, y, mu,
+                                             rstd, R, D, eps, stream);
+    auto kern = ln_fwd_warp_kernel<T, G, V>;
+    static const int per_sm = row_blocks_per_sm(kern);
+    kern<<<row_grid(per_sm, R), ROW_WARPS * 32, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const G*>(gamma),
+        static_cast<const G*>(beta), static_cast<T*>(y),
+        static_cast<float*>(mu), static_cast<float*>(rstd), R, D, eps);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <typename T, int V = 1>
+int launch_sm_fwd_warp(int vecs, const void* x, void* y, int R, int N,
+                       cudaStream_t stream) {
+  if constexpr (V > max_vecs<T>()) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (vecs != V)
+      return launch_sm_fwd_warp<T, V + 1>(vecs, x, y, R, N, stream);
+    auto kern = sm_fwd_warp_kernel<T, V>;
+    static const int per_sm = row_blocks_per_sm(kern);
+    kern<<<row_grid(per_sm, R), ROW_WARPS * 32, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), R, N);
+    return (int)cudaGetLastError();
+  }
+}
+
+// vecs = 0: the block body; else the warp-row body with vecs vectors a
+// lane, which the operands must fit
 template <typename T, typename G>
-int launch_ln_fwd(const void* x, const void* gamma, const void* beta,
-                  void* y, void* mu, void* rstd, int R, int D, float eps,
-                  cudaStream_t stream) {
+int launch_ln_fwd(int vecs, const void* x, const void* gamma,
+                  const void* beta, void* y, void* mu, void* rstd, int R,
+                  int D, float eps, cudaStream_t stream) {
+  if (vecs != 0) {
+    if (!warp_row_fits<T>(vecs, D, x, gamma, beta, y))
+      return (int)cudaErrorInvalidValue;
+    return launch_ln_fwd_warp<T, G>(vecs, x, gamma, beta, y, mu, rstd, R, D,
+                                    eps, stream);
+  }
   ln_fwd_kernel<T, G><<<R, row_threads(D), 0, stream>>>(
       static_cast<const T*>(x), static_cast<const G*>(gamma),
       static_cast<const G*>(beta), static_cast<T*>(y),
       static_cast<float*>(mu), static_cast<float*>(rstd), D, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_sm_fwd(int vecs, const void* x, void* y, int R, int N,
+                  cudaStream_t stream) {
+  if (vecs != 0) {
+    if (!warp_row_fits<T>(vecs, N, x, y)) return (int)cudaErrorInvalidValue;
+    return launch_sm_fwd_warp<T>(vecs, x, y, R, N, stream);
+  }
+  sm_fwd_kernel<T><<<R, row_threads(N), 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), N);
   return (int)cudaGetLastError();
 }
 
@@ -302,26 +607,29 @@ int launch_ln_bwd(const void* x, const void* gamma, const void* mu,
 
 // dtype / gdtype: 0 = float32, 1 = bfloat16, of x (and y, dy, dx) and of
 // gamma/beta (and dgamma, dbeta). Every array is contiguous: x, y, dy,
-// dx are [R, D] (softmax: [R, N]); mu and rstd are [R] float32. Each
-// function launches on `stream` and returns cudaGetLastError().
+// dx are [R, D] (softmax: [R, N]); mu and rstd are [R] float32. `vecs`
+// (B6, B8) picks the body: 0 the block body, V >= 1 the warp-row body
+// with V 16-byte vectors a lane, refused with cudaErrorInvalidValue
+// where the operands do not fit it. Each function launches on `stream`
+// and returns cudaGetLastError().
 
-extern "C" int ln_fwd(int dtype, int gdtype, const void* x, const void* gamma,
-                      const void* beta, void* y, void* mu, void* rstd, int R,
-                      int D, float eps, void* stream) {
+extern "C" int ln_fwd(int dtype, int gdtype, int vecs, const void* x,
+                      const void* gamma, const void* beta, void* y, void* mu,
+                      void* rstd, int R, int D, float eps, void* stream) {
   if (R <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && gdtype == 0)
-    return launch_ln_fwd<float, float>(x, gamma, beta, y, mu, rstd, R, D, eps,
-                                       st);
+    return launch_ln_fwd<float, float>(vecs, x, gamma, beta, y, mu, rstd, R,
+                                       D, eps, st);
   if (dtype == 0 && gdtype == 1)
-    return launch_ln_fwd<float, __nv_bfloat16>(x, gamma, beta, y, mu, rstd, R,
-                                               D, eps, st);
+    return launch_ln_fwd<float, __nv_bfloat16>(vecs, x, gamma, beta, y, mu,
+                                               rstd, R, D, eps, st);
   if (dtype == 1 && gdtype == 0)
-    return launch_ln_fwd<__nv_bfloat16, float>(x, gamma, beta, y, mu, rstd, R,
-                                               D, eps, st);
+    return launch_ln_fwd<__nv_bfloat16, float>(vecs, x, gamma, beta, y, mu,
+                                               rstd, R, D, eps, st);
   if (dtype == 1 && gdtype == 1)
-    return launch_ln_fwd<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, y, mu,
-                                                       rstd, R, D, eps, st);
+    return launch_ln_fwd<__nv_bfloat16, __nv_bfloat16>(
+        vecs, x, gamma, beta, y, mu, rstd, R, D, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -354,20 +662,13 @@ extern "C" int ln_bwd(int dtype, int gdtype, const void* x, const void* gamma,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int sm_fwd(int dtype, const void* x, void* y, int R, int N,
-                      void* stream) {
+extern "C" int sm_fwd(int dtype, int vecs, const void* x, void* y, int R,
+                      int N, void* stream) {
   if (R <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    sm_fwd_kernel<float><<<R, row_threads(N), 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(y), N);
-  else if (dtype == 1)
-    sm_fwd_kernel<__nv_bfloat16><<<R, row_threads(N), 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
-        N);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (dtype == 0) return launch_sm_fwd<float>(vecs, x, y, R, N, st);
+  if (dtype == 1) return launch_sm_fwd<__nv_bfloat16>(vecs, x, y, R, N, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int sm_bwd(int dtype, const void* y, const void* dy, void* dx,

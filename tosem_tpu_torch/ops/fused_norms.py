@@ -8,7 +8,8 @@ of the two ``custom_vjp``\\ s: the layernorm saves the flattened x, gamma
 and the fp32 row statistics (mu, rstd), the softmax saves its output y in
 the output dtype, and both passes route by the operands' device. On CUDA
 tensors they launch ``csrc/fused_norms.cu`` (B6 ``ln_fwd``, B7 ``ln_bwd``,
-B8 ``sm_fwd``, B9 ``sm_bwd``); on CPU tensors the plain versions
+B8 ``sm_fwd``, B9 ``sm_bwd``; B6 and B8 in the body :func:`_row_body`
+picks); on CPU tensors the plain versions
 (``_ln_fwd_torch``, ``_ln_bwd_torch``, ``_sm_fwd_torch``,
 ``_sm_bwd_torch``), which follow the Pallas kernel bodies step for step.
 There is no fallback from one to the other.
@@ -33,14 +34,18 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LN_BWD_PARTS = 512
 # B7 keeps 2 * D fp32 sums in shared memory: 229,376 bytes at this width
 _LN_MAX_D = 28672
+# B6 and B8's warp-row body: 16-byte vectors, rows of at most this many
+# elements (32 fp32 values a lane, so nothing spills)
+_VEC_BYTES = 16
+_WARP_ROW_MAX = 1024
 
 _ARGTYPES = {
-    "ln_fwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+    "ln_fwd": ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
                + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]),
     "ln_bwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
                + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
-    "sm_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-               + [ctypes.c_void_p]),
+    "sm_fwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+               + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
     "sm_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                + [ctypes.c_void_p]),
 }
@@ -126,6 +131,21 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _row_body(n, dtype, *ptrs):
+    """The body of B6 or B8 for rows of ``n`` elements of ``dtype`` over
+    operands at the addresses ``ptrs`` (every input's and output's
+    ``data_ptr()``), chosen before launch from these alone:
+    ``("warp", V)``, one warp a row held in registers as V 16-byte
+    vectors a lane, when a row is a whole number of vectors, at most
+    :data:`_WARP_ROW_MAX` wide, and every operand is 16-byte aligned;
+    else ``("block", 0)``, one block a row, which takes any row."""
+    per_vec = _VEC_BYTES // dtype.itemsize
+    if (n % per_vec or n > _WARP_ROW_MAX
+            or any(p % _VEC_BYTES for p in ptrs)):
+        return "block", 0
+    return "warp", -(-n // (32 * per_vec))
+
+
 def _ln_fwd_cuda(x2, gamma, beta, eps):
     """Launch B6 ``ln_fwd``. Returns ``(y, mu, rstd)`` as the plain
     version does."""
@@ -136,10 +156,12 @@ def _ln_fwd_cuda(x2, gamma, beta, eps):
     y = torch.empty_like(x2)
     mu = torch.empty((R, 1), dtype=torch.float32, device=x2.device)
     rstd = torch.empty((R, 1), dtype=torch.float32, device=x2.device)
+    _, vecs = _row_body(D, x2.dtype, x2.data_ptr(), gamma.data_ptr(),
+                        beta.data_ptr(), y.data_ptr())
     code = _kernel("ln_fwd")(
-        _DTYPE_CODE[x2.dtype], _DTYPE_CODE[gamma.dtype], x2.data_ptr(),
-        gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), mu.data_ptr(),
-        rstd.data_ptr(), R, D, float(eps), _stream(x2))
+        _DTYPE_CODE[x2.dtype], _DTYPE_CODE[gamma.dtype], vecs,
+        x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+        mu.data_ptr(), rstd.data_ptr(), R, D, float(eps), _stream(x2))
     _build.check(code, "ln_fwd")
     registry.LAUNCH_COUNTS["ln_fwd"] += 1
     return y, mu, rstd
@@ -182,7 +204,8 @@ def _sm_fwd_cuda(x2):
     _check("sm_fwd", x2)
     R, N = x2.shape
     y = torch.empty_like(x2)
-    code = _kernel("sm_fwd")(_DTYPE_CODE[x2.dtype], x2.data_ptr(),
+    _, vecs = _row_body(N, x2.dtype, x2.data_ptr(), y.data_ptr())
+    code = _kernel("sm_fwd")(_DTYPE_CODE[x2.dtype], vecs, x2.data_ptr(),
                              y.data_ptr(), R, N, _stream(x2))
     _build.check(code, "sm_fwd")
     registry.LAUNCH_COUNTS["sm_fwd"] += 1
