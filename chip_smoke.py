@@ -12,9 +12,10 @@ Phases, each printing one JSON line:
               bodies at D = 16, 32 and 64 must hold HMMA, LDSM and LDGSTS
               in their SASS (``cuobjdump -sass``) and spill nothing
               (``ptxas -v``), and report the blocks an SM holds; every
-              instantiation of B6's and B8's warp-row bodies must hold
-              16-byte global loads and stores (LDG.E.128, STG.E.128) and
-              spill nothing.
+              instantiation of B6's, B7's and B8's warp-row bodies must
+              hold 16-byte global loads and stores (LDG.E.128,
+              STG.E.128) and spill nothing, and every instantiation of
+              B4/B5's chunk body 16-byte global loads and no spill.
 2. kernels  — each CUDA kernel against its plain PyTorch version on the
               card, at the main path's shapes, bf16 and fp32, with its
               time, its bound from bytes and operations, and a library
@@ -33,14 +34,19 @@ Phases, each printing one JSON line:
               bit-deterministic, and timed beside SDPA's backward alone
               (the aten backward op of each fused backend, fed its own
               forward's outputs) and, as whole steps, the port's B1 +
-              Delta + B2 + B3 beside SDPA's forward and backward. B6-B9
+              Delta + B2 + B3 beside SDPA's forward and backward. B4 at
+              ragged lengths with an idle row, at page 128 and on a wide
+              table (page 16, 32 slots), D = 16, 32, 64 and 128, launched
+              twice and held equal to B5 at k = 1 bit for bit; B5 at k =
+              1, 8 and 64, launched twice, its k = 8 row r equal to a B4
+              step at seq_len - (k - 1 - r) bit for bit. B6-B9
               (fused layernorm and softmax, forward and backward) at the
               kernel suite's shapes, a ragged row count, odd widths, a
-              long row, the edges of B6/B8's warp-row body (1024, 1025,
-              1032 and 1 wide) and operands off 16 bytes, fp32 and bf16,
-              B6, B7 and B8 launched twice; each case names the body
-              B6/B8 ran, and the suite's shapes must run the warp-row
-              one. B1-B3's schedule mode (``flash_*_sched``) under seven
+              long row, the edges of the warp-row bodies (1024, 1025,
+              1032 and 1 wide) and operands off 16 bytes, fp32 and bf16
+              (layernorm with gamma in either dtype), B6, B7 and B8
+              launched twice; each case names the body B6/B7/B8 ran, and
+              the suite's shapes must run the warp-row one. B1-B3's schedule mode (``flash_*_sched``) under seven
               mask programs at [2, 1024, 12, 64], both layouts, fp32
               and bf16, with a PARTIAL-as-FULL yardstick, FullMask ==
               dense and CausalMask == causal bit for bit, B2/B3 launched
@@ -147,10 +153,10 @@ LIBRARY_IS = {"ln_fwd": "F.layer_norm",
               "sm_fwd": "torch.softmax",
               "sm_bwd": "torch._softmax_backward_data"}
 # the suite's shapes first, then a ragged row count, odd widths, a long
-# row, and the edges of B6/B8's warp-row body: its widest row (1024), one
-# element and one vector wider, and N = 1
+# row, and the edges of B6/B7/B8's warp-row body: its widest row (1024),
+# one element and one vector wider, and N = 1 (layernorm also at 512)
 LN_SHAPES = ((4096, 768), (4095, 768), (300, 1000), (64, 77), (256, 8192),
-             (300, 1024), (300, 1025), (300, 1032), (64, 1))
+             (300, 1024), (300, 1025), (300, 1032), (64, 1), (300, 512))
 SM_SHAPES = ((49152, 512), (4095, 512), (300, 1000), (64, 77), (256, 8192),
              (300, 1024), (300, 1025), (300, 1032), (64, 1))
 KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "paged_decode",
@@ -207,11 +213,13 @@ def bound(nbytes, ops, dtype):
 
 def ptxas_summary(text):
     """``{kernel: "registers; spills"}`` from nvcc's ``-Xptxas -v``
-    output, each entry function named by its mangled name."""
+    output, each function named by its mangled name."""
     out, name = {}, None
     for ln in text.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
+        elif "Function properties for" in ln:
+            name = ln.split("Function properties for")[1].strip()
         elif name and ("registers" in ln or "spill" in ln):
             out[name] = (out.get(name, "") + " " + ln.split(":")[-1]
                          .strip()).strip()
@@ -230,11 +238,17 @@ BWD_TC = {"flash_bwd_dq_tc_kernel": (0, 0),
           "flash_bwd_dkv_tc_kernel": (1, 0),
           "flash_bwd_dkv_tc_sched_kernel": (1, 1)}
 SASS_NEEDS = ("HMMA", "LDSM", "LDGSTS")
-# the warp-row bodies of B6 and B8 (csrc/fused_norms.cu), and what their
-# SASS must hold: 16-byte global loads and stores
+# the warp-row bodies of B6, B7 and B8 (csrc/fused_norms.cu), and what
+# their SASS must hold: 16-byte global loads and stores
 WARP_ROW_NEEDS = ("LDG.E.128", "STG.E.128")
-# their instantiations: B8 <T, V>, B6 <T, G, V>, V up to 4 (bf16 x) or 8
-WARP_ROW_BODIES = 4 + 8 + 2 * (4 + 8)
+# their instantiations: B8 <T, V>, B6 and B7 <T, G, V>, V up to 4 (bf16
+# x) or 8
+WARP_ROW_BODIES = 4 + 8 + 2 * 2 * (4 + 8)
+# B4/B5's chunk body (csrc/paged_decode.cu) <T, D, rows> for D = 16, 32,
+# 64, 128, in both dtypes, one row or 8 a block: its SASS must hold
+# 16-byte global loads
+PAGED_NEEDS = ("LDG.E.128",)
+PAGED_BODIES = 2 * 4 * 2
 
 
 def sass_counts(lib, needs):
@@ -306,43 +320,71 @@ def bwd_tc_report():
 
 
 def warp_row_name(mangled):
-    """``sm_fwd_warp<bf16,2>`` / ``ln_fwd_warp<bf16,f32,3>`` from the
+    """``sm_fwd_warp<bf16,2>`` / ``ln_bwd_warp<bf16,f32,3>`` from the
     mangled name of a warp-row instantiation (a repeated bf16 argument
     is mangled as a substitution, ``S0_``)."""
     import re
-    m = re.search(r"(ln|sm)_fwd_warp_kernelI((?:13__nv_bfloat16|f|S\d*_)+)"
-                  r"Li(\d+)E", mangled)
+    m = re.search(r"(ln_fwd|ln_bwd|sm_fwd)_warp_kernelI"
+                  r"((?:13__nv_bfloat16|f|S\d*_)+)Li(\d+)E", mangled)
     if m is None:
         return mangled
     types = ["f32" if t == "f" else "bf16"
              for t in re.findall(r"13__nv_bfloat16|f|S\d*_", m.group(2))]
-    return f"{m.group(1)}_fwd_warp<{','.join(types)},{m.group(3)}>"
+    return f"{m.group(1)}_warp<{','.join(types)},{m.group(3)}>"
+
+
+def body_report(source, needs, pick, count, name):
+    """The instantiations of ``source``'s bodies that ``pick`` selects
+    from its SASS listing: the SASS counts of ``needs`` and, where this
+    run built the library, the ``ptxas -v`` line of each, named by
+    ``name``. Returns (report, faults): a body that lacks one of
+    ``needs``, or that spills, is a fault, and so is a count other than
+    ``count``."""
+    from tosem_tpu_torch.ops import _build
+    sass = sass_counts(_build._lib_path(source), needs)
+    built = source in _build.BUILD_LOG
+    ptx = ptxas_summary(_build.BUILD_LOG[source][1]) if built else {}
+    names = sorted(n for n in sass if pick(n))
+    check(len(names) == count,
+          f"{len(names)} {source} bodies in the SASS, expected {count}")
+    report, faults = {}, []
+    for mangled in names:
+        what = name(mangled)
+        if not all(sass[mangled].values()):
+            faults.append(f"{what}: SASS lacks {sass[mangled]}")
+        report[what] = {
+            "sass": sass[mangled],
+            "ptxas": (ptxas_record(what, ptx.get(mangled, ""), faults)
+                      if built else "not rebuilt in this run")}
+    return report, faults
 
 
 def warp_row_report():
-    """Every instantiation of B6's and B8's warp-row bodies
-    (``csrc/fused_norms.cu``): its SASS counts of 16-byte global loads
-    and stores and, where this run built the library, its ``ptxas -v``
-    line. Returns (report, faults): a body without LDG.E.128 or
-    STG.E.128, or one that spills, is a fault."""
-    from tosem_tpu_torch.ops import _build
-    sass = sass_counts(_build._lib_path("fused_norms"), WARP_ROW_NEEDS)
-    built = "fused_norms" in _build.BUILD_LOG
-    ptx = ptxas_summary(_build.BUILD_LOG["fused_norms"][1]) if built else {}
-    names = sorted(n for n in sass if "_fwd_warp_kernel" in n)
-    check(len(names) == WARP_ROW_BODIES,
-          f"{len(names)} warp-row bodies in the SASS, expected "
-          f"{WARP_ROW_BODIES}")
-    report, faults = {}, []
-    for name in names:
-        what = warp_row_name(name)
-        if not all(sass[name].values()):
-            faults.append(f"{what}: SASS lacks {sass[name]}")
-        report[what] = {
-            "sass": sass[name],
-            "ptxas": (ptxas_record(what, ptx.get(name, ""), faults)
-                      if built else "not rebuilt in this run")}
-    return report, faults
+    """Every instantiation of B6's, B7's and B8's warp-row bodies
+    (``csrc/fused_norms.cu``): 16-byte global loads and stores, 0
+    spills."""
+    return body_report("fused_norms", WARP_ROW_NEEDS,
+                       lambda n: "_warp_kernel" in n, WARP_ROW_BODIES,
+                       warp_row_name)
+
+
+def paged_name(mangled):
+    """``paged_chunk<bf16,64,1>`` from a mangled chunk-body name."""
+    import re
+    m = re.search(r"paged_chunk_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E",
+                  mangled)
+    if m is None:
+        return mangled
+    t = "f32" if m.group(1) == "f" else "bf16"
+    return f"paged_chunk<{t},{m.group(2)},{m.group(3)}>"
+
+
+def paged_report():
+    """Every instantiation of B4/B5's chunk body
+    (``csrc/paged_decode.cu``): 16-byte global loads, 0 spills."""
+    return body_report("paged_decode", PAGED_NEEDS,
+                       lambda n: "paged_chunk_kernel" in n, PAGED_BODIES,
+                       paged_name)
 
 
 # ---------------------------------------------------------------- kernels
@@ -1262,7 +1304,7 @@ def paged_case(dev, dtype, lens, K, gen, page=128, H=12, D=64):
     tdt = getattr(torch, dtype)
     B = len(lens)
     W = max(1, -(-max(lens) // page))
-    P = 64
+    P = max(64, B * W + 2)
     kp = torch.randn(P, page, H, D, generator=gen).to(tdt).to(dev)
     vp = torch.randn(P, page, H, D, generator=gen).to(tdt).to(dev)
     bt = torch.randperm(P, generator=gen)[:B * W].reshape(B, W)
@@ -1346,8 +1388,8 @@ def time_norm(name, err, kernel, plain, library, *args):
 
 
 def norm_body(n, *tensors):
-    """The body B6 or B8 ran on these operands (inputs and outputs), as
-    ``fused_norms._row_body`` chose it before the launch."""
+    """The body B6, B7 or B8 ran on these operands (inputs and outputs),
+    as ``fused_norms._row_body`` chose it before the launch."""
     from tosem_tpu_torch.ops import fused_norms as fn
     body, vecs = fn._row_body(n, tensors[0].dtype,
                               *(t.data_ptr() for t in tensors))
@@ -1365,11 +1407,11 @@ def off_16(randn, R, D, **kw):
 
 def norm_cases(dev, seed, lines):
     """B6-B9 against their plain versions on the card at every shape of
-    LN_SHAPES / SM_SHAPES in bf16 and fp32, and at the suite's widths
-    with x (and, for B6, gamma) off 16 bytes; B6, B7 and B8 launched
-    twice, bit for bit; each case names the body B6/B8 ran (warp-row or
-    block) and its vectors a lane, and the suite's shapes must run the
-    warp-row body. At the suite's bf16 shapes each kernel is timed beside
+    LN_SHAPES / SM_SHAPES in bf16 and fp32 (layernorm with gamma in
+    either dtype), and at the suite's widths with x (and, for B6/B7,
+    gamma) off 16 bytes; B6, B7 and B8 launched twice, bit for bit; each
+    case names the body B6/B7/B8 ran (warp-row or block) and its vectors
+    a lane, and the suite's shapes must run the warp-row body. At the suite's bf16 shapes each kernel is timed beside
     its bound, its plain version and its library call
     (``F.layer_norm``, its autograd backward
     ``native_layer_norm_backward``, ``torch.softmax``,
@@ -1385,16 +1427,21 @@ def norm_cases(dev, seed, lines):
                 + shift).to(getattr(torch, dtype))
 
     for dtype in ("bfloat16", "float32"):
-        ln_cases = [(R, D, None) for R, D in LN_SHAPES]
-        ln_cases += [(*LN_SHAPES[0], "x"), (*LN_SHAPES[0], "gamma")]
-        for R, D, off in ln_cases:
+        other = "float32" if dtype == "bfloat16" else "bfloat16"
+        ln_cases = [(R, D, None, gdt) for gdt in (dtype, other)
+                    for R, D in LN_SHAPES]
+        ln_cases += [(*LN_SHAPES[0], "x", dtype),
+                     (*LN_SHAPES[0], "gamma", dtype),
+                     (*LN_SHAPES[0], "dy", dtype)]
+        for R, D, off, gdt in ln_cases:
             x = (off_16(randn, R, D, scale=3.0, shift=1.0, dtype=dtype)
                  if off == "x" else
                  randn(R, D, scale=3.0, shift=1.0, dtype=dtype))
-            g = (off_16(randn, 1, D, dtype=dtype)[0] if off == "gamma"
-                 else randn(D, dtype=dtype))
-            b = randn(D, dtype=dtype)
-            dy = randn(R, D, dtype=dtype)
+            g = (off_16(randn, 1, D, dtype=gdt)[0] if off == "gamma"
+                 else randn(D, dtype=gdt))
+            b = randn(D, dtype=gdt)
+            dy = (off_16(randn, R, D, dtype=dtype) if off == "dy"
+                  else randn(R, D, dtype=dtype))
             y, mu, rstd = fn._ln_fwd_cuda(x, g, b, 1e-6)
             fwd_again = fn._ln_fwd_cuda(x, g, b, 1e-6)
             py, pmu, prstd = fn._ln_fwd_torch(x, g, b, 1e-6)
@@ -1405,26 +1452,34 @@ def norm_cases(dev, seed, lines):
             err_y, ok_y = norm_err("ln_fwd", dtype, y, py)
             stats = max((mu - pmu).abs().max().item(),
                         ((rstd - prstd).abs() / prstd.abs()).max().item())
-            errs = [norm_err("ln_bwd", dtype, a, w) for a, w in zip(grads, plain)]
+            # dgamma and dbeta come out in gamma's dtype: held to its budget
+            errs = [norm_err("ln_bwd", t, a, w)
+                    for t, a, w in zip((dtype, gdt, gdt), grads, plain)]
             fwd_bits = all(torch.equal(a, c)
                            for a, c in zip((y, mu, rstd), fwd_again))
             bits = all(torch.equal(a, c) for a, c in zip(grads, again))
             body = norm_body(D, x, g, b, y)
-            what = f"[{R},{D}]" + (f" {off} off 16 bytes" if off else "")
+            bwd_body = norm_body(D, x, g, dy, grads[0])
+            what = (f"[{R},{D}] gamma {gdt}"
+                    + (f" {off} off 16 bytes" if off else ""))
             check(ok_y and stats <= 1e-5,
                   f"ln_fwd {dtype} {what} ({body}): err {err_y}, mu/rstd "
                   f"{stats}")
             check(fwd_bits, f"ln_fwd {dtype} {what} ({body}) differs "
                             "between two launches")
             check(all(ok for _, ok in errs),
-                  f"ln_bwd {dtype} {what}: dx/dg/db err {errs}")
-            check(bits, f"ln_bwd {dtype} {what} differs between two "
-                        "launches")
+                  f"ln_bwd {dtype} {what} ({bwd_body}): dx/dg/db err {errs}")
+            check(bits, f"ln_bwd {dtype} {what} ({bwd_body}) differs between "
+                        "two launches")
             if (R, D) == LN_SHAPES[0]:
-                check(body["body"] == ("block" if off else "warp"),
+                fwd_off = off in ("x", "gamma")
+                check(body["body"] == ("block" if fwd_off else "warp"),
                       f"ln_fwd {dtype} {what} ran the {body} body")
+                check(bwd_body["body"] == ("block" if off else "warp"),
+                      f"ln_bwd {dtype} {what} ran the {bwd_body} body")
             rec = {"kernel": "ln_fwd+ln_bwd", "dtype": dtype,
-                   "shape": [R, D], "off_16": off, "ln_fwd_body": body,
+                   "gamma_dtype": gdt, "shape": [R, D], "off_16": off,
+                   "ln_fwd_body": body, "ln_bwd_body": bwd_body,
                    "max_abs_err": err_y, "mu_rstd_err": stats,
                    "grad_err": {n: e for n, (e, _) in
                                 zip(("dx", "dgamma", "dbeta"), errs)},
@@ -1440,7 +1495,8 @@ def norm_cases(dev, seed, lines):
                     f"ln bf16 [{R},{D}]", ("y", "dx", "dgamma", "dbeta"),
                     (y, *grads), (ry, *rgrads), "gamma_x1.02",
                     fn._ln_fwd_torch(xf, gf * 1.02, bf, 1e-6)[0], ry)
-            if (dtype, R, D, off) == ("bfloat16", *LN_SHAPES[0], None):
+            if (dtype, gdt, R, D, off) == ("bfloat16", "bfloat16",
+                                           *LN_SHAPES[0], None):
                 # the library's backward takes its own saved statistics;
                 # the timed operands are (x, g, b, mu, rstd, dy)
                 _, lmu, lrstd = torch.native_layer_norm(x, [D], g, b, 1e-6)
@@ -1551,34 +1607,49 @@ def phase_kernels(dev, seed):
                 rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, dtype)
             cases.append(rec)
     cases += b1_edge_cases(dev, gen)
-    # ---- B4: 8 sequences with ragged lengths up to 512, one idle row
+    # ---- B4: 8 sequences with ragged lengths up to 512, one idle row, at
+    # the main path's page 128, a wide table (page 16: 32 slots, 8 a
+    # chunk) and every head dim the kernel takes
     lens = [0, 1, 77, 128, 129, 300, 511, 512]
+    b4_cases = [(128, 64), (16, 64), (128, 16), (128, 32), (128, 128)]
     for dtype in ("bfloat16", "float32"):
-        q, kp, vp, bt, sl = paged_case(dev, dtype, lens, 0, gen)
-        out = pa._paged_decode_cuda(q, kp, vp, bt, sl, 1.0 / 8.0)
-        ref = pa.paged_attention_reference(q, kp, vp, bt, sl)
-        multi1 = pa._paged_decode_multi_cuda(q[:, None].contiguous(), kp, vp,
-                                             bt, sl, None, None, 1.0 / 8.0,
-                                             None)[:, 0]
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        check(err <= TOL["paged"][dtype], f"paged_decode {dtype} err {err}")
-        check(bool((out[0] == 0).all().item()), "seq_len 0 row not zeros")
-        check(torch.equal(out, multi1), f"B5 k=1 != B4 bit for bit ({dtype})")
-        rec = {"kernel": "paged_decode", "dtype": dtype, "lens": lens,
-               "max_abs_err": err, "zeros_row_exact": True,
-               "b5_k1_bit_exact": True}
-        if dtype == "bfloat16":
-            nbytes, ops = paged_work(q, lens, 0)
-            rec["ms"] = device_ms(lambda q, kp, vp: pa._paged_decode_cuda(
-                q, kp, vp, bt, sl, 1.0 / 8.0), q, kp, vp)
-            rec["plain_ms"] = cuda_ms(lambda: pa.paged_attention_reference(
-                q, kp, vp, bt, sl), iters=10)
-            rec["library_ms"] = None
-            rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, dtype)
-            lines["paged_decode"] = rec
-        cases.append(rec)
-    # ---- B5: k = 1, 8, 64 rows (64 = the suffix-prefill chunk)
+        for page, D in b4_cases:
+            q, kp, vp, bt, sl = paged_case(dev, dtype, lens, 0, gen, page=page,
+                                           D=D)
+            scale = 1.0 / D ** 0.5
+            out = pa._paged_decode_cuda(q, kp, vp, bt, sl, scale)
+            again = pa._paged_decode_cuda(q, kp, vp, bt, sl, scale)
+            ref = pa.paged_attention_reference(q, kp, vp, bt, sl)
+            multi1 = pa._paged_decode_multi_cuda(q[:, None].contiguous(), kp,
+                                                 vp, bt, sl, None, None,
+                                                 scale, None)[:, 0]
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            what = f"{dtype} page {page} D {D}"
+            check(err <= TOL["paged"][dtype], f"paged_decode {what} err {err}")
+            check(bool((out[0] == 0).all().item()),
+                  f"paged_decode {what}: seq_len 0 row not zeros")
+            check(torch.equal(out, multi1),
+                  f"B5 k=1 != B4 bit for bit ({what})")
+            check(torch.equal(out, again),
+                  f"paged_decode {what} differs between two launches")
+            rec = {"kernel": "paged_decode", "dtype": dtype, "lens": lens,
+                   "page": page, "D": D,
+                   "chunks": pa._decode_chunks(bt.shape[1], page),
+                   "max_abs_err": err, "zeros_row_exact": True,
+                   "b5_k1_bit_exact": True, "bit_deterministic": True}
+            if (dtype, page, D) == ("bfloat16", 128, 64):
+                nbytes, ops = paged_work(q, lens, 0)
+                rec["ms"] = device_ms(lambda q, kp, vp: pa._paged_decode_cuda(
+                    q, kp, vp, bt, sl, 1.0 / 8.0), q, kp, vp)
+                rec["plain_ms"] = cuda_ms(lambda: pa.paged_attention_reference(
+                    q, kp, vp, bt, sl), iters=10)
+                rec["library_ms"] = None
+                rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, dtype)
+                lines["paged_decode"] = rec
+            cases.append(rec)
+    # ---- B5: k = 1, 8, 64 rows (64 = the suffix-prefill chunk); at k = 8
+    # row r must equal a B4 step at seq_len - (k - 1 - r) bit for bit
     for dtype in ("bfloat16", "float32"):
         for K, lens5, q_rows in ((1, [300, 0, 45], None),
                                  (8, [129, 400, 8], None),
@@ -1588,13 +1659,28 @@ def phase_kernels(dev, seed):
                   torch.tensor(q_rows, dtype=torch.int32, device=dev))
             out = pa._paged_decode_multi_cuda(q, kp, vp, bt, sl, kr, None,
                                               1.0 / 8.0, None)
+            again = pa._paged_decode_multi_cuda(q, kp, vp, bt, sl, kr, None,
+                                                1.0 / 8.0, None)
             ref = pa.paged_attention_reference(q, kp, vp, bt, sl, q_rows=kr)
+            steps = ([pa._paged_decode_cuda(q[:, r].contiguous(), kp, vp, bt,
+                                            sl - (K - 1 - r), 1.0 / 8.0)
+                      for r in range(K)] if K == 8 else None)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             check(err <= TOL["paged"][dtype],
                   f"paged_decode_multi k={K} {dtype} err {err}")
+            check(torch.equal(out, again), f"paged_decode_multi k={K} "
+                                           f"{dtype} differs between two "
+                                           "launches")
             rec = {"kernel": "paged_decode_multi", "dtype": dtype, "k": K,
-                   "lens": lens5, "q_rows": q_rows, "max_abs_err": err}
+                   "lens": lens5, "q_rows": q_rows, "max_abs_err": err,
+                   "bit_deterministic": True}
+            if steps is not None:
+                bad = [r for r in range(K) if not torch.equal(out[:, r],
+                                                              steps[r])]
+                check(not bad, f"B5 k={K} {dtype}: rows {bad} != B4 at "
+                               "seq_len - (k - 1 - r)")
+                rec["rows_equal_b4_steps"] = True
             if (K, dtype, q_rows) == (64, "bfloat16", [64]):
                 nbytes, ops = paged_work(q, lens5, K)
                 rec["ms"] = device_ms(
@@ -2424,14 +2510,18 @@ def main(argv=None):
     took = _build.build_all(verbose_ptxas=True)
     bodies, faults = bwd_tc_report()
     rows, row_faults = warp_row_report()
+    paged, paged_faults = paged_report()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": took, "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "ptxas": {k: ptxas_summary(v[1])
                     for k, v in _build.BUILD_LOG.items()},
-          "bwd_bf16_bodies": bodies, "warp_row_bodies": rows})
+          "bwd_bf16_bodies": bodies, "warp_row_bodies": rows,
+          "paged_bodies": paged})
     check(not faults, "bf16 B2/B3 bodies: " + "; ".join(faults))
-    check(not row_faults, "B6/B8 warp-row bodies: " + "; ".join(row_faults))
+    check(not row_faults,
+          "B6/B7/B8 warp-row bodies: " + "; ".join(row_faults))
+    check(not paged_faults, "B4/B5 chunk bodies: " + "; ".join(paged_faults))
     lines = phase_kernels(dev, SEED) if "kernels" in phases else {}
     launches = {k: 0 for k in KERNELS}
     if "decode" in phases:

@@ -318,3 +318,85 @@ def test_row_body_depends_on_shape_dtype_and_alignment_only():
         x = torch.zeros(4, 768, dtype=dtype)
         assert port._row_body(768, dtype, x.data_ptr()) == \
             port._row_body(768, dtype, x.data_ptr() + 16 * 1000)
+
+
+# B7 (ln_bwd) picks its body with the same chooser, over its four operands
+# x, gamma, dy and dx: the warp-row body (its dgamma/dbeta sums kept per
+# lane, one partial row per block) where B6 takes it, in either gamma
+# dtype, and the block body elsewhere. Every width of chip_smoke.py's
+# LN_SHAPES and of this file's is listed in ROW_BODY.
+
+
+def test_ln_bwd_body_table_covers_every_layernorm_shape_checked():
+    smoke = _chip_smoke()
+    widths = {s[-1] for s in (*smoke.LN_SHAPES, *LN_SHAPES)}
+    assert widths <= set(ROW_BODY)
+    assert {1, 77, 512, 768, 1000, 1024, 1025, 8192} <= widths
+
+
+@pytest.mark.parametrize("gdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", sorted(ROW_BODY))
+def test_ln_bwd_body_maps_each_width_to_its_stated_body(n, dtype, gdtype):
+    """x, gamma, dy and dx at unrelated aligned addresses, gamma in
+    either dtype: the body depends on x's dtype and the width alone."""
+    tdt = getattr(torch, dtype)
+    x = torch.zeros(2, n, dtype=tdt)
+    g = torch.zeros(n, dtype=getattr(torch, gdtype))
+    dy, dx = torch.zeros_like(x), torch.empty_like(x)
+    ptrs = [t.data_ptr() for t in (x, g, dy, dx)]
+    assert all(p % 16 == 0 for p in ptrs)
+    assert _port()._row_body(n, tdt, *ptrs) == ROW_BODY[n][dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [2, 4, 8, 12])
+def test_ln_bwd_body_refuses_each_operand_off_16_bytes(offset, dtype):
+    """x, gamma, dy or dx off a 16-byte boundary (gamma included: the
+    warp-row body loads it as 16-byte vectors too) sends B7 to the block
+    body at the suite's width."""
+    port = _port()
+    tdt = getattr(torch, dtype)
+    aligned = [0x7f0000000000, 0x7f0000300040, 0x7f0000600080,
+               0x7f00009000c0]
+    assert port._row_body(768, tdt, *aligned) == ROW_BODY[768][dtype]
+    for i, name in enumerate(("x", "gamma", "dy", "dx")):
+        ptrs = list(aligned)
+        ptrs[i] += offset
+        assert port._row_body(768, tdt, *ptrs) == ("block", 0), name
+
+
+def test_ln_bwd_body_of_views_as_chip_smoke_launches_them():
+    """chip_smoke.py's B7 cases off 16 bytes: x, gamma or dy a contiguous
+    view one element into its storage, the rest fresh tensors."""
+    port = _port()
+    for dtype in (torch.bfloat16, torch.float32):
+        R, D = 64, 768
+        fresh = [torch.zeros(R, D, dtype=dtype), torch.zeros(D, dtype=dtype),
+                 torch.zeros(R, D, dtype=dtype), torch.empty(R, D,
+                                                             dtype=dtype)]
+        assert port._row_body(D, dtype, *(t.data_ptr() for t in fresh))[0] \
+            == "warp"
+        for i, shape in ((0, (R, D)), (1, (D,)), (2, (R, D))):
+            n = int(np.prod(shape))
+            view = torch.zeros(n + 16, dtype=dtype)[1:1 + n].view(shape)
+            ops = list(fresh)
+            ops[i] = view
+            assert port._row_body(D, dtype, *(t.data_ptr() for t in ops)) \
+                == ("block", 0)
+
+
+def test_ln_bwd_body_depends_on_shape_dtype_and_alignment_only():
+    """The same width, dtype and alignment class give B7 the same body
+    wherever its four operands lie; the row count and gamma's dtype are
+    not arguments at all."""
+    import inspect
+    port = _port()
+    assert list(inspect.signature(port._row_body).parameters) == [
+        "n", "dtype", "ptrs"]
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (1, 77, 512, 768, 1000, 1024, 1025, 8192):
+            want = port._row_body(n, dtype, 0, 0, 0, 0)
+            for base in (16, 4096, 0x7fff_ffff_fff0, 2 ** 40 + 48):
+                ptrs = (base, base + 16 * n, base + 64 * n, base + 96 * n)
+                assert port._row_body(n, dtype, *ptrs) == want

@@ -12,26 +12,31 @@
 // about 3.8 us (B6, [4096, 768]), 5.6 us (B7), 30 us (B8, [49152, 512])
 // and 45 us (B9).
 //
-// What the design does about it. B6 and B8 have two bodies each, chosen
-// before launch by shape, dtype and alignment (fused_norms.py
+// What the design does about it. B6, B7 and B8 have two bodies each,
+// chosen before launch by shape, dtype and alignment (fused_norms.py
 // `_row_body`), never after a failure:
 // - the warp-row body, for rows of whole 16-byte vectors, at most 32
 //   elements a lane (1024 a row), with every operand 16-byte aligned:
 //   one warp per row and the row held in registers. Each lane loads its
 //   V vectors once, all before it uses any, and widens them to fp32; row
 //   statistics are warp butterflies, with no shared memory and no
-//   barrier; outputs go out as 16-byte stores. Blocks of ROW_WARPS warps,
-//   no more than the card holds at once: each warp walks rows by grid
-//   stride and loads its next row before it reduces the current one. B6
-//   loads gamma and beta into registers once per warp. B8 computes
-//   exp(x - max) once per element, keeps it in registers for the sum and
-//   the write, and multiplies by one reciprocal of the row sum.
+//   barrier; outputs go out as 16-byte stores. Blocks of ROW_WARPS warps
+//   (B7: BWD_WARPS), no more than the card holds at once: each warp
+//   walks rows by grid stride and loads its next row before it reduces
+//   the current one. B6 loads gamma and beta into registers once per
+//   warp. B8 computes exp(x - max) once per element, keeps it in
+//   registers for the sum and the write, and multiplies by one
+//   reciprocal of the row sum. B7 holds x, dy and gamma in registers,
+//   and each lane keeps the dgamma/dbeta sums of its own columns over
+//   the rows its warp walks; at the end the block's warps add those in
+//   shared memory by a fixed tree and the block writes one partial row.
 // - the block body, for every other row (odd widths, wide rows, views
-//   off 16 bytes): one block per row, 32 to 256 threads by row length,
-//   neighbouring threads on neighbouring elements; statistics reduced
-//   across the block by warp shuffles and a 32-float shared array; the
-//   row read again for each pass, so any length runs.
-// B7 and B9 are block bodies of the second kind.
+//   off 16 bytes): one block per row (B7: per row block), 32 to 256
+//   threads by row length, neighbouring threads on neighbouring
+//   elements; statistics reduced across the block by warp shuffles and
+//   a 32-float shared array; the row read again for each pass, so any
+//   length runs.
+// B9 is a block body of the second kind.
 //
 // Numerics follow the Pallas kernels: x is read in its dtype and
 // widened to fp32; layernorm takes the mean first and then the mean of
@@ -41,12 +46,13 @@
 // the output dtype.
 //
 // B7's dgamma/dbeta: the TPU kernel adds each row block's sums into one
-// output in grid order. Blocks here run in no order, so each block of
-// `rows_per_block` rows writes its fp32 sums to its own row of a
-// [n_parts, D] scratch, and a second kernel adds those rows in a fixed
-// order: partial p goes to warp p % 8, each warp adds its partials in
-// ascending p, and the eight warp sums are added in warp order. No
-// atomics: two launches agree bit for bit.
+// output in grid order. Blocks here run in no order, so each block
+// writes its fp32 sums to its own row of a [n_parts, D] scratch (the
+// block body: one partial per `rows_per_block` rows; the warp-row body:
+// one per block of its grid), and a second kernel adds those rows in a
+// fixed order: partial p goes to warp p % RED_WAYS, each warp adds its
+// partials in ascending p, and the warp sums are added in warp order.
+// No atomics: two launches agree bit for bit.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -55,7 +61,7 @@
 namespace {
 
 constexpr int RED_COLS = 32;  // columns per block of the dgamma/dbeta sum
-constexpr int RED_WAYS = 8;   // warps per block of that sum
+constexpr int RED_WAYS = 16;  // warps per block of that sum
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -340,6 +346,145 @@ sm_fwd_warp_kernel(const T* __restrict__ x, T* __restrict__ y, int R,
   }
 }
 
+constexpr int BWD_WARPS = 8;  // warps a block of B7's warp-row body
+
+// B7's warp-row body: a warp a row, grid-stride over rows with the next
+// row's x, dy, mu and rstd loaded before the current row is reduced.
+// Each lane keeps the dgamma/dbeta sums of its columns over its warp's
+// rows; the block's warps add them by a fixed tree (warp w takes warp
+// w + half's sums, half = BWD_WARPS / 2, ..., 1) and warp 0 writes the
+// block's partial row. Warps without a row take part with zero sums.
+template <typename T, typename G, int V>
+__global__ void __launch_bounds__(BWD_WARPS * 32, 1)
+ln_bwd_warp_kernel(const T* __restrict__ x, const G* __restrict__ gamma,
+                   const float* __restrict__ mu,
+                   const float* __restrict__ rstd, const T* __restrict__ dy,
+                   T* __restrict__ dx, float* __restrict__ dg_part,
+                   float* __restrict__ db_part, int R, int D) {
+  constexpr int W = vec_elems<T>();
+  extern __shared__ float4 tree4[];  // [BWD_WARPS / 2][2 * D] floats
+  float* tree = reinterpret_cast<float*>(tree4);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nvec = D / W;
+  const int stride = gridDim.x * BWD_WARPS;
+  int r = blockIdx.x * BWD_WARPS + warp;
+  Chunk<G, W> g[V];
+  float ag[V][W], ab[V][W];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int j = k * 32 + lane;
+    if (j < nvec) g[k].load(gamma + j * W);
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      ag[k][i] = 0.f;
+      ab[k][i] = 0.f;
+    }
+  }
+  Vec<T> xc[V], dc[V], xn[V], dn[V];
+  load_row<T, V>(xc, x, r, R, nvec, lane);
+  load_row<T, V>(dc, dy, r, R, nvec, lane);
+  float m = r < R ? mu[r] : 0.f, rs = r < R ? rstd[r] : 0.f;
+  for (; r < R; r += stride) {
+    const int rn = r + stride;
+    load_row<T, V>(xn, x, rn, R, nvec, lane);
+    load_row<T, V>(dn, dy, rn, R, nvec, lane);
+    const float mn = rn < R ? mu[rn] : 0.f;
+    const float rsn = rn < R ? rstd[rn] : 0.f;
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      if (k * 32 + lane < nvec)
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          const float xh = (xc[k][i] - m) * rs;
+          const float w = __fmul_rn(dc[k][i], g[k][i]);
+          s1 += w;
+          s2 = fmaf(w, xh, s2);
+        }
+    const float c1 = warp_sum(s1) / (float)D;
+    const float c2 = warp_sum(s2) / (float)D;
+    T* dxr = dx + (long long)r * D;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int j = k * 32 + lane;
+      if (j < nvec) {
+        float o[W];
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          const float xh = (xc[k][i] - m) * rs;
+          const float d = dc[k][i];
+          // rounded before - c1, as the block body does (an FMA would
+          // keep the product's error, which rs magnifies at width 1)
+          const float w = __fmul_rn(d, g[k][i]);
+          o[i] = (w - c1 - xh * c2) * rs;
+          ag[k][i] = fmaf(d, xh, ag[k][i]);
+          ab[k][i] += d;
+        }
+        store_vec<T>(dxr + j * W, o);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      xc[k] = xn[k];
+      dc[k] = dn[k];
+    }
+    m = mn;
+    rs = rsn;
+  }
+  // column k * 32 + lane's W sums sit at tree[slot][(k * 32 + lane) * W]
+  // (dgamma) and at D past it (dbeta)
+#pragma unroll
+  for (int half = BWD_WARPS / 2; half > 0; half >>= 1) {
+    if (warp >= half && warp < 2 * half) {
+      float* t = tree + (size_t)(warp - half) * 2 * D;
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const int j = k * 32 + lane;
+        if (j < nvec)
+#pragma unroll
+          for (int i = 0; i < W; i += 4) {
+            *reinterpret_cast<float4*>(t + j * W + i) = make_float4(
+                ag[k][i], ag[k][i + 1], ag[k][i + 2], ag[k][i + 3]);
+            *reinterpret_cast<float4*>(t + D + j * W + i) = make_float4(
+                ab[k][i], ab[k][i + 1], ab[k][i + 2], ab[k][i + 3]);
+          }
+      }
+    }
+    __syncthreads();
+    if (warp < half) {
+      const float* t = tree + (size_t)warp * 2 * D;
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const int j = k * 32 + lane;
+        if (j < nvec)
+#pragma unroll
+          for (int i = 0; i < W; ++i) {
+            ag[k][i] += t[j * W + i];
+            ab[k][i] += t[D + j * W + i];
+          }
+      }
+    }
+    __syncthreads();
+  }
+  if (warp == 0) {
+    float* pg = dg_part + (long long)blockIdx.x * D;
+    float* pb = db_part + (long long)blockIdx.x * D;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int j = k * 32 + lane;
+      if (j < nvec)
+#pragma unroll
+        for (int i = 0; i < W; i += 4) {
+          *reinterpret_cast<float4*>(pg + j * W + i) = make_float4(
+              ag[k][i], ag[k][i + 1], ag[k][i + 2], ag[k][i + 3]);
+          *reinterpret_cast<float4*>(pb + j * W + i) = make_float4(
+              ab[k][i], ab[k][i + 1], ab[k][i + 2], ab[k][i + 3]);
+        }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- B7
 
 // One block per `rows_per_block` rows: dx row by row, and this block's
@@ -413,6 +558,7 @@ ln_bwd_reduce_kernel(const float* __restrict__ dg_part,
   const int j = blockIdx.x * RED_COLS + c;
   float a = 0.f, b = 0.f;
   if (j < D) {
+#pragma unroll 4
     for (int p = w; p < n_parts; p += RED_WAYS) {
       a += dg_part[(long long)p * D + j];
       b += db_part[(long long)p * D + j];
@@ -477,21 +623,22 @@ int row_threads(int n) {
   return 32 * warps;
 }
 
-// blocks of a warp-row kernel that one SM holds at once
+// blocks of a warp-row kernel (`warps` warps, `smem` dynamic bytes) that
+// one SM holds at once
 template <typename K>
-int row_blocks_per_sm(K kern) {
+int row_blocks_per_sm(K kern, int warps = ROW_WARPS, size_t smem = 0) {
   int n = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, ROW_WARPS * 32, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, warps * 32, smem);
   return n > 0 ? n : 1;
 }
 
 // a warp-row grid: a warp for each row, but no more blocks than the card
 // holds at once (the warps then walk the rows by grid stride)
-int row_grid(int per_sm, int R) {
+int row_grid(int per_sm, int R, int warps = ROW_WARPS) {
   int dev = 0, sms = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long need = ((long long)R + ROW_WARPS - 1) / ROW_WARPS;
+  const long long need = ((long long)R + warps - 1) / warps;
   return (int)(need < (long long)per_sm * sms ? need
                                               : (long long)per_sm * sms);
 }
@@ -574,11 +721,68 @@ int launch_sm_fwd(int vecs, const void* x, void* y, int R, int N,
   return (int)cudaGetLastError();
 }
 
+// the fixed-order sum of n_parts partial rows into dgamma and dbeta
+template <typename G>
+int launch_ln_bwd_reduce(const void* dg_part, const void* db_part, void* dg,
+                         void* db, int n_parts, int D, cudaStream_t stream) {
+  dim3 block(RED_COLS, RED_WAYS);
+  ln_bwd_reduce_kernel<G><<<(D + RED_COLS - 1) / RED_COLS, block, 0,
+                            stream>>>(
+      static_cast<const float*>(dg_part), static_cast<const float*>(db_part),
+      static_cast<G*>(dg), static_cast<G*>(db), n_parts, D);
+  return (int)cudaGetLastError();
+}
+
+// B7's warp-row body with V = vecs (instantiated for 1..max_vecs),
+// one partial row per block, at most `parts` blocks
+template <typename T, typename G, int V = 1>
+int launch_ln_bwd_warp(int vecs, const void* x, const void* gamma,
+                       const void* mu, const void* rstd, const void* dy,
+                       void* dx, void* dg_part, void* db_part, void* dg,
+                       void* db, int R, int D, int parts,
+                       cudaStream_t stream) {
+  if constexpr (V > max_vecs<T>()) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (vecs != V)
+      return launch_ln_bwd_warp<T, G, V + 1>(vecs, x, gamma, mu, rstd, dy,
+                                             dx, dg_part, db_part, dg, db, R,
+                                             D, parts, stream);
+    auto kern = ln_bwd_warp_kernel<T, G, V>;
+    // the tree's shared floats at this body's widest row
+    constexpr size_t widest = (size_t)BWD_WARPS * 32 * vec_elems<T>() * V *
+                              sizeof(float);
+    static const int per_sm = row_blocks_per_sm(kern, BWD_WARPS, widest);
+    int n_parts = row_grid(per_sm, R, BWD_WARPS);
+    if (n_parts > parts) n_parts = parts;
+    const size_t smem = (size_t)BWD_WARPS * D * sizeof(float);
+    kern<<<n_parts, BWD_WARPS * 32, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const G*>(gamma),
+        static_cast<const float*>(mu), static_cast<const float*>(rstd),
+        static_cast<const T*>(dy), static_cast<T*>(dx),
+        static_cast<float*>(dg_part), static_cast<float*>(db_part), R, D);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return launch_ln_bwd_reduce<G>(dg_part, db_part, dg, db, n_parts, D,
+                                   stream);
+  }
+}
+
+// vecs = 0: the block body, one partial row per ceil(R / parts) rows;
+// else the warp-row body with vecs vectors a lane, which the operands
+// must fit
 template <typename T, typename G>
-int launch_ln_bwd(const void* x, const void* gamma, const void* mu,
+int launch_ln_bwd(int vecs, const void* x, const void* gamma, const void* mu,
                   const void* rstd, const void* dy, void* dx, void* dg_part,
-                  void* db_part, void* dg, void* db, int R, int D,
-                  int rows_per_block, cudaStream_t stream) {
+                  void* db_part, void* dg, void* db, int R, int D, int parts,
+                  cudaStream_t stream) {
+  if (vecs != 0) {
+    if (!warp_row_fits<T>(vecs, D, x, gamma, dy, dx))
+      return (int)cudaErrorInvalidValue;
+    return launch_ln_bwd_warp<T, G>(vecs, x, gamma, mu, rstd, dy, dx,
+                                    dg_part, db_part, dg, db, R, D, parts,
+                                    stream);
+  }
   const size_t smem = 2 * (size_t)D * sizeof(float);
   auto kern = ln_bwd_kernel<T, G>;
   if (smem > 48 * 1024) {
@@ -586,6 +790,7 @@ int launch_ln_bwd(const void* x, const void* gamma, const void* mu,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
+  const int rows_per_block = (R + parts - 1) / parts;
   const int n_parts = (R + rows_per_block - 1) / rows_per_block;
   kern<<<n_parts, row_threads(D), smem, stream>>>(
       static_cast<const T*>(x), static_cast<const G*>(gamma),
@@ -595,12 +800,8 @@ int launch_ln_bwd(const void* x, const void* gamma, const void* mu,
       rows_per_block);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 block(RED_COLS, RED_WAYS);
-  ln_bwd_reduce_kernel<G><<<(D + RED_COLS - 1) / RED_COLS, block, 0,
-                            stream>>>(
-      static_cast<const float*>(dg_part), static_cast<const float*>(db_part),
-      static_cast<G*>(dg), static_cast<G*>(db), n_parts, D);
-  return (int)cudaGetLastError();
+  return launch_ln_bwd_reduce<G>(dg_part, db_part, dg, db, n_parts, D,
+                                 stream);
 }
 
 }  // namespace
@@ -608,7 +809,7 @@ int launch_ln_bwd(const void* x, const void* gamma, const void* mu,
 // dtype / gdtype: 0 = float32, 1 = bfloat16, of x (and y, dy, dx) and of
 // gamma/beta (and dgamma, dbeta). Every array is contiguous: x, y, dy,
 // dx are [R, D] (softmax: [R, N]); mu and rstd are [R] float32. `vecs`
-// (B6, B8) picks the body: 0 the block body, V >= 1 the warp-row body
+// (B6, B7, B8) picks the body: 0 the block body, V >= 1 the warp-row body
 // with V 16-byte vectors a lane, refused with cudaErrorInvalidValue
 // where the operands do not fit it. Each function launches on `stream`
 // and returns cudaGetLastError().
@@ -633,32 +834,32 @@ extern "C" int ln_fwd(int dtype, int gdtype, int vecs, const void* x,
   return (int)cudaErrorInvalidValue;
 }
 
-// dg_part and db_part are [ceil(R / rows_per_block), D] float32 scratch;
-// dg and db are [D] in gamma's dtype.
-extern "C" int ln_bwd(int dtype, int gdtype, const void* x, const void* gamma,
-                      const void* mu, const void* rstd, const void* dy,
-                      void* dx, void* dg_part, void* db_part, void* dg,
-                      void* db, int R, int D, int rows_per_block,
+// dg_part and db_part are [parts, D] float32 scratch (each body writes at
+// most `parts` partial rows); dg and db are [D] in gamma's dtype. `vecs`
+// picks B7's body as it does B6's.
+extern "C" int ln_bwd(int dtype, int gdtype, int vecs, const void* x,
+                      const void* gamma, const void* mu, const void* rstd,
+                      const void* dy, void* dx, void* dg_part, void* db_part,
+                      void* dg, void* db, int R, int D, int parts,
                       void* stream) {
-  if (R <= 0 || D <= 0 || rows_per_block <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (R <= 0 || D <= 0 || parts <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && gdtype == 0)
-    return launch_ln_bwd<float, float>(x, gamma, mu, rstd, dy, dx, dg_part,
-                                       db_part, dg, db, R, D, rows_per_block,
+    return launch_ln_bwd<float, float>(vecs, x, gamma, mu, rstd, dy, dx,
+                                       dg_part, db_part, dg, db, R, D, parts,
                                        st);
   if (dtype == 0 && gdtype == 1)
-    return launch_ln_bwd<float, __nv_bfloat16>(x, gamma, mu, rstd, dy, dx,
-                                               dg_part, db_part, dg, db, R, D,
-                                               rows_per_block, st);
+    return launch_ln_bwd<float, __nv_bfloat16>(vecs, x, gamma, mu, rstd, dy,
+                                               dx, dg_part, db_part, dg, db,
+                                               R, D, parts, st);
   if (dtype == 1 && gdtype == 0)
-    return launch_ln_bwd<__nv_bfloat16, float>(x, gamma, mu, rstd, dy, dx,
-                                               dg_part, db_part, dg, db, R, D,
-                                               rows_per_block, st);
+    return launch_ln_bwd<__nv_bfloat16, float>(vecs, x, gamma, mu, rstd, dy,
+                                               dx, dg_part, db_part, dg, db,
+                                               R, D, parts, st);
   if (dtype == 1 && gdtype == 1)
     return launch_ln_bwd<__nv_bfloat16, __nv_bfloat16>(
-        x, gamma, mu, rstd, dy, dx, dg_part, db_part, dg, db, R, D,
-        rows_per_block, st);
+        vecs, x, gamma, mu, rstd, dy, dx, dg_part, db_part, dg, db, R, D,
+        parts, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,8 +8,8 @@ of the two ``custom_vjp``\\ s: the layernorm saves the flattened x, gamma
 and the fp32 row statistics (mu, rstd), the softmax saves its output y in
 the output dtype, and both passes route by the operands' device. On CUDA
 tensors they launch ``csrc/fused_norms.cu`` (B6 ``ln_fwd``, B7 ``ln_bwd``,
-B8 ``sm_fwd``, B9 ``sm_bwd``; B6 and B8 in the body :func:`_row_body`
-picks); on CPU tensors the plain versions
+B8 ``sm_fwd``, B9 ``sm_bwd``; B6, B7 and B8 in the body
+:func:`_row_body` picks); on CPU tensors the plain versions
 (``_ln_fwd_torch``, ``_ln_bwd_torch``, ``_sm_fwd_torch``,
 ``_sm_bwd_torch``), which follow the Pallas kernel bodies step for step.
 There is no fallback from one to the other.
@@ -29,20 +29,22 @@ import torch
 from tosem_tpu_torch.ops import _build, registry
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# B7's dgamma/dbeta partials: about this many row blocks, each writing one
-# fp32 row of sums (fixed by R alone, so the sum order is too)
+# B7's dgamma/dbeta partials: at most this many fp32 rows of sums. The
+# block body writes one per ceil(R / parts) rows (fixed by R alone, so the
+# sum order is too); the warp-row body one per block of its grid
 _LN_BWD_PARTS = 512
 # B7 keeps 2 * D fp32 sums in shared memory: 229,376 bytes at this width
 _LN_MAX_D = 28672
-# B6 and B8's warp-row body: 16-byte vectors, rows of at most this many
-# elements (32 fp32 values a lane, so nothing spills)
+# B6, B7 and B8's warp-row body: 16-byte vectors, rows of at most this
+# many elements (32 values a lane; B7's fp32 body at 1024 holds x, dy,
+# the next row, gamma and two column sums in 255 registers, unspilled)
 _VEC_BYTES = 16
 _WARP_ROW_MAX = 1024
 
 _ARGTYPES = {
     "ln_fwd": ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
                + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]),
-    "ln_bwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+    "ln_bwd": ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
                + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     "sm_fwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
                + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
@@ -132,13 +134,14 @@ def _stream(x):
 
 
 def _row_body(n, dtype, *ptrs):
-    """The body of B6 or B8 for rows of ``n`` elements of ``dtype`` over
-    operands at the addresses ``ptrs`` (every input's and output's
-    ``data_ptr()``), chosen before launch from these alone:
-    ``("warp", V)``, one warp a row held in registers as V 16-byte
-    vectors a lane, when a row is a whole number of vectors, at most
-    :data:`_WARP_ROW_MAX` wide, and every operand is 16-byte aligned;
-    else ``("block", 0)``, one block a row, which takes any row."""
+    """The body of B6, B7 or B8 for rows of ``n`` elements of ``dtype``
+    over operands at the addresses ``ptrs`` (every input's and output's
+    ``data_ptr()``, gamma's included), chosen before launch from these
+    alone: ``("warp", V)``, one warp a row held in registers as V
+    16-byte vectors a lane, when a row is a whole number of vectors, at
+    most :data:`_WARP_ROW_MAX` wide, and every operand is 16-byte
+    aligned; else ``("block", 0)``, one block a row (B7: a block of
+    rows), which takes any row."""
     per_vec = _VEC_BYTES // dtype.itemsize
     if (n % per_vec or n > _WARP_ROW_MAX
             or any(p % _VEC_BYTES for p in ptrs)):
@@ -169,8 +172,8 @@ def _ln_fwd_cuda(x2, gamma, beta, eps):
 
 def _ln_bwd_cuda(x2, gamma, mu, rstd, dy2):
     """Launch B7 ``ln_bwd`` (dx and per-block dgamma/dbeta partials, then
-    their fixed-order sum). Returns ``(dx, dgamma, dbeta)`` as the plain
-    version does."""
+    their fixed-order sum) in the body :func:`_row_body` picks.
+    Returns ``(dx, dgamma, dbeta)`` as the plain version does."""
     _check("ln_bwd", x2, gamma, dy2)
     _check("ln_bwd", mu, rstd)
     R, D = x2.shape
@@ -182,18 +185,20 @@ def _ln_bwd_cuda(x2, gamma, mu, rstd, dy2):
             raise ValueError(f"{name} must be float32 with {R} rows")
     if D > _LN_MAX_D:
         raise ValueError(f"ln_bwd takes rows of at most {_LN_MAX_D}, got {D}")
-    rows_per_block = -(-R // _LN_BWD_PARTS)
-    n_parts = -(-R // rows_per_block)
+    n_parts = min(R, _LN_BWD_PARTS)
     dx = torch.empty_like(x2)
     parts = torch.empty((2, n_parts, D), dtype=torch.float32,
                         device=x2.device)
     dg = torch.empty((D,), dtype=gamma.dtype, device=x2.device)
     db = torch.empty((D,), dtype=gamma.dtype, device=x2.device)
+    _, vecs = _row_body(D, x2.dtype, x2.data_ptr(), gamma.data_ptr(),
+                        dy2.data_ptr(), dx.data_ptr())
     code = _kernel("ln_bwd")(
-        _DTYPE_CODE[x2.dtype], _DTYPE_CODE[gamma.dtype], x2.data_ptr(),
-        gamma.data_ptr(), mu.data_ptr(), rstd.data_ptr(), dy2.data_ptr(),
-        dx.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
-        dg.data_ptr(), db.data_ptr(), R, D, rows_per_block, _stream(x2))
+        _DTYPE_CODE[x2.dtype], _DTYPE_CODE[gamma.dtype], vecs,
+        x2.data_ptr(), gamma.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
+        dy2.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
+        parts[1].data_ptr(), dg.data_ptr(), db.data_ptr(), R, D, n_parts,
+        _stream(x2))
     _build.check(code, "ln_bwd")
     registry.LAUNCH_COUNTS["ln_bwd"] += 1
     return dx, dg, db

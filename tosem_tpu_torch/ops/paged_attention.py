@@ -13,7 +13,11 @@ contracts:
 On CUDA tensors a one-token call with no options launches
 ``paged_decode`` (the port of the Pallas ``_decode_kernel``) and every
 other call ``paged_decode_multi`` (the port of ``_decode_multi_kernel``),
-both in ``csrc/paged_decode.cu``. On CPU tensors the plain versions run:
+both in ``csrc/paged_decode.cu``: one block per (sequence, head, chunk of
+the key axis), then a second kernel that combines each row's chunks in
+chunk-index order. The chunks are fixed by the table width and the page
+size alone (:func:`_decode_chunks`), so a call never reads ``seq_lens``
+on the host. On CPU tensors the plain versions run:
 a gather of the block-table pages and a masked softmax, mirroring the
 JAX package's ``_paged_attention_xla`` / ``_paged_attention_xla_multi``.
 
@@ -38,6 +42,21 @@ from tosem_tpu_torch.ops import _build, registry
 _NEG_INF = -1e30
 _KERNEL_D = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# B4/B5 split the key axis into chunks of whole pages holding about this
+# many keys (one page when a page is larger)
+_CHUNK_KEYS = 128
+
+
+def _decode_chunks(W: int, page: int):
+    """The key-axis plan of B4/B5 for a block table ``W`` slots wide:
+    ``(pages_per_chunk, n_chunks)``. Chunk c holds table slots
+    ``[c * pages_per_chunk, (c + 1) * pages_per_chunk)`` (the last one
+    clipped at W), so the chunks cover all ``W * page`` key positions at
+    fixed boundaries, whatever the sequences' lengths."""
+    if W < 1 or page < 1:
+        raise ValueError(f"chunk plan needs W, page >= 1; got {(W, page)}")
+    ppc = max(1, _CHUNK_KEYS // page)
+    return ppc, -(-W // ppc)
 
 
 # ---------------------------------------------------------------- plain arm
@@ -130,10 +149,10 @@ def _paged_plain(q, k_pages, v_pages, block_tables, seq_lens, sm_scale,
 
 # ----------------------------------------------------------------- CUDA arm
 
-_SINGLE_ARGS = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
-                + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
-_MULTI_ARGS = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8
-               + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+_SINGLE_ARGS = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7
+                + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+_MULTI_ARGS = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
+               + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _kernel(name, argtypes):
@@ -158,6 +177,9 @@ def _check_cuda_operands(q, k_pages, v_pages, ints):
             raise TypeError(f"{name} dtype {x.dtype} != q dtype {q.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        # the kernels read q, K and V as 16-byte vectors
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     for name, x, shape in ints:
         if x is None:
             continue
@@ -168,6 +190,16 @@ def _check_cuda_operands(q, k_pages, v_pages, ints):
                 f"got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
+def _chunk_scratch(q, B, K, H, D, W, page):
+    """The chunk plan and the fp32 scratch of its partials: per (sequence,
+    head, chunk, row) the PV sum (D floats), then (m, l) per row; sized
+    from shapes alone."""
+    ppc, n_chunks = _decode_chunks(W, page)
+    part = torch.empty(B * H * n_chunks * K * (D + 2), dtype=torch.float32,
+                       device=q.device)
+    return ppc, n_chunks, part
+
+
 def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens,
                        sm_scale):
     """Launch B4 (``paged_decode``) for q [B, H, D]."""
@@ -176,12 +208,14 @@ def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens,
     _check_cuda_operands(q, k_pages, v_pages,
                          (("block_tables", block_tables, (B, W)),
                           ("seq_lens", seq_lens, (B,))))
+    page = k_pages.shape[1]
+    ppc, n_chunks, part = _chunk_scratch(q, B, 1, H, D, W, page)
     out = torch.empty_like(q)
     code = _kernel("paged_decode", _SINGLE_ARGS)(
         _DTYPE_CODE[q.dtype], D, q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), out.data_ptr(), block_tables.data_ptr(),
-        seq_lens.data_ptr(), B, H, W, k_pages.shape[1], float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        seq_lens.data_ptr(), part.data_ptr(), B, H, W, page, ppc, n_chunks,
+        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "paged_decode")
     registry.LAUNCH_COUNTS["paged_decode"] += 1
     return out
@@ -197,6 +231,8 @@ def _paged_decode_multi_cuda(q, k_pages, v_pages, block_tables, seq_lens,
                           ("seq_lens", seq_lens, (B,)),
                           ("q_rows", q_rows, (B,)),
                           ("page_offsets", page_offsets, (B,))))
+    page = k_pages.shape[1]
+    ppc, n_chunks, part = _chunk_scratch(q, B, K, H, D, W, page)
     out = torch.empty_like(q)
     code = _kernel("paged_decode_multi", _MULTI_ARGS)(
         _DTYPE_CODE[q.dtype], D, q.data_ptr(), k_pages.data_ptr(),
@@ -204,8 +240,9 @@ def _paged_decode_multi_cuda(q, k_pages, v_pages, block_tables, seq_lens,
         seq_lens.data_ptr(),
         None if q_rows is None else q_rows.data_ptr(),
         None if page_offsets is None else page_offsets.data_ptr(),
-        B, K, H, W, k_pages.shape[1], 0 if window is None else int(window),
-        float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
+        part.data_ptr(), B, K, H, W, page, ppc, n_chunks,
+        0 if window is None else int(window), float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "paged_decode_multi")
     registry.LAUNCH_COUNTS["paged_decode_multi"] += 1
     return out
