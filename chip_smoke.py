@@ -59,6 +59,23 @@ Phases, each printing one JSON line:
               part, the top-1 minus top-2 logit margin at that step is
               printed before the run fails).
 4. encode   — one padded BERT-base batch through ``BertEncodeBackend``.
+4a. serve   — the same BERT-base served from replica processes through
+              the control plane: ``Serve`` deploys the decode backend
+              behind ``DecodeQueue`` (continuous batching) and the
+              encode backend behind ``BatchQueue`` (micro-batches in
+              buckets of 128-512), each in a spawned process warmed at
+              every bucket; the 8 decode prompts go out at once as
+              streamed ``POST /decode?stream=1`` to ``HttpIngress``,
+              then the prefix-hit prompt, then the 8 encode requests
+              through a handle. Each served stream must equal the direct
+              one (the decode phase's when it ran), the hit stream the
+              cold one, each served encoding a direct call bit for bit;
+              B1, B4 and B5 must launch in the replicas; the deployment
+              must count 9 sequences ok and none failed, its breaker
+              closed; and after shutdown no replica process may hold the
+              card. Prints TTFT through HTTP, served tokens/s and ms a
+              scheduler step beside the replica's own admit and step
+              times, and the micro-batches the queue formed.
 4b. encode_sparse — long-document BERT-base encode: ``BertEncodeBackend``
               with ``local_window=128`` and with ``doc_len=128``, 8
               requests of 300-500 ids padded to 512, on B1's schedule
@@ -93,14 +110,16 @@ Phases, each printing one JSON line:
               forward+backward). Every row must read under the card's
               peak (a row above it means a timing window closed early).
 
-``--phases`` picks a subset (default: all nine), e.g. ``build,kernels``
+``--phases`` picks a subset (default: all ten), e.g. ``build,kernels``
 for a first call after a kernel change, ``build,kernels,train`` for the
-training path, or ``build,kernels,suite`` for the kernel suite.
+training path, ``build,kernels,suite`` for the kernel suite, or
+``build,decode,serve`` for the served path.
 
 The launch counts of every kernel are set to 0 just before the decode,
 the encode, the sparse encode, the train and the suite paths run and
-read just after; a kernel of the path that never launched fails the
-run. Before the last line it prints the card's name and
+read just after (the serve path's inside its replicas: set to 0 as
+deploy's warm-up ends, read after the traffic); a kernel of the path
+that never launched fails the run. Before the last line it prints the card's name and
 power limit (``nvidia-smi``) and one ``{"kernels": [...]}`` line; the last
 line is ``{"ok": true, "device": {...}}``. Any failure raises.
 """
@@ -1706,22 +1725,44 @@ def phase_kernels(dev, seed):
 # ------------------------------------------------------------ main paths
 
 
-def phase_decode(dev, seed, new_tokens):
+def decode_prompts(seed, vocab):
+    """The decode path's traffic: 8 prompts of 100-400 random ids (the
+    first at least 300 long) and a prompt sharing 256 tokens with the
+    first (the prefix-hit prompt)."""
     import numpy as np
-    import torch
-    from tosem_tpu_torch.ops import registry
-    from tosem_tpu_torch.serve.backends import BertDecodeBackend
     rng = np.random.default_rng(seed)
-    kw = dict(preset="base", max_batch=8, num_pages=64,
-              max_new_tokens=new_tokens, device=dev, seed=seed)
-    be = BertDecodeBackend(**kw)
-    vocab = be.cfg.vocab_size
     lens = [int(n) for n in rng.integers(100, 401, size=8)]
     lens[0] = max(lens[0], 300)          # the prefix-hit donor
     prompts = [[int(t) for t in rng.integers(0, vocab, size=n)]
                for n in lens]
     suffix = [int(t) for t in rng.integers(0, vocab, size=60)]
-    hit_prompt = prompts[0][:256] + suffix
+    return prompts, prompts[0][:256] + suffix
+
+
+def decode_kwargs(dev, seed, new_tokens):
+    return dict(preset="base", max_batch=8, num_pages=64,
+                max_new_tokens=new_tokens, device=dev, seed=seed)
+
+
+def encode_requests(seed, vocab):
+    """The encode path's traffic: 8 requests of 30-500 random ids."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 1)
+    lens = [int(n) for n in rng.integers(30, 501, size=8)]
+    return [{"ids": [int(t) for t in rng.integers(0, vocab, size=n)]}
+            for n in lens]
+
+
+def phase_decode(dev, seed, new_tokens):
+    """Returns the path's launch counts and its streams (the direct
+    streams the serve phase holds its served streams to)."""
+    import torch
+    from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.serve.backends import BertDecodeBackend
+    kw = decode_kwargs(dev, seed, new_tokens)
+    be = BertDecodeBackend(**kw)
+    prompts, hit_prompt = decode_prompts(seed, be.cfg.vocab_size)
+    lens = [len(p) for p in prompts]
     # warm-up request (under one page, so it leaves no prefix entry):
     # first-call library set-up stays out of the timed admits
     be.call({"ids": prompts[1][:50], "max_new_tokens": 2})
@@ -1772,18 +1813,20 @@ def phase_decode(dev, seed, new_tokens):
     check(hit_stream == cold_stream,
           f"prefix-hit stream {hit_stream} != cold stream {cold_stream}")
     gen_tokens = 8 * (new_tokens - 1)
+    figures = {"ttft_ms_mean": sum(ttft) / len(ttft),
+               "decode_tokens_per_s": gen_tokens / t_steps,
+               "ms_per_step": t_steps / step * 1e3}
     emit({"phase": "decode", "prompt_lens": lens,
-          "ttft_ms": ttft, "ttft_ms_mean": sum(ttft) / len(ttft),
-          "admit_s": t_admit, "steps": step, "step_s": t_steps,
-          "decode_tokens_per_s": gen_tokens / t_steps,
-          "ms_per_step": t_steps / step * 1e3,
+          "ttft_ms": ttft, "admit_s": t_admit, "steps": step,
+          "step_s": t_steps, **figures,
           "prefix_hit_ttft_ms": ttft_hit, "prefix_hits": st["prefix_hits"],
           "reused_tokens": st["reused_tokens"],
           "hit_equals_cold": True, "launches": counts,
           "stream0_head": streams[0][:8]})
     del be, cold
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"streams": streams, "hit_stream": hit_stream,
+                    "figures": figures}
 
 
 def logit_margin(model, prompt, stream, other):
@@ -1809,12 +1852,10 @@ def phase_encode(dev, seed):
     import torch
     from tosem_tpu_torch.ops import registry
     from tosem_tpu_torch.serve.backends import BertEncodeBackend
-    rng = np.random.default_rng(seed + 1)
     be = BertEncodeBackend(preset="base", max_batch=8, device=dev,
                            seed=seed)
-    lens = [int(n) for n in rng.integers(30, 501, size=8)]
-    reqs = [{"ids": [int(t) for t in rng.integers(0, be.cfg.vocab_size,
-                                                  size=n)]} for n in lens]
+    reqs = encode_requests(seed, be.cfg.vocab_size)
+    lens = [len(r["ids"]) for r in reqs]
     be.call_batch(reqs)          # first call: cuBLAS and allocator set-up
     torch.cuda.synchronize()
     registry.reset_launch_counts()
@@ -1830,6 +1871,403 @@ def phase_encode(dev, seed):
           "flash_launches": counts["flash_fwd"], "launches": counts})
     del be
     torch.cuda.empty_cache()
+    return counts
+
+
+SERVE_BUCKETS = [128, 256, 384, 512]   # the prompt buckets at page 128
+SERVE_GAUGES = ("serve_decode_active_sequences",
+                "serve_decode_batch_occupancy", "serve_kv_pages")
+
+
+def replica_classes():
+    """The two BERT backends as the serve phase deploys them: each
+    subclass adds, to what ``stats()`` returns, what the phase reads from
+    inside its replica process (the kernels' launch counts, the flash
+    dispatch tally, the process id, and the replica's own time in each
+    admit, step and micro-batch, so the phase can tell the control
+    plane's time from the backend's), and runs
+    each declared bucket once on the card in ``warmup`` (the backends'
+    own ``warmup`` builds the step callables only), so deploy pays the
+    replica's library set-up and its first request does not. The counts
+    are set to 0 as warmup ends, the last thing deploy does. Defined in
+    a function, so cloudpickle ships the classes by value to the spawned
+    replicas; their bases come from the package."""
+    from tosem_tpu_torch.serve.backends import (BertDecodeBackend,
+                                                BertEncodeBackend)
+
+    def reset_counts():
+        from tosem_tpu_torch.nn.attention import FLASH_DISPATCH_COUNTS
+        from tosem_tpu_torch.ops import registry
+        registry.reset_launch_counts()
+        FLASH_DISPATCH_COUNTS.clear()
+        FLASH_DISPATCH_COUNTS.update({"flash": 0, "dense": 0})
+
+    def replica_stats(out):
+        from tosem_tpu_torch.ops import registry
+        out["launch_counts"] = dict(registry.LAUNCH_COUNTS)
+        out["pid"] = os.getpid()
+        return out
+
+    class ServedDecode(BertDecodeBackend):
+        def admit(self, seq_id, request, **kw):
+            t = time.perf_counter()
+            try:
+                return super().admit(seq_id, request, **kw)
+            finally:
+                if hasattr(self, "admit_ms"):
+                    self.admit_ms.append((time.perf_counter() - t) * 1e3)
+
+        def step_batch(self, seq_ids, step_idxs):
+            t = time.perf_counter()
+            try:
+                return super().step_batch(seq_ids, step_idxs)
+            finally:
+                if hasattr(self, "step_ms"):
+                    self.step_ms.append((time.perf_counter() - t) * 1e3)
+
+        def warmup(self, shapes):
+            import torch
+            out = super().warmup(shapes)
+            dev = self.device
+            i32 = dict(dtype=torch.int32, device=dev)
+            pools = (self.cache.k_pool, self.cache.v_pool)
+            # the cached steps as a request runs them, page writes
+            # included, into page 0: nothing is allocated yet, and every
+            # slot is written by the sequence that owns it before it is
+            # read, so the warm-up's writes are never seen
+            for pad_to in shapes:
+                ids = torch.zeros((1, pad_to), **i32)
+                pos = torch.arange(pad_to, device=dev)
+                self._prefill_compiled(pad_to)(
+                    ids, torch.ones_like(ids), *pools,
+                    torch.zeros_like(pos), pos % self.page_size)
+            rows = torch.zeros((self.max_batch,), **i32)
+            self._step_compiled()(
+                rows, rows, *pools,
+                torch.zeros((self.max_batch, self.max_pages), **i32), rows)
+            if self._prefix is not None:
+                q = self.suffix_q
+                self._suffix_compiled()(
+                    torch.zeros((1, q), **i32),
+                    torch.arange(q, **i32)[None], *pools,
+                    torch.zeros((1, self.max_pages), **i32),
+                    torch.full((1,), q, **i32), torch.full((1,), q, **i32),
+                    torch.zeros((1,), **i32))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            reset_counts()
+            self.admit_ms, self.step_ms = [], []
+            return out
+
+        def stats(self):
+            out = replica_stats(super().stats())
+            out["admit_ms"] = list(getattr(self, "admit_ms", []))
+            out["step_ms"] = list(getattr(self, "step_ms", []))
+            return out
+
+    class ServedEncode(BertEncodeBackend):
+        def warmup(self, shapes):
+            import torch
+            out = super().warmup(shapes)
+            for pad_to in shapes:
+                self.call_batch([{"ids": [0]}], pad_to=pad_to)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            reset_counts()
+            self.batches = []
+            return out
+
+        def call_batch(self, requests, pad_to=None):
+            t = time.perf_counter()
+            out = super().call_batch(requests, pad_to=pad_to)
+            if hasattr(self, "batches"):
+                self.batches.append([len(requests), pad_to,
+                                     (time.perf_counter() - t) * 1e3])
+            return out
+
+        def stats(self):
+            out = replica_stats(super().stats())
+            out["batches"] = list(getattr(self, "batches", []))
+            return out
+
+    return ServedDecode, ServedEncode
+
+
+def stream_post(url, payload, t_start):
+    """POST one streamed decode and read its chunks as they arrive:
+    (seconds from ``t_start`` to the first chunk and to the end, the
+    streamed tokens, the final result)."""
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type":
+                                          "application/json"})
+    first, tokens, result = None, [], None
+    with urllib.request.urlopen(req, timeout=120) as r:
+        check(r.status == 200, f"POST {url}: {r.status}")
+        for line in r:
+            if first is None:
+                first = time.perf_counter() - t_start
+            msg = json.loads(line)
+            check("error" not in msg, f"POST {url}: {msg}")
+            if "result" in msg:
+                result = msg["result"]
+            else:
+                tokens.extend(msg["tokens"])
+    check(result is not None, f"POST {url}: the stream ended without a "
+          "result")
+    return first, time.perf_counter() - t_start, tokens, result
+
+
+def pid_state(pid):
+    """'gone', 'zombie' (exited, resources freed) or 'alive'."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            state = next(ln for ln in f if ln.startswith("State:"))
+    except (FileNotFoundError, StopIteration):
+        return "gone"
+    return "zombie" if "Z" in state.split()[1] else "alive"
+
+
+def phase_serve(dev, seed, new_tokens, direct=None):
+    """BERT-base served from replica processes through the control
+    plane: ``Serve`` deploys a decode backend behind ``DecodeQueue``
+    (continuous batching) and an encode backend behind ``BatchQueue``
+    (micro-batches in padding buckets); 8 streamed decodes arrive at once
+    over ``HttpIngress``, then the prefix-hit prompt, then 8 encodes
+    through a handle. ``direct`` carries the decode phase's streams when
+    it ran. Returns the kernels' launch counts read inside the
+    replicas."""
+    import threading
+    import urllib.request
+    import numpy as np
+    import torch
+    import tosem_tpu_torch.runtime as rt
+    from tosem_tpu_torch.obs.metrics import prometheus_text
+    from tosem_tpu_torch.serve import (BertDecodeBackend, BertEncodeBackend,
+                                       DecodePolicy, HttpIngress, Serve)
+    from tosem_tpu_torch.serve.breaker import CLOSED
+    from tosem_tpu_torch.models.bert import BertConfig
+    ServedDecode, ServedEncode = replica_classes()
+    vocab = BertConfig.base().vocab_size
+    prompts, hit_prompt = decode_prompts(seed, vocab)
+    reqs = encode_requests(seed, vocab)
+    kw = decode_kwargs(dev, seed, new_tokens)
+    torch.cuda.synchronize()
+    free_before = torch.cuda.mem_get_info()[0]
+    out = {"phase": "serve", "gpu": gpu_line()}
+    pids = []
+    t0 = time.perf_counter()
+    serve = Serve()
+    ingress = None
+    try:
+        out["runtime_init_s"] = time.perf_counter() - t0
+        t = time.perf_counter()
+        dec = serve.deploy(
+            "decode", ServedDecode, init_kwargs=kw,
+            decode_policy=DecodePolicy(max_active=8), circuit_breaker=True,
+            warmup_shapes=SERVE_BUCKETS)
+        out["decode_deploy_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        enc = serve.deploy(
+            "encode", ServedEncode,
+            init_kwargs=dict(preset="base", max_batch=8, seed=seed,
+                             device=dev),
+            max_batch_size=8, batch_wait_ms=10.0, buckets=SERVE_BUCKETS,
+            length_of=BertEncodeBackend.length_of,
+            warmup_shapes=SERVE_BUCKETS)
+        out["encode_deploy_s"] = time.perf_counter() - t
+        ingress = HttpIngress(serve)
+        url = f"{ingress.url}/decode?stream=1"
+        # the client's first request builds urllib's opener (CA store
+        # included): keep that out of the timed requests
+        with urllib.request.urlopen(f"{ingress.url}/-/routes",
+                                    timeout=30) as r:
+            check(sorted(json.loads(r.read())["routes"])
+                  == ["decode", "encode"], "ingress routes")
+
+        # 8 streamed decodes released together from 8 client threads
+        got = [None] * 8
+        errors = []
+        gate = threading.Barrier(9)
+
+        def client(i):
+            try:
+                gate.wait()
+                got[i] = stream_post(url, {"ids": prompts[i]}, t_send)
+            except BaseException as e:
+                errors.append(f"prompt {i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(8)]
+        for th in threads:
+            th.start()
+        t_send = time.perf_counter()
+        gate.wait()
+        for th in threads:
+            th.join()
+        check(not errors, "; ".join(errors))
+        ttft = [g[0] * 1e3 for g in got]
+        t_end = max(g[1] for g in got)
+        # a stream gets one chunk a scheduler step while it is active, so
+        # its chunks' spacing is the served step time, whatever the
+        # other streams' arrival (a step always runs max_batch rows)
+        step_ms = [(g[1] - g[0]) / (new_tokens - 1) * 1e3 for g in got]
+        steps8 = dec.stats()["decode_steps"]
+        for i, (_, _, toks, res) in enumerate(got):
+            check(toks == res["generated"], f"prompt {i}: streamed "
+                  f"{toks} != result {res['generated']}")
+            check(len(toks) == new_tokens, f"prompt {i}: {len(toks)} "
+                  "tokens")
+        t = time.perf_counter()
+        hit = stream_post(url, {"ids": hit_prompt}, t)
+        out["decode"] = {
+            "ttft_ms": ttft, "ttft_ms_p50": float(np.median(ttft)),
+            "ttft_ms_max": max(ttft), "end_s": t_end, "steps": steps8,
+            "tokens_per_s_end_to_end": 8 * new_tokens / t_end,
+            "stream_ms_per_step": step_ms,
+            "ms_per_step": float(np.median(step_ms)),
+            "decode_tokens_per_s": 8e3 / float(np.median(step_ms)),
+            "prefix_hit_ttft_ms": hit[0] * 1e3}
+        dec_replica = rt.get(dec._replicas[0].stats.remote(), timeout=60)
+        pids.append(dec_replica["pid"])
+        dstats = dec.stats()
+        out["decode"].update(
+            {k: dstats[k] for k in ("decode_steps", "tokens_emitted",
+                                    "sequences_ok", "sequences_err")})
+        out["decode"]["prefix_hits"] = dec_replica["prefix_hits"]
+        out["decode"]["reused_tokens"] = dec_replica["reused_tokens"]
+        # the replica's own time: what the control plane adds is the rest
+        steps = dec_replica["step_ms"]
+        out["decode"]["replica_admit_ms"] = dec_replica["admit_ms"]
+        out["decode"]["replica_step_ms_median"] = float(np.median(steps))
+        out["decode"]["replica_steps"] = len(steps)
+        if direct is not None:
+            out["decode"]["direct"] = direct["figures"]
+
+        # 8 encodes through the handle, at once
+        h = serve.get_handle("encode")
+        done_at = [None] * 8
+        t = time.perf_counter()
+        futs = [h.remote(r) for r in reqs]
+
+        def waiter(i):
+            futs[i].result(timeout=300)
+            done_at[i] = (time.perf_counter() - t) * 1e3
+
+        waiters = [threading.Thread(target=waiter, args=(i,))
+                   for i in range(8)]
+        for th in waiters:
+            th.start()
+        for th in waiters:
+            th.join()
+        served = [f.result(timeout=1) for f in futs]
+        enc_replica = rt.get(enc._replicas[0].stats.remote(), timeout=60)
+        pids.append(enc_replica["pid"])
+        out["encode"] = {"lens": [len(r["ids"]) for r in reqs],
+                         "latency_ms": done_at,
+                         "batches": enc_replica["batches"],
+                         "queue": {k: enc.stats()[k] for k in
+                                   ("batches", "requests_ok",
+                                    "requests_err")}}
+
+        # deployment state, the ingress' stats and the decode gauges
+        with urllib.request.urlopen(f"{ingress.url}/-/stats",
+                                    timeout=30) as r:
+            stats_code = r.status
+            body = json.loads(r.read())
+        text = prometheus_text()
+        out["breaker"] = dec.breaker.state
+        out["launches"] = {"decode": dec_replica["launch_counts"],
+                           "encode": enc_replica["launch_counts"]}
+        out["flash_dispatch_encode"] = enc_replica["flash_dispatch"]
+    finally:
+        if ingress is not None:
+            ingress.shutdown()
+        for name in serve.list_deployments():
+            serve.delete(name)
+        rt.shutdown()
+
+    # no replica process may be left holding the card
+    deadline = time.perf_counter() + 30
+    while time.perf_counter() < deadline and any(
+            pid_state(p) == "alive" for p in pids):
+        time.sleep(0.2)
+    torch.cuda.synchronize()
+    free_after = torch.cuda.mem_get_info()[0]
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    out["shutdown"] = {"replica_pids": {p: pid_state(p) for p in pids},
+                       "compute_apps": apps,
+                       "free_gib_before": free_before / 2**30,
+                       "free_gib_after": free_after / 2**30}
+    emit(out)
+
+    # the checks, each of which fails the run
+    for p in pids:
+        check(pid_state(p) != "alive", f"replica {p} outlived shutdown")
+        check(not any(a.split(",")[0].strip() == str(p) for a in apps),
+              f"replica {p} still holds the card: {apps}")
+    check(free_after >= free_before - (256 << 20),
+          f"{(free_before - free_after) / 2**20:.0f} MiB of device memory "
+          "not returned after shutdown")
+    if direct is None:
+        be = BertDecodeBackend(**kw)
+        streams = [be.call({"ids": p})["generated"] for p in prompts]
+        del be
+        cold = BertDecodeBackend(prefix_cache=False, **kw)
+        cold_hit = cold.call({"ids": hit_prompt})["generated"]
+        del cold
+    else:
+        streams, cold_hit = direct["streams"], direct["hit_stream"]
+    for i, g in enumerate(got):
+        check(g[3]["generated"] == streams[i],
+              f"served stream {i} {g[3]['generated']} != direct "
+              f"{streams[i]}")
+    if hit[3]["generated"] != cold_hit:
+        from tosem_tpu_torch.models.bert import Bert
+        model = Bert(BertConfig.base(), device=dev, seed=seed)
+        emit({"phase": "serve", "prefix_hit_mismatch": logit_margin(
+            model, hit_prompt, cold_hit, hit[3]["generated"])})
+    check(hit[3]["generated"] == cold_hit,
+          f"served prefix-hit stream {hit[3]['generated']} != cold "
+          f"stream {cold_hit}")
+    check(dec_replica["prefix_hits"] >= 1,
+          f"no prefix hit in the replica: {dec_replica}")
+    direct_enc = BertEncodeBackend(preset="base", max_batch=8, seed=seed,
+                                   device=dev)
+    for i, (r, got_enc) in enumerate(zip(reqs, served)):
+        want = direct_enc.call(r)
+        check(got_enc["len"] == want["len"]
+              and np.array_equal(got_enc["pooled"], want["pooled"]),
+              f"served encode {i} != direct call (max |diff| "
+              f"{np.abs(got_enc['pooled'] - want['pooled']).max()})")
+    del direct_enc
+    torch.cuda.empty_cache()
+    dl, el = out["launches"]["decode"], out["launches"]["encode"]
+    for name in ("flash_fwd", "paged_decode", "paged_decode_multi"):
+        check(dl[name] > 0, f"{name} never launched in the decode replica")
+    check(el["flash_fwd"] > 0, "flash_fwd never launched in the encode "
+          "replica")
+    check(out["flash_dispatch_encode"]["flash"] >= 1,
+          f"encode replica took no flash path: "
+          f"{out['flash_dispatch_encode']}")
+    d = out["decode"]
+    check(d["sequences_ok"] == 9 and d["sequences_err"] == 0,
+          f"decode sequences: {d}")
+    check(d["decode_steps"] < 9 * (new_tokens + 1),
+          f"{d['decode_steps']} scheduler steps: no continuous batching")
+    check(out["breaker"] == CLOSED, f"breaker {out['breaker']}")
+    check(stats_code == 200 and "decode" in body["deployments"],
+          f"/-/stats answered {stats_code}: {body}")
+    missing = [g for g in SERVE_GAUGES if g not in text]
+    check(not missing, f"decode gauges missing: {missing}")
+    emit({"phase": "serve", "streams_equal_direct": True,
+          "hit_equals_cold": True, "encode_bit_exact": True})
+    counts = {k: 0 for k in KERNELS}
+    for k in counts:
+        counts[k] = dl.get(k, 0) + el.get(k, 0)
     return counts
 
 
@@ -2489,8 +2927,8 @@ def phase_suite_sparse():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,decode,encode,encode_sparse,cpu,"
-                            "profile,train,suite")
+                    default="build,kernels,decode,encode,serve,"
+                            "encode_sparse,cpu,profile,train,suite")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(ROOT, "tosem_tpu_torch")):
@@ -2524,11 +2962,16 @@ def main(argv=None):
     check(not paged_faults, "B4/B5 chunk bodies: " + "; ".join(paged_faults))
     lines = phase_kernels(dev, SEED) if "kernels" in phases else {}
     launches = {k: 0 for k in KERNELS}
+    direct = None
     if "decode" in phases:
-        for k, n in phase_decode(dev, SEED, NEW_TOKENS).items():
+        counts, direct = phase_decode(dev, SEED, NEW_TOKENS)
+        for k, n in counts.items():
             launches[k] += n
     if "encode" in phases:
         for k, n in phase_encode(dev, SEED).items():
+            launches[k] += n
+    if "serve" in phases:
+        for k, n in phase_serve(dev, SEED, NEW_TOKENS, direct).items():
             launches[k] += n
     if "encode_sparse" in phases:
         for k, n in phase_encode_sparse(dev, SEED).items():

@@ -31,6 +31,10 @@ def test_import_loads_neither_jax_nor_triton():
             "from tosem_tpu_torch.ops import fused_norms, kernel_suite; "
             "from tosem_tpu_torch.utils import results, timing, roofline; "
             "from tosem_tpu_torch import cli; "
+            "from tosem_tpu_torch import runtime, obs, native; "
+            "from tosem_tpu_torch.serve import (batching, core, http, "
+            "breaker); "
+            "from tosem_tpu_torch.chaos import plan, injector; "
             "print(sorted(m for m in ('jax', 'triton', 'tosem_tpu') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -39,12 +43,30 @@ def test_import_loads_neither_jax_nor_triton():
     assert out.stdout.strip() == "[]"
 
 
-@pytest.mark.parametrize("module", ["tosem_tpu_torch.ops.mask_programs",
-                                    "tosem_tpu_torch.data.feeding"])
+# the port's copies of JAX-package modules that import no JAX there
+COPIED_MODULES = [
+    "tosem_tpu_torch.ops.mask_programs", "tosem_tpu_torch.data.feeding",
+    "tosem_tpu_torch.native", "tosem_tpu_torch.runtime",
+    "tosem_tpu_torch.runtime.object_store", "tosem_tpu_torch.runtime.common",
+    "tosem_tpu_torch.runtime.worker", "tosem_tpu_torch.runtime.runtime",
+    "tosem_tpu_torch.runtime.api", "tosem_tpu_torch.obs",
+    "tosem_tpu_torch.obs.metrics", "tosem_tpu_torch.obs.httpd",
+    "tosem_tpu_torch.obs.memory_monitor", "tosem_tpu_torch.chaos",
+    "tosem_tpu_torch.chaos.plan", "tosem_tpu_torch.chaos.injector",
+    "tosem_tpu_torch.serve.breaker", "tosem_tpu_torch.serve.batching",
+    "tosem_tpu_torch.serve.core", "tosem_tpu_torch.serve.http"]
+# the control plane: a replica of a plain backend imports these only
+CONTROL_MODULES = [m for m in COPIED_MODULES
+                   if m.split(".")[1] in ("native", "runtime", "obs",
+                                          "chaos", "serve")]
+
+
+@pytest.mark.parametrize("module", COPIED_MODULES)
 def test_copied_modules_import_alone(module):
-    """The mask-program compiler and the feeding rule are copies of JAX
-    package modules: importing either loads neither JAX nor the JAX
-    package."""
+    """The mask-program compiler, the feeding rules, the runtime, the
+    observability and chaos layers and the serving control plane are
+    copies of JAX package modules: importing any one of them loads
+    neither JAX nor the JAX package."""
     code = (f"import sys, {module}; "
             "print(sorted(m for m in ('jax', 'triton', 'tosem_tpu') "
             "if m in sys.modules))")
@@ -52,6 +74,55 @@ def test_copied_modules_import_alone(module):
                          capture_output=True, text=True, check=True,
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", CONTROL_MODULES)
+def test_control_plane_modules_load_no_torch(module):
+    """The runtime and the serving control plane stand apart from the
+    model: a replica that unpickles a queue, the batching wrapper or a
+    plain backend does not pay for importing torch."""
+    code = (f"import sys, {module}; "
+            "print(sorted(m for m in ('torch', 'numpy.linalg', 'jax') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert "torch" not in out.stdout and "jax" not in out.stdout
+
+
+def test_default_start_method_is_spawn_once_torch_is_loaded():
+    code = ("import os; os.environ.pop('TOSEM_RT_START_METHOD', None); "
+            "import tosem_tpu_torch.runtime as rt; "
+            "from tosem_tpu_torch.runtime.runtime import "
+            "_default_start_method as d; before = d(); import torch; "
+            "print(before, d())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.stdout.split() == ["fork", "spawn"]
+
+
+def test_scan_reaches_every_subpackage_and_function_level_imports():
+    """The no-JAX scan below walks every file of every subpackage and
+    every import inside a function body, where the copied control plane
+    keeps most of its imports."""
+    subpackages = {os.path.relpath(p, PKG).split(os.sep)[0]
+                   for p in _package_files()}
+    assert {"native", "runtime", "obs", "chaos", "serve", "ops",
+            "train"} <= subpackages
+    nested = {}
+    for path in _package_files():
+        tree = ast.parse(open(path).read(), path)
+        for fn in ast.walk(tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                for n in ast.walk(fn):
+                    if isinstance(n, ast.ImportFrom) and n.module:
+                        rel = os.path.relpath(path, PKG)
+                        nested.setdefault(rel, set()).add(n.module)
+    for rel in ("runtime/runtime.py", "serve/batching.py",
+                "serve/core.py", "chaos/injector.py"):
+        assert any(m.startswith("tosem_tpu_torch.")
+                   for m in nested[rel.replace("/", os.sep)]), rel
 
 
 def test_no_module_imports_the_jax_package():

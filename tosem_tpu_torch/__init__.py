@@ -4,8 +4,8 @@ H100.
 The JAX package ``tosem_tpu`` stays the reference; this package is built
 beside it slice by slice, with every Pallas kernel on a slice's path
 rewritten by hand in CUDA C++ for ``sm_90a``. Ported so far (the BERT
-serving and training slices, the BERT kernel suite, and block-sparse
-mask programs):
+serving and training slices, the BERT kernel suite, block-sparse mask
+programs, and the serving control plane):
 
 - ``tosem_tpu_torch.ops``     flash attention forward and backward (dense,
                               causal, segment ids, and the schedule mode
@@ -19,10 +19,19 @@ mask programs):
 - ``tosem_tpu_torch.models``  BERT encoder / causal decoder, and the
                               converter for JAX-package parameters
 - ``tosem_tpu_torch.serve``   paged KV cache, prefix cache, BERT encode
-                              and greedy-decode backends
+                              and greedy-decode backends, and the control
+                              plane that serves them from replica
+                              processes: ``Serve``, micro-batching and
+                              continuous-batching queues, circuit
+                              breaker, HTTP ingress
+- ``tosem_tpu_torch.runtime`` the actor runtime (tasks, actors, spawned
+                              workers) over a shared-memory object store
+                              (``native/objstore.cpp``, built by g++)
+- ``tosem_tpu_torch.obs``     metric registry and Prometheus export,
+                              memory watchdog
 - ``tosem_tpu_torch.train``   train state, AdamW, MLM loss, train step,
                               ``fit`` with atomic checkpoints and resume
-- ``tosem_tpu_torch.chaos``   the chaos injection seam (``train.step``)
+- ``tosem_tpu_torch.chaos``   seeded fault plans and the injection seam
 - ``tosem_tpu_torch.utils``   result CSVs, device timing, the roofline
 - ``tosem_tpu_torch.cli``     the experiment runner (``bert_kernels``,
                               ``flash_sparse``)

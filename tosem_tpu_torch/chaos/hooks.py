@@ -7,15 +7,24 @@ installed.
 
 Sites the port fires so far, and the actions they honor:
 
-==========  ===============================  =======
-site        fired                            actions
-==========  ===============================  =======
-train.step  trainer ``fit()`` finished a     preempt
-            step
-==========  ===============================  =======
+==================  =====================================  =============
+site                fired                                   actions
+==================  =====================================  =============
+runtime.dispatch    task/actor-call written to a worker     kill_worker
+runtime.result      "done" message drained from a worker    drop_result,
+                                                            delay_result
+runtime.store       large result sealed into the store      evict_object
+serve.dispatch      request routed to a replica             crash_replica,
+                                                            slow_replica
+serve.decode_step   one decode scheduler iteration          evict_pages,
+                                                            slow_step
+train.step          trainer ``fit()`` finished one step     preempt
+==================  =====================================  =============
 
 A controller is any object with ``on(site, **ctx)`` returning an action
-dict (``{"action": "preempt"}``) or None.
+dict (``{"action": "preempt"}``) or None; :class:`~tosem_tpu_torch.chaos.
+injector.ChaosController` runs a seeded :class:`~tosem_tpu_torch.chaos.
+plan.FaultPlan`.
 """
 from __future__ import annotations
 

@@ -1,12 +1,29 @@
 """Padding buckets and the block-sparse routing rule of the serving layer.
 
 Counterpart of the framework-neutral part of ``tosem_tpu/data/feeding.py``
-that the port's backends need: :func:`bucket_for` and
-:func:`sparse_mask_spec`, copied (the JAX package's module imports JAX).
+that the port's backends and serving queues need:
+:func:`bucket_boundaries`, :func:`bucket_for`, :func:`sparse_mask_spec`
+and :func:`pad_target`, copied (the JAX package's module imports JAX).
+The speech batchers wait for ROADMAP.md A13.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import math
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+
+def bucket_boundaries(lengths: Sequence[int], n_buckets: int) -> List[int]:
+    """Quantile pad-target palette: one step callable per bucket."""
+    qs = np.quantile(np.asarray(lengths, float),
+                     np.linspace(0, 1, n_buckets + 1)[1:])
+    out: List[int] = []
+    for q in qs:
+        b = int(math.ceil(q))
+        if not out or b > out[-1]:
+            out.append(b)
+    return out
 
 
 def bucket_for(length: int, boundaries: Sequence[int]) -> Optional[int]:
@@ -38,3 +55,16 @@ def sparse_mask_spec(pad_t: int, *, local_window: Optional[int] = None,
             and pad_t > 2 * local_window:
         specs.append(f"local:{local_window}:{local_window - 1}")
     return "+".join(specs) if specs else None
+
+
+def pad_target(length: int, boundaries: Sequence[int],
+               align: int = 1) -> int:
+    """Pad target for a sequence at serving time: its palette bucket
+    when one fits, else ``length`` rounded up to ``align`` (overlong
+    requests can't be dropped the way the training batcher drops them —
+    they get their own aligned shape, keeping e.g. flash-attention tile
+    eligibility where possible)."""
+    b = bucket_for(length, boundaries)
+    if b is not None:
+        return b
+    return int(math.ceil(length / align) * align) if align > 1 else length
