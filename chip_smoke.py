@@ -39,7 +39,15 @@ Phases, each printing one JSON line:
               table (page 16, 32 slots), D = 16, 32, 64 and 128, launched
               twice and held equal to B5 at k = 1 bit for bit; B5 at k =
               1, 8 and 64, launched twice, its k = 8 row r equal to a B4
-              step at seq_len - (k - 1 - r) bit for bit. B6-B9
+              step at seq_len - (k - 1 - r) bit for bit. B5's window and
+              page-offset modes at windows 1, 100, 128 and 300 and k = 1,
+              4 and 8 on rolling tables (page 128 at D = 16, 64 and 128,
+              and page 16 at D = 64), bf16 and fp32: against the plain
+              version, twice bit for bit, row r equal to a k = 1 launch
+              at seq_len - (k - 1 - r) bit for bit, the rolling table
+              within the tolerance of the full one, and the window
+              dropped or the offsets zeroed each breaking the check;
+              timed at bf16, page 128, k = 1, window 128. B6-B9
               (fused layernorm and softmax, forward and backward) at the
               kernel suite's shapes, a ragged row count, odd widths, a
               long row, the edges of the warp-row bodies (1024, 1025,
@@ -58,6 +66,22 @@ Phases, each printing one JSON line:
               its cold stream with the prefix cache off (where they
               part, the top-1 minus top-2 logit margin at that step is
               printed before the run fails).
+3a. decode_modes — BERT-base (bf16, page 128, 8 rows, 64 pages) in each
+              decode mode, every backend loading one set of weights: a
+              128-token window (pages held at most ceil(128/page) + 2,
+              pages evicted, all free after release; fp32 card against
+              fp32 CPU for 8 steps of two long prompts at page 128 and
+              16, with the CPU's unwindowed run as the yardstick; a
+              512-token window equal to greedy), speculative decode
+              (spec_k = 4, equal to greedy, drafts accepted; with the
+              window, equal to the window alone), two beam groups of 4
+              in one batch (sorted, best at least greedy's score, pages
+              shared at admit) and sampling groups (replayable, packing
+              independent), a session's second turn (a suffix prefill,
+              equal to a cold admit), and spill/restore and
+              export/import at step 10 (byte-identical pages, streams
+              equal to greedy). Where two streams part, the margin is
+              printed before the run fails.
 4. encode   — one padded BERT-base batch through ``BertEncodeBackend``.
 4a. serve   — the same BERT-base served from replica processes through
               the control plane: ``Serve`` deploys the decode backend
@@ -72,7 +96,11 @@ Phases, each printing one JSON line:
               cold one, each served encoding a direct call bit for bit;
               B1, B4 and B5 must launch in the replicas; the deployment
               must count 9 sequences ok and none failed, its breaker
-              closed; and after shutdown no replica process may hold the
+              closed. Then a disaggregated deployment (a prefill replica
+              handing each sequence over by export to a decode replica
+              of 16 pages) serves the 8 prompts at once: streams equal
+              the direct ones, spills, restores and 8 migrations with no
+              fallback. After shutdown no replica process may hold the
               card. Prints TTFT through HTTP, served tokens/s and ms a
               scheduler step beside the replica's own admit and step
               times, and the micro-batches the queue formed.
@@ -85,7 +113,8 @@ Phases, each printing one JSON line:
               the CPU with the same weights; first-step logits must agree.
               Two yardsticks beside them: the card's bf16 logits against
               the CPU's fp32 ones, and a deliberately wrong CPU model.
-6. profile  — decode steps, a prefill and an encode batch, each timed
+6. profile  — decode steps, a prefill, windowed, speculative and beam
+              steps and an encode batch, each timed
               on the host clock without the profiler and then traced
               under torch.profiler: the device time the trace sees over
               the unprofiled wall time is the device's busy share.
@@ -110,13 +139,15 @@ Phases, each printing one JSON line:
               forward+backward). Every row must read under the card's
               peak (a row above it means a timing window closed early).
 
-``--phases`` picks a subset (default: all ten), e.g. ``build,kernels``
+``--phases`` picks a subset (default: all eleven), e.g. ``build,kernels``
 for a first call after a kernel change, ``build,kernels,train`` for the
-training path, ``build,kernels,suite`` for the kernel suite, or
-``build,decode,serve`` for the served path.
+training path, ``build,kernels,suite`` for the kernel suite,
+``build,decode,serve`` for the served path, or
+``build,kernels,decode,decode_modes,serve`` for the decode modes.
 
 The launch counts of every kernel are set to 0 just before the decode,
-the encode, the sparse encode, the train and the suite paths run and
+each decode mode, the encode, the sparse encode, the train and the suite
+paths run and
 read just after (the serve path's inside its replicas: set to 0 as
 deploy's warm-up ends, read after the traffic); a kernel of the path
 that never launched fails the run. Before the last line it prints the card's name and
@@ -124,6 +155,7 @@ power limit (``nvidia-smi``) and one ``{"kernels": [...]}`` line; the last
 line is ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -1349,6 +1381,143 @@ def paged_work(q, lens, K, page=128):
     return nbytes, 4 * D * H * pairs
 
 
+# B5's window and page-offset modes: every window below, at k = 1, 4 and
+# 8 rows, over 8 sequences (one idle) on rolling tables
+B5_WINDOWS = (1, 100, 128, 300)
+B5_WINDOW_K = (1, 4, 8)
+B5_WINDOW_LENS = [0, 9, 77, 128, 129, 300, 511, 512]
+
+
+def rolling_table(bt, lens, K, window, page):
+    """(narrow table, page offsets) as a windowed decode step hands B5
+    them: sequence b's slots [po, po + n) of its full table, po the page
+    of the lowest position its rows' windows reach, n up to its last
+    page, in a table as wide as the backend's ``table_w``."""
+    import torch
+    B, W = bt.shape
+    w = min(-(-window // page) + -(-K // page) + 3, W)
+    narrow = torch.zeros((B, w), dtype=torch.int32, device=bt.device)
+    po = torch.zeros((B,), dtype=torch.int32, device=bt.device)
+    for b, sl in enumerate(lens):
+        if sl == 0:
+            continue
+        p0 = max(sl - K - window + 1, 0) // page
+        n = -(-sl // page) - p0
+        check(n <= w, f"rolling table of {w} slots cannot hold {n} pages")
+        narrow[b, :n] = bt[b, p0:p0 + n]
+        po[b] = p0
+    return narrow, po
+
+
+def window_work(q, lens, K, window, w):
+    """(bytes, operations) of a windowed B5 call: q read and the output
+    written once, K and V of the keys some row of a sequence sees (the
+    union of its rows' windows, min(sl, window + K - 1) keys, as
+    ``paged_work`` counts ``sl``; the kernel reads the whole pages that
+    hold them), tables, lengths and offsets; 4*D per visible (row, key)
+    pair."""
+    H, D = q.shape[-2], q.shape[-1]
+    el = q.element_size()
+    keys = pairs = 0
+    for sl in lens:
+        if sl == 0:
+            continue
+        keys += min(sl, window + K - 1)
+        pairs += sum(min(sl - K + r + 1, window) for r in range(K))
+    nbytes = (2 * q.numel() * el + 2 * keys * H * D * el
+              + 4 * len(lens) * (2 + w))
+    return nbytes, 4 * D * H * pairs
+
+
+def b5_window_cases(dev, gen, lines):
+    """B5 with ``window`` and ``page_offsets`` on rolling tables, bf16 and
+    fp32, page 128 (D = 16, 64, 128) and page 16 (D = 64): against the
+    plain version, twice bit for bit, row r against a k = 1 launch at
+    ``sl - (k - 1 - r)`` bit for bit, the narrow table against the full
+    one (within the tolerance: the chunks follow the table's width), and
+    two yardsticks that must break the plain check (the window dropped,
+    the offsets zeroed). Times one case by graph replay."""
+    import torch
+    from tosem_tpu_torch.ops import paged_attention as pa
+    lens = B5_WINDOW_LENS
+    cases = []
+    for dtype in ("bfloat16", "float32"):
+        tol = TOL["paged"][dtype]
+        for page, D in ((128, 64), (16, 64), (128, 16), (128, 128)):
+            for K in B5_WINDOW_K:
+                q, kp, vp, bt, sl = paged_case(dev, dtype, lens, K, gen,
+                                               page=page, D=D)
+                scale = 1.0 / D ** 0.5
+                for window in B5_WINDOWS:
+                    narrow, po = rolling_table(bt, lens, K, window, page)
+
+                    def run(qq=q, table=narrow, n=sl, offs=po, win=window):
+                        return pa._paged_decode_multi_cuda(
+                            qq, kp, vp, table, n, None, offs, scale, win)
+                    out, again = run(), run()
+                    ref = pa.paged_attention_reference(
+                        q, kp, vp, narrow, sl, window=window,
+                        page_offsets=po)
+                    full = run(table=bt, offs=None)
+                    dropped = run(win=None)
+                    zeroed = run(offs=torch.zeros_like(po))
+                    rows = [run(qq=q[:, r:r + 1].contiguous(),
+                                n=torch.clamp(sl - (K - 1 - r), min=0))
+                            for r in range(K)]
+                    torch.cuda.synchronize()
+
+                    def gap(a, b):
+                        return (a.float() - b.float()).abs().max().item()
+                    what = (f"B5 window {window} k={K} {dtype} page {page} "
+                            f"D {D}")
+                    err = gap(out, ref)
+                    full_err = gap(out, full)
+                    yard = {"window_dropped": gap(dropped, ref),
+                            "offsets_zeroed": gap(zeroed, ref)}
+                    check(err <= tol, f"{what}: err {err}")
+                    check(torch.equal(out, again),
+                          f"{what} differs between two launches")
+                    check(bool((out[0] == 0).all().item()),
+                          f"{what}: seq_len 0 row not zeros")
+                    bad = [r for r in range(K)
+                           if not torch.equal(out[:, r], rows[r][:, 0])]
+                    check(not bad, f"{what}: rows {bad} != k = 1 launches "
+                                   "at sl - (k - 1 - r)")
+                    check(full_err <= tol,
+                          f"{what}: rolling table vs full table {full_err}")
+                    check(all(v > tol for v in yard.values()),
+                          f"{what}: a yardstick passes the check: {yard}")
+                    rec = {"kernel": "paged_decode_multi", "mode": "window",
+                           "dtype": dtype, "k": K, "window": window,
+                           "page": page, "D": D, "lens": lens,
+                           "table_w": narrow.shape[1],
+                           "page_offsets": po.tolist(),
+                           "chunks": pa._decode_chunks(narrow.shape[1],
+                                                       page),
+                           "max_abs_err": err,
+                           "rolling_vs_full_table": full_err,
+                           "yardsticks": yard, "bit_deterministic": True,
+                           "rows_equal_k1_launches": True}
+                    if (dtype, page, D, K, window) == ("bfloat16", 128, 64,
+                                                       1, 128):
+                        w = narrow.shape[1]
+                        nbytes, ops = window_work(q, lens, K, window, w)
+                        rec["ms"] = device_ms(
+                            lambda q, kp, vp: pa._paged_decode_multi_cuda(
+                                q, kp, vp, narrow, sl, None, po, scale,
+                                window), q, kp, vp)
+                        rec["plain_ms"] = cuda_ms(
+                            lambda: pa.paged_attention_reference(
+                                q, kp, vp, narrow, sl, window=window,
+                                page_offsets=po), iters=10)
+                        rec["library_ms"] = None
+                        rec["bound_ms"], rec["bound_by"] = bound(
+                            nbytes, ops, dtype)
+                        lines["paged_decode_multi_window"] = rec
+                    cases.append(rec)
+    return cases
+
+
 def norm_err(name, dtype, got, want):
     """(max abs error, within NORM_TOL) of one B6-B9 output."""
     atol, rtol = NORM_TOL[name][dtype]
@@ -1713,6 +1882,7 @@ def phase_kernels(dev, seed):
                 rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, dtype)
                 lines["paged_decode_multi"] = rec
             cases.append(rec)
+    cases += b5_window_cases(dev, gen, lines)
     cases += bwd_cases(dev, gen, lines)
     cases += bwd_edge_cases(dev, gen)
     cases += sched_cases(dev, gen)
@@ -1847,6 +2017,502 @@ def logit_margin(model, prompt, stream, other):
             "top1_minus_top2": (top.values[0] - top.values[1]).item()}
 
 
+# ------------------------------------------------------------ decode modes
+
+WINDOW = 128        # the decode_modes phase's sliding window
+SPEC_K = 4          # and its speculative block
+# a mode's bf16 logits rows against greedy's (or a cold admit's) at the
+# same positions, as a fraction of the largest logit: the cpu phase's
+# bf16 limit (other GEMM shapes and kernels round each layer otherwise)
+ROW_TOL = 2e-2
+
+
+def base_params(seed):
+    """BERT-base's weights as the parameter tree backends take as
+    ``params=`` (nested dicts of fp32 numpy arrays), from the seeded init
+    every other phase builds. A bf16 backend rounds them back to exactly
+    the seed's bf16 weights; an fp32 one runs them as they are."""
+    from tosem_tpu_torch.models.bert import Bert, BertConfig
+    tree = {}
+    for name, t in Bert(BertConfig.base(), device="cpu",
+                        seed=seed).state_dict().items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            parts = [f"layer{parts[1]}"] + parts[2:]
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = t.float().numpy()
+    return tree
+
+
+@contextlib.contextmanager
+def fp32_base():
+    """``preset="base"`` at float32: the backends build
+    ``BertConfig.base()`` (bf16); inside this block they get a subclass
+    whose default dtype is float32."""
+    import dataclasses
+
+    import tosem_tpu_torch.models.bert as mb
+    bf16 = mb.BertConfig
+
+    @dataclasses.dataclass(frozen=True)
+    class BertConfig32(bf16):
+        dtype: str = "float32"
+    mb.BertConfig = BertConfig32
+    try:
+        yield
+    finally:
+        mb.BertConfig = bf16
+
+
+def recording_decode():
+    """``BertDecodeBackend`` keeping the logits rows it computes for each
+    cache sequence: its prefill's last row, then its rows of each step
+    (``rows``), and each with the tokens fed to reach it (``fed``: start
+    position, tokens fed from there, their rows)."""
+    import collections
+    from tosem_tpu_torch.serve.backends import BertDecodeBackend
+
+    class RecordingDecode(BertDecodeBackend):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.rows = collections.defaultdict(list)
+            self.fed = collections.defaultdict(list)
+
+        def _prefill_into_cache(self, seq_id, toks):
+            row = super()._prefill_into_cache(seq_id, toks)
+            self.rows[seq_id].append(row)
+            self.fed[seq_id].append((len(toks) - 1, [toks[-1]], [row]))
+            return row
+
+        def _run_step(self, plans):
+            out = super()._run_step(plans)
+            for p, r in zip(plans, out):
+                self.rows[p.cid].extend(r)
+                self.fed[p.cid].append((p.start, list(p.fed), list(r)))
+            return out
+    return RecordingDecode
+
+
+def rows_on(be, cid, ids, tag=None):
+    """{(tag, position): logits row} of the rows a ``recording_decode``
+    backend computed for cache sequence ``cid`` after tokens that lie on
+    ``ids`` (a speculative step's rows past its first rejected draft do
+    not). ``tag`` (default ``cid``) names the sequence in the keys."""
+    tag = cid if tag is None else tag
+    got = {}
+    for start, fed, rows in be.fed[cid]:
+        for j, row in enumerate(rows):
+            if fed[:j + 1] != ids[start:start + j + 1]:
+                break
+            got.setdefault((tag, start + j), row)
+    return got
+
+
+def hold_rows(what, want, got, extra=None):
+    """Hold the logits rows ``got`` against ``want`` ({(sequence,
+    position): row}) where both computed one (one side's keys must all
+    be the other's): within ROW_TOL of the largest logit. Yardstick:
+    ``got`` against ``want``'s row one position later (earlier at its
+    last) must break that limit at every position (a row written at the
+    wrong offset), and so must each of ``extra``'s rows ({name: {key:
+    row}}). Returns the record."""
+    import numpy as np
+    common = sorted(set(want) & set(got))
+    check(common and len(common) == min(len(want), len(got)),
+          f"{what}: rows at {sorted(got)} against {sorted(want)}")
+    scale = max(float(np.abs(want[p]).max()) for p in common)
+    limit = ROW_TOL * max(1.0, scale)
+    err = max(float(np.abs(got[p] - want[p]).max()) for p in common)
+    off = [float(np.abs(got[i, p] - want[nb]).max())
+           for i, p in common
+           for nb in [(i, p + 1) if (i, p + 1) in want else (i, p - 1)]
+           if nb in want]
+    rec = {"positions": len(common), "max_abs_diff": err, "limit": limit,
+           "largest_logit": scale, "off_by_one_min": min(off),
+           "off_by_one_max": max(off)}
+    for name, rows in (extra or {}).items():
+        rec[name] = min(float(np.abs(r - want[k]).max())
+                        for k, r in rows.items())
+    emit({"phase": "decode_modes", f"{what}_rows": rec})
+    check(err <= limit, f"{what}: logits rows differ: {rec}")
+    check(len(off) >= 1 and min(off) > limit,
+          f"{what}: the rows check cannot see a row one position off: "
+          f"{rec}")
+    for name in extra or {}:
+        check(rec[name] > limit, f"{what}: the rows check cannot see "
+                                 f"{name}: {rec}")
+    return rec
+
+
+def decode_all(be, reqs, steps=None):
+    """Admit ``reqs`` as sequences 0..n-1 and step them together until
+    all are done (or for ``steps`` steps), then release them. Returns
+    their results, ms a step (host clock), steps, tokens/s, committed
+    tokens per (sequence, step), and the most pages a sequence (or a
+    group's branch) held after its admit or any step."""
+    import torch
+
+    def held(live):
+        cids = [c for s in live for c, _ in be._live_cids(s)]
+        return max((len(be.cache.pages_of(c)) for c in cids), default=0)
+    outs = [be.admit(i, r) for i, r in enumerate(reqs)]
+    live = [i for i, o in enumerate(outs) if not o["done"]]
+    most = held(live)
+    if be.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = tokens = seq_steps = 0
+    while live and (steps is None or step < steps):
+        res = be.step_batch(live, [step] * len(live))
+        for sid, o in zip(list(live), res):
+            check("token" in o, f"step {step} seq {sid}: {o}")
+            tokens += o.get("n_tokens", 1)
+            seq_steps += 1
+            if o["done"]:
+                live.remove(sid)
+        step += 1
+        most = max(most, held(live))
+    secs = time.perf_counter() - t0
+    results = [be.result(i) for i in range(len(reqs))]
+    for i in range(len(reqs)):
+        be.release(i)
+    return {"results": results, "ms_per_step": secs / max(step, 1) * 1e3,
+            "steps": step, "tokens_per_s": tokens / secs if secs else 0.0,
+            "tokens_per_seq_step": tokens / max(seq_steps, 1),
+            "max_pages_per_seq": most}
+
+
+def figures(run):
+    return {k: v for k, v in run.items() if k != "results"}
+
+
+def window_vs_cpu(dev, params, prompts, page, num_pages, plain_rows,
+                  steps=8):
+    """The windowed backend on the card and on the CPU, both fp32 with
+    the same weights, over ``steps`` steps of two prompts longer than the
+    window: every step's logits (and the prefill's) within 1e-3 of the
+    largest logit, the tokens equal. ``plain_rows`` are the CPU's
+    unwindowed rows of the same prompts: the yardstick that must break
+    the same check."""
+    import numpy as np
+    Rec = recording_decode()
+    kw = dict(preset="base", max_batch=8, page_size=page,
+              num_pages=num_pages, max_new_tokens=steps + 1, params=params,
+              window=WINDOW)
+    with fp32_base():
+        card, cpu = Rec(device=dev, **kw), Rec(device="cpu", **kw)
+    reqs = [{"ids": p} for p in prompts]
+    got = {name: decode_all(be, reqs)["results"]
+           for name, be in (("card", card), ("cpu", cpu))}
+
+    def gap(a, b):
+        return max(float(np.abs(x - y).max()) for i in range(len(reqs))
+                   for x, y in zip(a.rows[i], b[i]))
+    cpu_rows = [cpu.rows[i] for i in range(len(reqs))]
+    scale = max(float(np.abs(r).max()) for rows in cpu_rows for r in rows)
+    limit = 1e-3 * max(1.0, scale)
+    rec = {"page": page, "table_w": card.table_w,
+           "max_pages": card.max_pages, "max_abs_diff": gap(card, cpu_rows),
+           "unwindowed_yardstick": gap(card, plain_rows),
+           "largest_logit": scale, "limit": limit,
+           "rows_each": len(cpu_rows[0])}
+    for i in range(len(reqs)):
+        a, b = (got[n][i]["generated"] for n in ("card", "cpu"))
+        if a != b:
+            step = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            top = np.sort(cpu_rows[i][step])[-2:]
+            rec.setdefault("mismatch", []).append(
+                {"prompt": i, "first_differing_step": step,
+                 "cpu_top1_minus_top2": float(top[1] - top[0])})
+    emit({"phase": "decode_modes", "window_vs_cpu": rec})
+    check(len(cpu_rows[0]) == steps + 1, f"{rec}")
+    check("mismatch" not in rec, f"window card vs cpu tokens: {rec}")
+    check(rec["max_abs_diff"] <= limit, f"window card vs cpu logits: {rec}")
+    check(rec["unwindowed_yardstick"] > limit,
+          f"the window check cannot see an unwindowed run: {rec}")
+    return rec
+
+
+def greedy_logprob(rows, stream):
+    """Cumulative fp64 log-probability of a greedy stream from its rows
+    (the prefill's last row, then one a step), as beams score theirs."""
+    from tosem_tpu_torch.serve.backends import _log_softmax
+    return sum(float(_log_softmax(r)[t]) for r, t in zip(rows, stream))
+
+
+def phase_decode_modes(dev, seed, new_tokens, direct=None):
+    """BERT-base (bf16, page 128) in every decode mode, each backend
+    loading the same weights (``params=``): sliding window (card against
+    the CPU in fp32 at page 128 and 16, the pages held, a window longer
+    than the history), speculative decode (alone and with a window),
+    beam and sampling groups, a session's second turn, and spill/restore
+    and export/import at step 10. ``direct`` carries the decode phase's
+    greedy streams when it ran. Returns the kernels' launch counts."""
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.serve.backends import BertDecodeBackend
+    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+    t_phase = time.perf_counter()
+    params = base_params(seed)
+    kw = dict(preset="base", max_batch=8, num_pages=64,
+              max_new_tokens=new_tokens, device=dev, params=params)
+    prompts, hit_prompt = decode_prompts(seed, 30522)
+    reqs = [{"ids": p} for p in prompts]
+    out = {"phase": "decode_modes", "gpu": gpu_line(), "window": WINDOW,
+           "spec_k": SPEC_K, "launches": {}}
+    counts = {k: 0 for k in KERNELS}
+
+    def launched(name, need):
+        c = dict(registry.LAUNCH_COUNTS)
+        for k in need:
+            check(c[k] > 0, f"{k} never launched in the {name} run")
+        for k in counts:
+            counts[k] += c[k]
+        out["launches"][name] = {k: v for k, v in c.items() if v}
+        registry.reset_launch_counts()
+
+    def same_streams(what, want, got, model, prompt_of):
+        for i, (w, g) in enumerate(zip(want, got)):
+            if w != g:
+                emit({"phase": "decode_modes", f"{what}_mismatch": {
+                    "prompt": i, **logit_margin(model, prompt_of(i), w, g)}})
+            check(w == g, f"{what}: prompt {i} stream {g} != {w}")
+
+    # greedy: the streams every mode is held to, and the beams' yardstick
+    Rec = recording_decode()
+    greedy_be = Rec(**kw)
+    registry.reset_launch_counts()
+    greedy = decode_all(greedy_be, reqs)
+    launched("greedy", ("flash_fwd", "paged_decode"))
+    g_streams = [r["generated"] for r in greedy["results"]]
+    if direct is not None:
+        check(g_streams == direct["streams"],
+              "greedy streams from params= differ from the decode phase's")
+    g_score = {i: greedy_logprob(greedy_be.rows[i], g_streams[i])
+               for i in (2, 3)}
+    # each mode's logits rows are held to greedy's at the same positions:
+    # with random weights a stream repeats one token, so equal tokens
+    # alone would hide a wrong row
+    seq_ids = [p + g for p, g in zip(prompts, g_streams)]
+    g_rows = {k: r for i, ids in enumerate(seq_ids)
+              for k, r in rows_on(greedy_be, i, ids).items()}
+    out["rows"] = {}
+
+    def rows_of(be, seqs=range(8)):
+        return {k: r for i in seqs
+                for k, r in rows_on(be, i, seq_ids[i]).items()}
+    model = greedy_be.model
+    out["greedy"] = figures(greedy)
+
+    # (a) window: pages, eviction, launches; card vs CPU; W >= history
+    win_be = BertDecodeBackend(window=WINDOW, **kw)
+    win = decode_all(win_be, reqs)
+    launched("window", ("paged_decode_multi", "flash_fwd_sched"))
+    bound_pages = -(-WINDOW // win_be.page_size) + 2
+    st = win_be.cache.stats()
+    out["window_run"] = {**figures(win), "page_bound": bound_pages,
+                         "pages_evicted_total": st["pages_evicted_total"],
+                         "pages_used_after_release": st["pages_used"]}
+    check(win["max_pages_per_seq"] <= bound_pages,
+          f"a windowed sequence held {win['max_pages_per_seq']} pages")
+    check(st["pages_evicted_total"] > 0, f"no page evicted: {st}")
+    check(st["pages_used"] == 0, f"pages left after release: {st}")
+    w_streams = [r["generated"] for r in win["results"]]
+    del win_be
+    # the card against the CPU on two prompts of at least 300 tokens: the
+    # first prompt and the prefix-hit prompt (256 of its tokens + 60)
+    long2 = [prompts[0], hit_prompt]
+    check(min(map(len, long2)) >= 300, "a long prompt under 300 tokens")
+    with fp32_base():
+        plain = Rec(preset="base", max_batch=8, num_pages=64,
+                    max_new_tokens=9, params=params, device="cpu")
+    decode_all(plain, [{"ids": p} for p in long2])
+    plain_rows = [plain.rows[i] for i in range(2)]
+    del plain
+    out["window_vs_cpu"] = [
+        window_vs_cpu(dev, params, long2, page, pages, plain_rows)
+        for page, pages in ((128, 64), (16, 256))]
+    launched("window_fp32", ("paged_decode_multi", "flash_fwd_sched"))
+    full_be = Rec(window=512, **kw)
+    full = decode_all(full_be, reqs)
+    launched("window_512", ("paged_decode_multi", "flash_fwd_sched"))
+    same_streams("window_512", g_streams,
+                 [r["generated"] for r in full["results"]], model,
+                 lambda i: prompts[i])
+    out["rows"]["window_512"] = hold_rows("window_512", g_rows,
+                                          rows_of(full_be))
+    out["window_512"] = figures(full)
+    del full_be
+
+    # (b) speculative, alone and under the window
+    spec_be = Rec(spec_k=SPEC_K, **kw)
+    spec = decode_all(spec_be, reqs)
+    launched("spec", ("paged_decode_multi",))
+    sst = spec_be.cache_stats()
+    out["spec"] = {**figures(spec), "spec_proposed": sst["spec_proposed"],
+                   "spec_accepted": sst["spec_accepted"],
+                   "acceptance": sst["spec_accepted"]
+                   / max(sst["spec_proposed"], 1)}
+    emit({"phase": "decode_modes", "spec": out["spec"]})
+    same_streams("spec", g_streams,
+                 [r["generated"] for r in spec["results"]], model,
+                 lambda i: prompts[i])
+    out["rows"]["spec"] = hold_rows("spec", g_rows, rows_of(spec_be))
+    check(sst["spec_accepted"] > 0, f"no draft accepted: {sst}")
+    check(spec["tokens_per_seq_step"] > 1.0,
+          f"{spec['tokens_per_seq_step']} tokens a step")
+    del spec_be
+    ws_be = BertDecodeBackend(window=WINDOW, spec_k=SPEC_K, **kw)
+    ws = decode_all(ws_be, reqs)
+    launched("window_spec", ("paged_decode_multi", "flash_fwd_sched"))
+    same_streams("window_spec", w_streams,
+                 [r["generated"] for r in ws["results"]], model,
+                 lambda i: prompts[i])
+    out["window_spec"] = figures(ws)
+    del ws_be
+
+    # (c) groups: two beam groups of 4 in one batch of 8 rows; sampling
+    grp = BertDecodeBackend(prefix_cache=False, **kw)
+    used0 = grp.cache.stats()["pages_used"]
+    beam_reqs = [{"ids": prompts[i], "n": 4, "beam": True} for i in (2, 3)]
+    first = grp.admit("probe", beam_reqs[0])
+    group_pages = grp.cache.stats()["pages_used"] - used0
+    single_pages = -(-len(prompts[2]) // grp.page_size)
+    grp.release("probe")
+    check(not first["done"] and group_pages <= 1.5 * single_pages,
+          f"a group of 4 took {group_pages} pages at admit, one sequence "
+          f"{single_pages}")
+    beams = decode_all(grp, beam_reqs)
+    launched("beam", ("flash_fwd", "paged_decode"))
+    best = {}
+    for (i, res) in zip((2, 3), beams["results"]):
+        lps = [e["logprob"] for e in res["beams"]]
+        check(len(lps) == 4 and lps == sorted(lps, reverse=True),
+              f"beams of prompt {i} not sorted: {lps}")
+        best[i] = lps[0]
+        check(lps[0] >= g_score[i] - 1e-6,
+              f"best beam {lps[0]} below greedy {g_score[i]} (prompt {i})")
+    samp = {"ids": prompts[4], "n": 4, "temperature": 0.8, "seed": 7}
+    alone = [decode_all(grp, [samp])["results"][0] for _ in range(2)]
+    packed = decode_all(grp, [{"ids": prompts[5]}, samp])["results"][1]
+    launched("sampling", ("flash_fwd", "paged_decode"))
+    draws = [[e["tokens"] for e in r["samples"]]
+             for r in alone + [packed]]
+    check(draws[0] == draws[1], "two sampling runs differ")
+    check(draws[2] == draws[0], "sampling packed beside other traffic "
+                                "differs from the run alone")
+    out["groups"] = {"beam": figures(beams), "best_beam_logprob": best,
+                     "greedy_logprob": g_score,
+                     "group_pages_at_admit": group_pages,
+                     "single_pages": single_pages}
+    del grp
+
+    # (d) session: turn 2 = turn 1's history + 50 new ids
+    ses = Rec(**kw)
+    hist = decode_all(ses, [{"ids": prompts[1], "session": "chat"}])[
+        "results"][0]["tokens"]
+    more = np.random.default_rng(seed + 3).integers(0, 30522, 50)
+    ids2 = hist + [int(t) for t in more]
+    before = ses.cache_stats()
+    turn2 = decode_all(ses, [{"ids": ids2, "session": "chat"}])
+    after = ses.cache_stats()
+    launched("session", ("paged_decode", "paged_decode_multi"))
+    cold = Rec(prefix_cache=False, **kw)
+    cold_stream = cold.call({"ids": ids2})["generated"]
+    prefilled = after["prefill_tokens"] - before["prefill_tokens"]
+    out["session"] = {**figures(turn2), "turn2_len": len(ids2),
+                      "prefilled_tokens": prefilled,
+                      "session_hits": after["session_hits"]}
+    check(after["session_hits"] == before["session_hits"] + 1,
+          f"no session hit: {after}")
+    check(prefilled == len(ids2) - (len(hist) - 1),
+          f"turn 2 prefilled {prefilled} tokens")
+    same_streams("session", [cold_stream],
+                 [turn2["results"][0]["generated"]], cold.model,
+                 lambda i: ids2)
+    # turn 2's rows from the suffix's last position on (turn 1's and the
+    # suffix's earlier rows have no cold counterpart)
+    ids2_all = ids2 + cold_stream
+    cold_cid = next(iter(cold.fed))
+    out["rows"]["session"] = hold_rows(
+        "session", rows_on(cold, cold_cid, ids2_all, tag=0),
+        {k: r for k, r in rows_on(ses, 0, ids2_all).items()
+         if k[1] >= len(ids2) - 1})
+    registry.reset_launch_counts()
+    del ses, cold
+
+    # (e) spill/restore and export/import at step 10
+    src = Rec(prefix_cache=False, **kw)
+    dst = Rec(prefix_cache=False, **kw)
+    for i in (0, 1):
+        src.admit(i, reqs[i])
+    for step in range(10):
+        src.step_batch([0, 1], [step, step])
+    pages = src.cache.pages_of(0)
+    kb, vb = (p[:, pages].clone() for p in (src.cache.k_pool,
+                                            src.cache.v_pool))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    src.spill_seq(0)
+    spill_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    src.restore_seq(0)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t) * 1e3
+    pages = src.cache.pages_of(0)
+    check(torch.equal(kb, src.cache.k_pool[:, pages])
+          and torch.equal(vb, src.cache.v_pool[:, pages]),
+          "restored pages differ from the spilled ones")
+    t = time.perf_counter()
+    state = src.export_seq(1)
+    export_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    dst.import_seq(1, state)
+    torch.cuda.synchronize()
+    import_ms = (time.perf_counter() - t) * 1e3
+    src.release(1)
+    # yardstick: the same state with its pages zeroed, imported beside
+    # it, one step
+    zeroed = dict(state, kv={k: (np.zeros_like(v) if k in ("k", "v")
+                                 else v) for k, v in state["kv"].items()})
+    dst.import_seq("zeroed", zeroed)
+    dst.step_batch(["zeroed"], [10])
+    zero_rows = {(1, p): r for (_, p), r in
+                 rows_on(dst, "zeroed", seq_ids[1]).items()}
+    dst.release("zeroed")
+    for be, sid in ((src, 0), (dst, 1)):
+        step, o = 10, {"done": False}
+        while not o["done"]:
+            o = be.step_batch([sid], [step])[0]
+            step += 1
+    moved = [src.result(0)["generated"], dst.result(1)["generated"]]
+    payload_mb = (state["kv"]["k"].nbytes + state["kv"]["v"].nbytes) / 1e6
+    out["spill_migrate"] = {
+        "spill_ms": spill_ms, "restore_ms": restore_ms,
+        "export_ms": export_ms, "import_ms": import_ms,
+        "payload_mb": payload_mb, "pages": len(pages),
+        "spill_payload_mb": (kb.nbytes + vb.nbytes) / 1e6}
+    same_streams("spill_restore", g_streams[:1], moved[:1], model,
+                 lambda i: prompts[i])
+    same_streams("export_import", g_streams[1:2], moved[1:], model,
+                 lambda i: prompts[1])
+    out["rows"]["spill_restore"] = hold_rows(
+        "spill_restore", {k: r for k, r in g_rows.items() if k[0] == 0},
+        rows_of(src, (0,)))
+    out["rows"]["export_import"] = hold_rows(
+        "export_import", {k: r for k, r in g_rows.items() if k[0] == 1},
+        rows_of(dst, (1,)), extra={"zeroed_pages": zero_rows})
+    launched("spill_migrate", ("paged_decode",))
+    del src, dst, greedy_be
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return counts
+
+
 def phase_encode(dev, seed):
     import numpy as np
     import torch
@@ -1909,10 +2575,10 @@ def replica_classes():
         return out
 
     class ServedDecode(BertDecodeBackend):
-        def admit(self, seq_id, request, **kw):
+        def admit(self, seq_id, request, *args, **kw):
             t = time.perf_counter()
             try:
-                return super().admit(seq_id, request, **kw)
+                return super().admit(seq_id, request, *args, **kw)
             finally:
                 if hasattr(self, "admit_ms"):
                     self.admit_ms.append((time.perf_counter() - t) * 1e3)
@@ -2018,6 +2684,34 @@ def stream_post(url, payload, t_start):
     return first, time.perf_counter() - t_start, tokens, result
 
 
+def post_at_once(url, prompts):
+    """Stream one decode of each prompt, all released together from one
+    client thread each; returns each one's :func:`stream_post` result."""
+    import threading
+    got = [None] * len(prompts)
+    errors = []
+    gate = threading.Barrier(len(prompts) + 1)
+    t_send = [0.0]
+
+    def client(i):
+        try:
+            gate.wait()
+            got[i] = stream_post(url, {"ids": prompts[i]}, t_send[0])
+        except BaseException as e:
+            errors.append(f"prompt {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for th in threads:
+        th.start()
+    t_send[0] = time.perf_counter()
+    gate.wait()
+    for th in threads:
+        th.join()
+    check(not errors, "; ".join(errors))
+    return got
+
+
 def pid_state(pid):
     """'gone', 'zombie' (exited, resources freed) or 'alive'."""
     try:
@@ -2034,9 +2728,11 @@ def phase_serve(dev, seed, new_tokens, direct=None):
     (continuous batching) and an encode backend behind ``BatchQueue``
     (micro-batches in padding buckets); 8 streamed decodes arrive at once
     over ``HttpIngress``, then the prefix-hit prompt, then 8 encodes
-    through a handle. ``direct`` carries the decode phase's streams when
-    it ran. Returns the kernels' launch counts read inside the
-    replicas."""
+    through a handle; then the 8 decodes again, at once, to a
+    disaggregated deployment (a prefill replica handing each sequence to
+    a decode replica of 16 pages by export, which must spill). ``direct``
+    carries the decode phase's streams when it ran. Returns the kernels'
+    launch counts read inside the replicas."""
     import threading
     import urllib.request
     import numpy as np
@@ -2086,26 +2782,7 @@ def phase_serve(dev, seed, new_tokens, direct=None):
                   == ["decode", "encode"], "ingress routes")
 
         # 8 streamed decodes released together from 8 client threads
-        got = [None] * 8
-        errors = []
-        gate = threading.Barrier(9)
-
-        def client(i):
-            try:
-                gate.wait()
-                got[i] = stream_post(url, {"ids": prompts[i]}, t_send)
-            except BaseException as e:
-                errors.append(f"prompt {i}: {type(e).__name__}: {e}")
-
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(8)]
-        for th in threads:
-            th.start()
-        t_send = time.perf_counter()
-        gate.wait()
-        for th in threads:
-            th.join()
-        check(not errors, "; ".join(errors))
+        got = post_at_once(url, prompts)
         ttft = [g[0] * 1e3 for g in got]
         t_end = max(g[1] for g in got)
         # a stream gets one chunk a scheduler step while it is active, so
@@ -2169,6 +2846,35 @@ def phase_serve(dev, seed, new_tokens, direct=None):
                          "queue": {k: enc.stats()[k] for k in
                                    ("batches", "requests_ok",
                                     "requests_err")}}
+
+        # disaggregated prefill by export: a prefill replica and a decode
+        # replica of 16 pages, which the 8 prompts (up to 4 pages each)
+        # overflow, so the queue spills and restores as they grow
+        t = time.perf_counter()
+        dis = serve.deploy(
+            "decode-disagg", ServedDecode, init_kwargs=dict(kw, num_pages=16),
+            num_replicas=2,
+            decode_policy=DecodePolicy(max_active=8, prefill_replicas=1),
+            warmup_shapes=SERVE_BUCKETS)
+        out["disagg_deploy_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        got_dis = post_at_once(f"{ingress.url}/decode-disagg?stream=1",
+                               prompts)
+        dis_reps = [rt.get(r.stats.remote(), timeout=60)
+                    for r in dis._replicas]
+        pids += [r["pid"] for r in dis_reps]
+        dis_stats = dis.stats()
+        out["disagg"] = {
+            "end_s": max(g[1] for g in got_dis),
+            "ttft_ms": [g[0] * 1e3 for g in got_dis],
+            "tokens_per_s_end_to_end": 8 * new_tokens
+            / max(g[1] for g in got_dis),
+            **{k: dis_stats[k] for k in (
+                "decode_steps", "sequences_ok", "sequences_err",
+                "kv_spills", "kv_restores", "kv_migrations",
+                "kv_migration_fallbacks", "seqs_readmitted_step0")},
+            "replica_admit_ms": [r["admit_ms"] for r in dis_reps],
+            "launches": [r["launch_counts"] for r in dis_reps]}
 
         # deployment state, the ingress' stats and the decode gauges
         with urllib.request.urlopen(f"{ingress.url}/-/stats",
@@ -2256,6 +2962,21 @@ def phase_serve(dev, seed, new_tokens, direct=None):
     d = out["decode"]
     check(d["sequences_ok"] == 9 and d["sequences_err"] == 0,
           f"decode sequences: {d}")
+    for i, g in enumerate(got_dis):
+        check(g[2] == g[3]["generated"] == streams[i],
+              f"disaggregated stream {i} {g[3]['generated']} != direct "
+              f"{streams[i]}")
+    dd = out["disagg"]
+    check(dd["kv_spills"] > 0 and dd["kv_restores"] > 0,
+          f"the 16-page decode replica never spilled and restored: {dd}")
+    check(dd["kv_migrations"] >= 8 and dd["kv_migration_fallbacks"] == 0,
+          f"prefilled sequences did not all migrate: {dd}")
+    check(dd["sequences_ok"] == 8 and dd["sequences_err"] == 0,
+          f"disaggregated sequences: {dd}")
+    dis_l = {k: sum(r.get(k, 0) for r in dd["launches"]) for k in KERNELS}
+    for name in ("flash_fwd", "paged_decode"):
+        check(dis_l[name] > 0,
+              f"{name} never launched in the disaggregated replicas")
     check(d["decode_steps"] < 9 * (new_tokens + 1),
           f"{d['decode_steps']} scheduler steps: no continuous batching")
     check(out["breaker"] == CLOSED, f"breaker {out['breaker']}")
@@ -2265,10 +2986,7 @@ def phase_serve(dev, seed, new_tokens, direct=None):
     check(not missing, f"decode gauges missing: {missing}")
     emit({"phase": "serve", "streams_equal_direct": True,
           "hit_equals_cold": True, "encode_bit_exact": True})
-    counts = {k: 0 for k in KERNELS}
-    for k in counts:
-        counts[k] = dl.get(k, 0) + el.get(k, 0)
-    return counts
+    return {k: dl.get(k, 0) + el.get(k, 0) + dis_l[k] for k in KERNELS}
 
 
 def dense_fold_fn(mask):
@@ -2479,10 +3197,11 @@ def _timed(fn, prof=None):
 
 def phase_profile(dev, seed, steps=5):
     """Where the time goes, over decode steps of 8 packed sequences, a
-    384-token prefill and a padded encode batch. Each is run once without
-    the profiler for its wall time, then once more under it for its
-    device time: the next ``steps`` decode steps (a token longer each),
-    another 384-token prompt, the same encode batch."""
+    384-token prefill, windowed, speculative and beam steps, and a padded
+    encode batch. Each is run once without the profiler for its wall
+    time, then once more under it for its device time: the next
+    ``steps`` decode steps (a token longer each), another 384-token
+    prompt, the next 3 steps of each mode, the same encode batch."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2514,6 +3233,32 @@ def phase_profile(dev, seed, steps=5):
     traced = _timed(lambda: be.admit("p1", {"ids": rand_ids(384)}), prof)
     prefill = _device_breakdown(prof, wall, traced, 1)
     del be
+    # a windowed, a speculative and a beam step: 8 sequences of 100-400
+    # tokens (two beam groups of 4), 3 steps for wall time, 3 traced
+    modes = {}
+    for name, mode, n in (("window_step", {"window": WINDOW}, 1),
+                          ("spec_step", {"spec_k": SPEC_K}, 1),
+                          ("beam_step", {}, 4)):
+        be = BertDecodeBackend(preset="base", max_batch=8, num_pages=64,
+                               max_new_tokens=32, device=dev, seed=seed,
+                               **mode)
+        sids = list(range(8 // n))
+        for i in sids:
+            req = {"ids": rand_ids(rng.integers(100, 401))}
+            be.admit(i, {**req, "n": n, "beam": True} if n > 1 else req)
+        be.step_batch(sids, [0] * len(sids))
+        torch.cuda.synchronize()
+
+        def run_mode(first, be=be, sids=sids):
+            for k in range(first, first + 3):
+                outs = be.step_batch(sids, [k] * len(sids))
+                check(not any(o["done"] for o in outs),
+                      f"{name}: a sequence finished inside the window")
+        wall = _timed(lambda: run_mode(1))
+        prof = profile(activities=acts)
+        traced = _timed(lambda: run_mode(4), prof)
+        modes[name] = _device_breakdown(prof, wall, traced, 3)
+        del be
     enc = BertEncodeBackend(preset="base", max_batch=8, device=dev, seed=seed)
     reqs = [{"ids": rand_ids(n)} for n in rng.integers(30, 501, size=8)]
     enc.call_batch(reqs)
@@ -2523,7 +3268,7 @@ def phase_profile(dev, seed, steps=5):
     traced = _timed(lambda: enc.call_batch(reqs), prof)
     encode = _device_breakdown(prof, wall, traced, 1)
     emit({"phase": "profile", "decode_step": decode,
-          "prefill_384": prefill, "encode_batch": encode})
+          "prefill_384": prefill, "encode_batch": encode, **modes})
 
 
 class _Preempt:
@@ -2927,8 +3672,8 @@ def phase_suite_sparse():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,decode,encode,serve,"
-                            "encode_sparse,cpu,profile,train,suite")
+                    default="build,kernels,decode,decode_modes,encode,"
+                            "serve,encode_sparse,cpu,profile,train,suite")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(ROOT, "tosem_tpu_torch")):
@@ -2966,6 +3711,10 @@ def main(argv=None):
     if "decode" in phases:
         counts, direct = phase_decode(dev, SEED, NEW_TOKENS)
         for k, n in counts.items():
+            launches[k] += n
+    if "decode_modes" in phases:
+        for k, n in phase_decode_modes(dev, SEED, NEW_TOKENS,
+                                       direct).items():
             launches[k] += n
     if "encode" in phases:
         for k, n in phase_encode(dev, SEED).items():

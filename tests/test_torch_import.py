@@ -23,6 +23,8 @@ def _package_files():
 
 
 def test_import_loads_neither_jax_nor_triton():
+    """Nor ``ml_dtypes``, which the card's machine does not have: bf16
+    KV payloads travel as uint16 bits."""
     code = ("import sys, tosem_tpu_torch; "
             "from tosem_tpu_torch.serve import backends; "
             "from tosem_tpu_torch.ops import flash_attention, paged_attention;"
@@ -35,8 +37,9 @@ def test_import_loads_neither_jax_nor_triton():
             "from tosem_tpu_torch.serve import (batching, core, http, "
             "breaker); "
             "from tosem_tpu_torch.chaos import plan, injector; "
-            "print(sorted(m for m in ('jax', 'triton', 'tosem_tpu') "
-            "if m in sys.modules))")
+            "from tosem_tpu_torch.serve import kv_cache, prefix_cache; "
+            "print(sorted(m for m in ('jax', 'triton', 'tosem_tpu', "
+            "'ml_dtypes') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True,
                          env={**os.environ, "PYTHONPATH": ROOT})

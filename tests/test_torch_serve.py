@@ -56,7 +56,7 @@ def test_decode_teacher_forced_on_the_reference_stream(ref_decode,
     """Feed the JAX backend's greedy stream into the port: at every step
     the reference's token is within the bf16 tolerance of the port's
     top logit."""
-    from tosem_tpu_torch.serve.backends import _DecodeSeq
+    from tosem_tpu_torch.serve.backends import _DecodeSeq, _RowPlan
     rng = np.random.default_rng(10 + case)
     prompt = [int(t) for t in rng.integers(0, 128, size=12 + 9 * case)]
     stream = ref_decode.call({"ids": prompt})["generated"]
@@ -69,7 +69,8 @@ def test_decode_teacher_forced_on_the_reference_stream(ref_decode,
     b._seqs[sid] = _DecodeSeq(prompt + [stream[0]], len(prompt))
     for tok in stream[1:]:
         start, _ = b.cache.extend(sid, 1)
-        row = b._run_step([(sid, start)])[0]
+        fed = b._seqs[sid].tokens[-1]
+        row = b._run_step([_RowPlan(sid, [fed], start)])[0][0]
         assert row[tok] >= row.max() - BF16_TOL
         b._seqs[sid].tokens.append(tok)
     b.release(sid)
@@ -242,13 +243,3 @@ def test_dropped_backend_frees_its_model(kind):
     del be
     gc.collect()
     assert model() is None
-
-
-@pytest.mark.parametrize("kw,req", [
-    ({"window": 8}, None), ({"spec_k": 3}, None),
-    ({}, {"ids": [1, 2], "n": 2}), ({}, {"ids": [1, 2], "session": "s"})])
-def test_unported_modes_raise_naming_the_roadmap(kw, req):
-    from tosem_tpu_torch.serve.backends import BertDecodeBackend
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b = BertDecodeBackend(device="cpu", **kw)
-        b.admit("x", req)

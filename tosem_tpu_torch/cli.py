@@ -47,7 +47,7 @@ NOT_PORTED = {
     "speech_train": "A13 (models/speech.py)",
     "serve_bench": "A11 (serve/bench_serve.py)",
     "decode_bench": "A11 (serve/bench_decode.py)",
-    "decode_scenarios": "A7 (decode modes)",
+    "decode_scenarios": "A11 (serve/bench_decode.py)",
     "cluster_bench": "A11 (serve/bench_cluster.py)",
     "control_bench": "A11 (cluster serving)",
     "train_bench": "A9 (train/distributed.py)",

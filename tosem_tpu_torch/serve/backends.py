@@ -1,4 +1,4 @@
-"""Model serving backends: BERT encode and greedy decode.
+"""Model serving backends: BERT encode and decode.
 
 Counterpart of the BERT backends in ``tosem_tpu/serve/backends.py``.
 
@@ -12,24 +12,29 @@ block-sparse mask program (the symmetric band ``local:W:W-1`` or the
 block-diagonal ``doc:L``) through the kernels' schedule mode, with the
 padding as segment ids on top; short buckets keep the dense program.
 
-:class:`BertDecodeBackend` serves greedy decode over the paged KV cache
+:class:`BertDecodeBackend` serves decode over the paged KV cache
 through the decode-client protocol a scheduler drives (``admit`` /
-``step_batch`` / ``result`` / ``release``, idempotent per (sequence,
-step)), plus a self-driven ``call``. Prefill runs the causal flash
-kernel and writes per-layer K/V into the sequence's pages; each decode
-step runs the one-token paged kernel for the whole packed batch; with
-the prefix cache on, a prompt whose leading whole pages are cached forks
-those pages and feeds only the suffix, in chunks of up to ``suffix_q``
-rows, through the multi-token paged kernel — each row computing what a
-sequential one-token step would.
-
-Not ported yet (each raises ``NotImplementedError``): sliding-window
-decode, speculative decode (``spec_k``), ``n > 1`` beam/sampling groups,
-sessions, and export/send/spill of sequences.
+``step_batch`` / ``result`` / ``release`` / ``spill_seq`` /
+``restore_seq`` / ``export_seq`` / ``import_seq``, idempotent per
+(sequence, step)), plus a self-driven ``call``. Prefill runs the causal
+flash kernel and writes per-layer K/V into the sequence's pages; each
+greedy step runs the one-token paged kernel for the whole packed batch;
+with the prefix cache on, a prompt whose leading whole pages are cached
+forks those pages and feeds only the suffix, in chunks of up to
+``suffix_q`` rows, through the multi-token paged kernel — each row
+computing what a sequential one-token step would. Sliding-window and
+speculative decode run every step through the multi-token kernel;
+``n > 1`` requests decode as beam or sampling groups over copy-on-write
+forks, and ``session`` requests keep their KV for the next turn (see
+:class:`BertDecodeBackend`). Streaming a sequence to a peer's receiver
+(``send_to``, ``send_seq``/``adopt_seq``) waits for the transport
+(ROADMAP.md A11).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import math
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -208,31 +213,160 @@ class BertEncodeBackend(CompiledBackendMixin):
 # generative decode
 
 
+def _log_softmax(row):
+    """fp64 log-softmax of one logits row (beam scores accumulate over
+    many steps; fp32 cumulative sums drift across packings)."""
+    z = np.asarray(row, np.float64)
+    z = z - z.max()
+    return z - np.log(np.exp(z).sum())
+
+
 class _DecodeSeq:
     """One decoding sequence. ``tokens`` is prompt + everything sampled;
     the KV cache holds ``len(tokens) - 1`` positions (the newest token's
     K/V is written when it is fed, on the next step). ``outcomes[k]``
     memoizes step ``k``'s result, so a replayed (sequence, step) never
-    touches the cache twice."""
+    touches the cache twice. ``budget`` is the request's own new-token
+    cap; ``session`` its multi-turn key (its KV stays resident under
+    that key when it retires)."""
 
     __slots__ = ("tokens", "prompt_len", "next_step", "done", "outcomes",
-                 "budget")
+                 "budget", "session")
 
     def __init__(self, tokens: List[int], prompt_len: int,
-                 budget: Optional[int] = None):
+                 budget: Optional[int] = None,
+                 session: Optional[str] = None):
         self.tokens = tokens
         self.prompt_len = prompt_len
         self.next_step = 0
         self.done = False
         self.outcomes: List[Dict[str, Any]] = []
         self.budget = budget
+        self.session = session
+
+
+class NGramDrafter:
+    """Prompt-lookup drafting: propose the tokens that followed the most
+    recent earlier occurrence of the current suffix (bigram match first,
+    unigram fallback, repeat-last when the history never repeats),
+    scanning only the last ``lookback`` tokens. The accept-prefix and
+    rollback contract makes any drafter safe: a wrong proposal costs
+    speed, never correctness."""
+
+    def __init__(self, lookback: int = 512):
+        self.lookback = lookback
+
+    def propose(self, tokens: List[int], k: int) -> List[int]:
+        out: List[int] = []
+        hist = list(tokens[-self.lookback:])
+        for _ in range(max(k, 0)):
+            nxt = self._predict(hist)
+            out.append(nxt)
+            hist.append(nxt)
+        return out
+
+    @staticmethod
+    def _predict(hist: List[int]) -> int:
+        if len(hist) >= 3:
+            big = (hist[-2], hist[-1])
+            for j in range(len(hist) - 3, -1, -1):
+                if (hist[j], hist[j + 1]) == big:
+                    return hist[j + 2]
+        last = hist[-1]
+        for j in range(len(hist) - 2, -1, -1):
+            if hist[j] == last:
+                return hist[j + 1]
+        return last
+
+
+class _Beam:
+    """One branch of a beam-search / parallel-sampling group. ``cid`` is
+    its cache sequence id (copy-on-write forked from the group root);
+    ``done`` branches have released their cache already."""
+
+    __slots__ = ("cid", "tokens", "logprob", "done")
+
+    def __init__(self, cid, tokens: List[int], logprob: float):
+        self.cid = cid
+        self.tokens = tokens
+        self.logprob = logprob
+        self.done = False
+
+
+class _DecodeGroup:
+    """An N-branch request (``n > 1``): beam search (``beam=True``) or
+    independent parallel sampling. The branches share the prompt's
+    pages through ``PagedKVCache.fork``, diverge copy-on-write, and
+    retire through page refcounts. Carries the same (step -> outcome)
+    ledger as :class:`_DecodeSeq`."""
+
+    __slots__ = ("beams", "prompt_len", "beam", "n", "temperature",
+                 "seed", "next_step", "done", "outcomes", "forks",
+                 "admit_token", "budget")
+
+    def __init__(self, n: int, beam: bool, temperature: float, seed: int,
+                 prompt_len: int, budget: Optional[int] = None):
+        self.beams: List[_Beam] = []
+        self.prompt_len = prompt_len
+        self.beam = beam
+        self.n = n
+        self.temperature = temperature
+        self.seed = seed
+        self.next_step = 0
+        self.done = False
+        self.outcomes: List[Dict[str, Any]] = []
+        self.forks = 0               # monotonic fork-id counter
+        # the admit outcome's token, recorded: beam transitions rewrite
+        # beams[0].tokens, so a replayed admit cannot recompute it
+        self.admit_token: int = -1
+        self.budget = budget
+
+
+class _RowPlan:
+    """One packed row of a decode step: ``fed`` tokens (1 for plain
+    decode and beams, up to K for speculative drafts) at positions
+    ``start .. start + kr - 1`` of cache sequence ``cid``."""
+
+    __slots__ = ("cid", "fed", "start", "kr")
+
+    def __init__(self, cid, fed: List[int], start: int):
+        self.cid = cid
+        self.fed = fed
+        self.start = start
+        self.kr = len(fed)
 
 
 class BertDecodeBackend(CompiledBackendMixin):
-    """Greedy decode over the paged KV cache (see the module docstring).
+    """Decode over the paged KV cache (see the module docstring).
     ``device`` defaults to ``"cuda"``; ``params`` loads a JAX-package
-    parameter tree instead of the seed's random init."""
+    parameter tree instead of the seed's random init.
 
+    The decode-client protocol a scheduler drives: ``admit`` /
+    ``step_batch`` / ``result`` / ``release`` / ``spill_seq`` /
+    ``restore_seq`` / ``export_seq`` / ``import_seq`` / ``cache_stats``,
+    each idempotent per (sequence id, step index). The modes on top of
+    greedy decode:
+
+    - ``window=W``: every step attends the ``W`` most recent positions
+      through a narrow rolling block table with page offsets (B5), the
+      prompt is prefilled through the same band (B1's schedule mode
+      under ``LocalMask(W)``), and pages out of every future window are
+      released, so a sequence holds at most ``ceil(W / page) + 2``
+      pages between steps. The prefix cache stays off.
+    - ``spec_k=k``: an :class:`NGramDrafter` proposes ``k - 1`` tokens
+      and one k-row step (B5) scores them; the accepted prefix plus the
+      target's own token commit and the rest rolls back through
+      ``truncate``, so the stream is greedy's.
+    - requests with ``{"n": N}`` (and ``"beam": True``,
+      ``"temperature"``, ``"seed"``): beam search or parallel sampling,
+      the branches sharing the prompt's pages copy-on-write.
+    - requests with ``{"session": key}``: the finished sequence's KV
+      stays resident under ``key`` (LRU, ``max_sessions``), and a next
+      turn that extends its history prefills only the new suffix.
+    """
+
+    # consecutive pressured (token-less) retries a self-driven call()
+    # tolerates before failing typed
     CALL_PRESSURE_LIMIT = 2000
 
     def __init__(self, preset: str = "tiny", seed: int = 0,
@@ -243,15 +377,12 @@ class BertDecodeBackend(CompiledBackendMixin):
                  window: Optional[int] = None, spec_k: int = 0,
                  dim: int = 32, heads: int = 2, layers: int = 2,
                  mlp_dim: int = 64, prefix_cache: bool = True,
-                 prefix_entries: int = 64, device="cuda", params=None):
+                 prefix_entries: int = 64, max_sessions: int = 16,
+                 device="cuda", params=None):
         from tosem_tpu_torch.models.bert import BertConfig
         from tosem_tpu_torch.ops.flash_blocks import select_page_size
         from tosem_tpu_torch.serve.kv_cache import PagedKVCache
         from tosem_tpu_torch.serve.prefix_cache import PrefixCache
-        if window is not None:
-            raise _not_ported("sliding-window decode", "A6/A7 window")
-        if spec_k > 1:
-            raise _not_ported("speculative decode (spec_k)", "A7 spec")
         if preset == "base":
             cfg = BertConfig.base()
         else:
@@ -263,23 +394,69 @@ class BertDecodeBackend(CompiledBackendMixin):
         self.max_new_tokens = max_new_tokens
         self.eos_id = eos_id
         self.backend = backend
+        if window is not None and window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        if not 0 <= spec_k <= 8:
+            raise ValueError(f"spec_k must be in [0, 8], got {spec_k}")
+        self.window = window
+        self.spec_k = 0 if spec_k <= 1 else int(spec_k)
+        self.K = max(self.spec_k, 1)
         head_dim = cfg.dim // cfg.heads
         self.page_size = page_size or select_page_size(
             head_dim, cfg.dtype, max_len=cfg.max_len)
         self.max_pages = -(-cfg.max_len // self.page_size)
+        if window is not None and self.spec_k and window < self.spec_k:
+            raise ValueError(f"window={window} < spec_k={spec_k}")
+        # a windowed sequence hands the kernel a narrow ROLLING table:
+        # its in-window pages (<= ceil(W/page) + 2 after the post-step
+        # release) plus the <= ceil(K/page) + 1 pages a step's K-token
+        # extend adds before that release runs
+        self.table_w = (min(-(-window // self.page_size)
+                            + -(-self.K // self.page_size) + 3,
+                            self.max_pages)
+                        if window is not None else self.max_pages)
         self.model = _build_model(cfg, device, seed, params)
         self.device = self.model.device
-        self._prefill = self.model.prefill_fn()
-        self._step = self.model.decode_step_fn(page_size=self.page_size,
-                                               backend=backend)
+        if window is not None:
+            # a prompt longer than the window attends through the same
+            # sliding band as the steps
+            from tosem_tpu_torch.nn.attention import flash_attn_fn
+            from tosem_tpu_torch.ops.mask_programs import LocalMask
+            self._prefill = self.model.prefill_fn(
+                attn_fn=flash_attn_fn(mask=LocalMask(window)))
+        else:
+            self._prefill = self.model.prefill_fn()
+        self._general = bool(window is not None or self.spec_k)
+        if self._general:
+            self._step = self.model.decode_multi_fn(
+                page_size=self.page_size, q_tokens=self.K, window=window,
+                backend=backend)
+        else:
+            self._step = self.model.decode_step_fn(page_size=self.page_size,
+                                                   backend=backend)
+        self._drafter = NGramDrafter() if self.spec_k else None
         self.cache = PagedKVCache(num_pages, self.page_size,
                                   layers=cfg.layers, heads=cfg.heads,
                                   head_dim=head_dim, dtype=cfg.dtype,
                                   device=self.device)
         self._seqs: Dict[Any, _DecodeSeq] = {}
+        self._groups: Dict[Any, _DecodeGroup] = {}
+        # hand-off ledger: a sequence exported at admit leaves no _seqs
+        # entry, so this bounded memo stops a replayed admit from
+        # prefilling and exporting it again
+        self._handed: "collections.OrderedDict" = collections.OrderedDict()
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        # whole-page prefix reuse is off under a window: release_below
+        # drops leading pages, and windowed prefill K/V depends on the
+        # band
         self._prefix = (PrefixCache(self.cache, self.page_size,
                                     max_entries=prefix_entries)
-                        if prefix_cache else None)
+                        if prefix_cache and window is None else None)
+        self.max_sessions = max_sessions
+        self._sessions: "collections.OrderedDict[Any, Dict[str, Any]]" = \
+            collections.OrderedDict()
+        self._session_n = 0
         self._suffix_step = None
         # suffix-prefill chunk width: the multi-token kernel and its
         # plain version both take any number of query rows
@@ -290,11 +467,16 @@ class BertDecodeBackend(CompiledBackendMixin):
         self._prefix_pages_prefilled = 0
         self._prefill_tokens = 0
         self._reused_tokens = 0
+        self._session_hits = 0
+        # prefixes adopted from another replica: stays 0 until the
+        # transport path (ROADMAP.md A11) is ported
+        self._prefix_remote_imports = 0
         self._call_n = 0
         self._lock = threading.RLock()
         self._tag = model_tag("bert_decode", cfg, seed,
                               page=self.page_size, pages=num_pages,
-                              backend=backend or "auto")
+                              backend=backend or "auto",
+                              window=window or 0, spec_k=self.spec_k)
         self._steps = StepCache()
 
     # --------------------------------------------------------- step callables
@@ -320,13 +502,15 @@ class BertDecodeBackend(CompiledBackendMixin):
 
     def _step_compiled(self):
         key = shape_key(self._tag + ";step",
-                        (self.max_batch, self.max_pages, self.page_size, 1),
-                        self.cfg.dtype)
+                        (self.max_batch, self.table_w, self.page_size,
+                         self.K), self.cfg.dtype)
         return self._steps.get_or_build(key, lambda: self._step)
 
     def _suffix_compiled(self):
         """The B=1 multi-token step that feeds a suffix in chunks of up
-        to ``suffix_q`` rows over pages a prefix fork already shares."""
+        to ``suffix_q`` rows over pages a prefix or session fork already
+        shares (never windowed: the prefix cache is off under a
+        window)."""
         if self._suffix_step is None:
             self._suffix_step = self.model.decode_multi_fn(
                 page_size=self.page_size, q_tokens=self.suffix_q,
@@ -377,11 +561,23 @@ class BertDecodeBackend(CompiledBackendMixin):
     # -------------------------------------------- pressure relief (reclaim)
 
     def _relieve_pressure(self) -> bool:
-        """Evict the LRU prefix entry (refcount-safe: live children keep
-        their shared pages). True when something was freed."""
+        """Reclaim the least valuable resident state: spill the LRU
+        session first (restorable), then evict the LRU prefix entry
+        (refcount-safe: live children keep their shared pages). True
+        when something was freed. The caller holds ``_lock``."""
+        for st in self._sessions.values():
+            cid = st["cid"]
+            if not self.cache.is_spilled(cid):
+                try:
+                    self.cache.spill(cid)
+                    return True
+                except KeyError:
+                    continue
         return self._prefix is not None and self._prefix.evict_one()
 
     def _with_relief(self, fn):
+        """Run ``fn``, retrying under :class:`CachePressure` while
+        reclaimable prefix/session state remains."""
         from tosem_tpu_torch.serve.kv_cache import CachePressure
         while True:
             try:
@@ -396,11 +592,26 @@ class BertDecodeBackend(CompiledBackendMixin):
 
     # ------------------------------------------------------- decode client
 
+    def _prefill_bucket(self, T: int) -> int:
+        """The padded prompt length: a page multiple; under a window
+        also a multiple of the flash tiles where ``max_len`` allows it,
+        since the windowed prefill runs B1's schedule mode, whose tiles
+        must divide the length on the card. Pads sit past every real
+        position, so no causal band lets them reach one."""
+        from tosem_tpu_torch.ops.flash_blocks import FLASH_BK, FLASH_BQ
+        bucket = -(-T // self.page_size) * self.page_size
+        if self.window is not None:
+            tile = math.lcm(FLASH_BQ, FLASH_BK)
+            tiled = -(-bucket // tile) * tile
+            if tiled <= self.cfg.max_len:
+                bucket = tiled
+        return bucket
+
     def _prefill_into_cache(self, seq_id, toks: List[int]):
         """Causal prefill over ``toks`` (pages already allocated) with
         the page write. Returns the last real token's logits row."""
         T = len(toks)
-        bucket = -(-T // self.page_size) * self.page_size
+        bucket = self._prefill_bucket(T)
         ids = np.zeros((1, bucket), np.int32)
         mask = np.zeros((1, bucket), np.int32)
         ids[0, :T] = toks
@@ -414,12 +625,19 @@ class BertDecodeBackend(CompiledBackendMixin):
         return logits[0, T - 1].float().cpu().numpy()
 
     def _finished(self, seq: _DecodeSeq, token: int) -> bool:
-        gen = len(seq.tokens) - seq.prompt_len
-        cap = seq.budget if seq.budget is not None else self.max_new_tokens
+        return self._finished_at(len(seq.tokens), seq.prompt_len, token,
+                                 budget=seq.budget)
+
+    def _finished_at(self, n_tokens: int, prompt_len: int, token: int,
+                     budget: Optional[int] = None) -> bool:
+        gen = n_tokens - prompt_len
+        cap = budget if budget is not None else self.max_new_tokens
         return (self.eos_id is not None and token == self.eos_id) \
-            or gen >= cap or len(seq.tokens) >= self.cfg.max_len
+            or gen >= cap or n_tokens >= self.cfg.max_len
 
     def _budget_of(self, request: Dict[str, Any]) -> Optional[int]:
+        """The request's new-token budget (``{"max_new_tokens": n}``),
+        clamped by the backend's cap; a value below 1 fails it."""
         raw = request.get("max_new_tokens")
         if raw is None:
             return None
@@ -438,22 +656,41 @@ class BertDecodeBackend(CompiledBackendMixin):
             raise ValueError(
                 f"prompt length {len(ids)} >= max_len {self.cfg.max_len}")
 
+    def _release_floor(self, tokens_len: int) -> int:
+        """The lowest cached position a future query's window can still
+        see: the next step feeds ``tokens[-1]`` at ``tokens_len - 1``,
+        whose window spans ``[tokens_len - window, tokens_len - 1]``."""
+        return max(tokens_len - self.window, 0)
+
     def admit(self, seq_id, request: Dict[str, Any],
               export: bool = False,
               send_to: Optional[str] = None) -> Dict[str, Any]:
-        """Validate, allocate pages, prefill (or fork a cached prefix and
-        feed the suffix), take the first greedy token. Raises
+        """Validate, allocate pages, prefill (or fork a cached prefix or
+        session and feed the suffix), take the first token. Raises
         :class:`~tosem_tpu_torch.serve.kv_cache.CachePressure` (pool
         full, nothing allocated) or ``ValueError`` (poison request).
-        Idempotent: re-admitting a known sequence returns its outcome."""
-        if export or send_to:
-            raise _not_ported("prefill handoff (export/send_to)",
-                              "A7 export/send")
-        if int(request.get("n", 1) or 1) > 1:
-            raise _not_ported("n > 1 beam/sampling groups", "A7 groups")
-        if request.get("session") is not None:
-            raise _not_ported("multi-turn sessions", "A7 sessions")
+        Idempotent: re-admitting a known sequence returns its outcome.
+        A request with ``n > 1`` admits an N-branch group.
+
+        ``export=True`` is the prefill tier's hand-off (disaggregated
+        prefill): the outcome carries the freshly prefilled state
+        (``"state"``, :meth:`export_seq`'s) and this replica releases its
+        copy. ``send_to`` (streaming the pages to a peer's receiver)
+        waits for the transport (ROADMAP.md A11)."""
+        if send_to:
+            raise _not_ported("streamed hand-off (send_to)",
+                              "A11 transport")
         with self._lock:
+            if seq_id in self._handed:    # replayed hand-off admit
+                return dict(self._handed[seq_id])
+            n = int(request.get("n", 1) or 1)
+            if n > 1:
+                out = self._admit_group(seq_id, request, n)
+                if export and not out.get("done"):
+                    out["state"] = self.export_seq(seq_id)
+                    self.release(seq_id)
+                    self._record_handoff(seq_id, out)
+                return out
             if seq_id in self._seqs:              # at-least-once replay
                 seq = self._seqs[seq_id]
                 return {"token": seq.tokens[seq.prompt_len],
@@ -461,15 +698,21 @@ class BertDecodeBackend(CompiledBackendMixin):
             ids = [int(t) for t in request["ids"]]
             self._validate_ids(ids)
             budget = self._budget_of(request)
+            session = request.get("session")
+            # a session resume or prefix hit shares the computed pages
+            # and prefills only the suffix, each suffix row computing
+            # what a sequential step would
             reused = 0
-            if self._prefix is not None:
+            if session is not None:
+                reused = self._session_resume(seq_id, session, ids)
+            if reused == 0 and self._prefix is not None:
                 ent = self._prefix.lookup(ids)
                 if ent is not None:
                     self.cache.fork(ent.cid, seq_id)
                     reused = ent.depth * self.page_size
                     self._prefix_hits += 1
                     self._prefix_pages_reused += ent.depth
-                else:
+                elif session is None or session not in self._sessions:
                     self._prefix_misses += 1
             try:
                 if reused:
@@ -487,96 +730,481 @@ class BertDecodeBackend(CompiledBackendMixin):
                 -(-(len(ids) - reused) // self.page_size)
             token = int(np.argmax(last))
             seq = _DecodeSeq(tokens=ids + [token], prompt_len=len(ids),
-                             budget=budget)
+                             budget=budget, session=session)
             seq.done = self._finished(seq, token)
+            if self.window is not None:
+                self.cache.release_below(
+                    seq_id, self._release_floor(len(seq.tokens)))
             self._seqs[seq_id] = seq
             if self._prefix is not None:
                 self._prefix.insert(ids, seq_id)
+            if seq.done and session is not None:
+                self._session_stash(seq_id, seq)
             out = {"token": token, "done": seq.done}
             if seq.done:
+                # the final payload rides the outcome: retiring costs the
+                # scheduler no extra round trip
                 out["result"] = self._result_locked(seq)
+            elif export:
+                out["state"] = self.export_seq(seq_id)
+                self.release(seq_id)
+                self._record_handoff(seq_id, out)
             return out
+
+    def _record_handoff(self, seq_id, out: Dict[str, Any]) -> None:
+        """Memoize a hand-off admit's outcome (bounded FIFO), without its
+        ``state``: a replay without state falls back to step-0
+        re-admission, which determinism makes correct."""
+        self._handed[seq_id] = {k: v for k, v in out.items()
+                                if k != "state"}
+        while len(self._handed) > 512:
+            self._handed.popitem(last=False)
+
+    # ------------------------------------------------- multi-turn sessions
+
+    def _session_resume(self, seq_id, key, ids: List[int]) -> int:
+        """Fork session ``key``'s stashed KV into ``seq_id`` when ``ids``
+        extends the stashed history. Returns the cached positions reused
+        (0 = cold admit: no stash, another history, or a lost spilled
+        payload). The caller holds ``_lock``."""
+        from tosem_tpu_torch.serve.kv_cache import (CachePressure,
+                                                    PagesLostError)
+        st = self._sessions.get(key)
+        if st is None:
+            return 0
+        hist = st["tokens"]
+        cached = len(hist) - 1
+        if cached < 1 or len(ids) < len(hist) or ids[:len(hist)] != hist:
+            return 0
+        cid = st["cid"]
+        if self.cache.is_spilled(cid):
+            try:
+                self._with_relief(lambda: self.cache.restore(cid))
+            except (PagesLostError, CachePressure):
+                # lost or unrestorable: cold prefill, and the retiring
+                # turn stashes afresh
+                del self._sessions[key]
+                self._drop_session_state(st)
+                return 0
+        try:
+            self.cache.fork(cid, seq_id)
+        except KeyError:
+            del self._sessions[key]
+            return 0
+        self._sessions.move_to_end(key)
+        self._session_hits += 1
+        return cached
+
+    def _session_stash(self, seq_id, seq: _DecodeSeq) -> None:
+        """Keep a finished sequence's KV resident under its session key
+        (a copy-on-write fork, so retiring the request frees nothing
+        shared), replacing the key's previous stash; LRU-bounded. The
+        caller holds ``_lock``."""
+        old = self._sessions.pop(seq.session, None)
+        if old is not None:
+            self._drop_session_state(old)
+        self._session_n += 1
+        cid = f"__session__/{self._session_n}"
+        try:
+            self.cache.fork(seq_id, cid)
+        except (KeyError, ValueError):
+            return
+        self._sessions[seq.session] = {"cid": cid,
+                                       "tokens": list(seq.tokens)}
+        while len(self._sessions) > self.max_sessions:
+            _, st = self._sessions.popitem(last=False)
+            self._drop_session_state(st)
+
+    def _drop_session_state(self, st: Dict[str, Any]) -> None:
+        self._release_cid(st["cid"])
+
+    def export_sessions(self) -> Dict[Any, Dict[str, Any]]:
+        """The migratable stash of every resident session (what a drain
+        relocates so multi-turn warmth survives it)."""
+        from tosem_tpu_torch.serve.kv_cache import PagesLostError
+        with self._lock:
+            out: Dict[Any, Dict[str, Any]] = {}
+            for key, st in self._sessions.items():
+                try:
+                    kv = self.cache.export_seq(st["cid"])
+                except (KeyError, PagesLostError):
+                    continue
+                out[key] = {"tokens": list(st["tokens"]), "kv": kv}
+            return out
+
+    def import_session(self, key, state: Dict[str, Any]) -> None:
+        """Adopt one exported session stash. Best effort: a pool too
+        pressured to hold it drops the import instead of failing the
+        drain."""
+        from tosem_tpu_torch.serve.kv_cache import CachePressure
+        with self._lock:
+            if key in self._sessions:
+                return                      # at-least-once replay
+            self._session_n += 1
+            cid = f"__session__/{self._session_n}"
+            try:
+                self._with_relief(
+                    lambda: self.cache.import_seq(cid, state["kv"]))
+            except CachePressure:
+                return
+            self._sessions[key] = {"cid": cid,
+                                   "tokens": list(state["tokens"])}
+            while len(self._sessions) > self.max_sessions:
+                _, st = self._sessions.popitem(last=False)
+                self._drop_session_state(st)
+
+    # ---------------------------------------------------------- groups
+
+    def _admit_group(self, seq_id, request: Dict[str, Any],
+                     n: int) -> Dict[str, Any]:
+        if seq_id in self._groups:            # at-least-once replay
+            g = self._groups[seq_id]
+            return {"token": g.admit_token, "n_tokens": g.n,
+                    "done": g.done and g.next_step == 0}
+        if n > self.max_batch:
+            raise ValueError(f"n={n} branches exceed max_batch="
+                             f"{self.max_batch}")
+        ids = [int(t) for t in request["ids"]]
+        self._validate_ids(ids)
+        group = _DecodeGroup(
+            n=n, beam=bool(request.get("beam", False)),
+            temperature=float(request.get("temperature", 1.0) or 1.0),
+            seed=int(request.get("seed", 0) or 0), prompt_len=len(ids),
+            budget=self._budget_of(request))
+        root = f"{seq_id}#0"
+        self.cache.create(root)
+        try:
+            self.cache.extend(root, len(ids))
+            last = self._prefill_into_cache(root, ids)   # ~1x prefix
+        except BaseException:
+            self.cache.free(root)
+            raise
+        lp = _log_softmax(last)
+        if group.beam:
+            order = np.argsort(-lp)[:n]
+            firsts = [(int(t), float(lp[t])) for t in order]
+        else:
+            firsts = [(self._sample(lp, group, i, 0), 0.0)
+                      for i in range(n)]
+            firsts = [(t, float(lp[t])) for t, _ in firsts]
+        # fork every branch before settling any: a branch finishing on
+        # its first token frees its cache, and the root must outlive
+        # the later forks
+        for i, (tok, tok_lp) in enumerate(firsts):
+            cid = root if i == 0 else f"{seq_id}#f{i}"
+            if i > 0:
+                self.cache.fork(root, cid)
+            group.beams.append(_Beam(cid, ids + [tok], tok_lp))
+        for beam in group.beams:
+            self._settle_branch(group, beam)
+        group.forks = n
+        group.done = all(b.done for b in group.beams)
+        group.admit_token = group.beams[0].tokens[-1]
+        self._groups[seq_id] = group
+        out = {"token": group.admit_token, "n_tokens": n,
+               "done": group.done}
+        if group.done:
+            out["result"] = self._group_result(group)
+        return out
+
+    def _sample(self, lp: np.ndarray, group: _DecodeGroup, branch: int,
+                step: int) -> int:
+        """A deterministic per-(seed, branch, step) draw from the
+        temperature-scaled distribution, so sampling replays exactly."""
+        rng = np.random.default_rng((group.seed, branch, step))
+        t = max(group.temperature, 1e-4)
+        z = lp.astype(np.float64) / t
+        z -= z.max()
+        p = np.exp(z)
+        p /= p.sum()
+        return int(rng.choice(len(p), p=p))
+
+    # ------------------------------------------------------------ stepping
 
     def step_batch(self, seq_ids: List[Any],
                    step_idxs: List[int]) -> List[Dict[str, Any]]:
         """One decode iteration for the packed batch. Per-sequence
-        outcomes: ``{"token", "done"[, "result"]}``, ``{"pressure":
-        True}`` (no page — nothing applied), ``{"pending": True}``
-        (unknown sequence), or the memoized outcome of an applied step.
-        Every step runs the same ``max_batch`` rows (idle rows have
-        ``seq_len`` 0), so results never depend on the packing."""
+        outcomes: ``{"token", "done"[, "n_tokens", "tokens",
+        "result"]}``, ``{"pressure": True}`` (no pages — nothing applied
+        for that entry), ``{"pending": True}`` (unknown sequence), or the
+        memoized outcome of an applied step. A speculative sequence may
+        commit up to ``spec_k`` tokens; an N-branch group takes one row
+        per live branch. Every step runs the same ``max_batch`` rows
+        (idle rows have ``seq_len`` 0), so results never depend on the
+        packing."""
         with self._lock:
-            if len(seq_ids) > self.max_batch:
-                raise ValueError(f"{len(seq_ids)} packed rows exceed "
-                                 f"max_batch={self.max_batch}")
+            # the row budget is checked before any planning: planning
+            # extends the cache, and raising after it would leave cache
+            # lengths ahead of the token history on a retry
+            rows_needed = 0
+            for sid in seq_ids:
+                if sid in self._groups:
+                    rows_needed += sum(1 for b in self._groups[sid].beams
+                                       if not b.done)
+                else:
+                    rows_needed += 1
+            if rows_needed > self.max_batch:
+                raise ValueError(
+                    f"{rows_needed} packed rows exceed max_batch="
+                    f"{self.max_batch} (group branches count)")
             outcomes: List[Optional[Dict[str, Any]]] = []
-            plans: List[tuple] = []           # (outcome index, sid, start)
+            plans: List[_RowPlan] = []
+            pending: List[tuple] = []   # (outcome index, sid, plan range)
             for sid, step in zip(seq_ids, step_idxs):
-                if sid not in self._seqs:
-                    outcomes.append({"pending": True})
-                    continue
-                out = self._plan_seq(sid, step)
-                if isinstance(out, int):
-                    plans.append((len(outcomes), sid, out))
-                    out = None
+                lo = len(plans)
+                if sid in self._groups:
+                    out = self._plan_group(sid, step, plans)
+                elif sid not in self._seqs:
+                    out = {"pending": True}
+                else:
+                    out = self._plan_seq(sid, step, plans)
                 outcomes.append(out)
-            if plans:
-                rows = self._run_step([(sid, start)
-                                       for _, sid, start in plans])
-                for (idx, sid, _), row in zip(plans, rows):
-                    outcomes[idx] = self._commit_seq(sid, row)
+                if out is None:
+                    pending.append((len(outcomes) - 1, sid,
+                                    (lo, len(plans))))
+            rows = self._run_step(plans) if plans else []
+            for idx, sid, (lo, hi) in pending:
+                if sid in self._groups:
+                    outcomes[idx] = self._commit_group(sid, rows[lo:hi])
+                else:
+                    outcomes[idx] = self._commit_seq(sid, plans[lo],
+                                                     rows[lo])
             return outcomes
 
-    def _plan_seq(self, sid, step: int):
-        """The memoized/terminal/pressure outcome, or the position the
-        step feeds (an int) when the step must run."""
+    def _replay_or_advance(self, rec, step: int, sid) -> Optional[Dict]:
+        """The memoized outcome of a replayed step, the terminal outcome
+        of a done record, or None when the step must run."""
+        if step < rec.next_step:
+            return rec.outcomes[step]
+        if step > rec.next_step:
+            raise RuntimeError(f"step {step} for {sid!r} skips ahead of "
+                               f"{rec.next_step} (scheduler bug)")
+        if rec.done:
+            if isinstance(rec, _DecodeGroup):
+                return {"token": rec.beams[0].tokens[-1], "done": True}
+            return {"token": rec.tokens[-1], "done": True}
+        return None
+
+    def _plan_seq(self, sid, step: int,
+                  plans: List[_RowPlan]) -> Optional[Dict[str, Any]]:
         from tosem_tpu_torch.serve.kv_cache import CachePressure
         seq = self._seqs[sid]
-        if step < seq.next_step:
-            return seq.outcomes[step]
-        if step > seq.next_step:
-            raise RuntimeError(f"step {step} for {sid!r} skips ahead of "
-                               f"{seq.next_step} (scheduler bug)")
-        if seq.done:
-            return {"token": seq.tokens[-1], "done": True}
+        out = self._replay_or_advance(seq, step, sid)
+        if out is not None:
+            return out
+        L = len(seq.tokens)
+        drafts: List[int] = []
+        kr = 1
+        if self.spec_k:
+            kr = min(self.K, self.cfg.max_len - (L - 1))
+            drafts = self._drafter.propose(seq.tokens, kr - 1)
         try:
-            start, _ = self._extend_with_relief(sid, 1)
+            start, _ = self._extend_with_relief(sid, kr)
         except CachePressure:
             return {"pressure": True}
-        return start
+        plans.append(_RowPlan(sid, [seq.tokens[-1]] + drafts, start))
+        return None
 
-    def _commit_seq(self, sid, logits_row) -> Dict[str, Any]:
+    def _commit_seq(self, sid, plan: _RowPlan,
+                    logits_rows) -> Dict[str, Any]:
+        """Greedy accept-prefix: row r scores position ``start + r + 1``
+        exactly as a sequential step would, so the matched drafts plus
+        the target's own next token reproduce plain greedy; the rejected
+        tail rolls back through ``truncate``."""
         seq = self._seqs[sid]
-        token = int(np.argmax(logits_row))
-        seq.tokens.append(token)
-        done = self._finished(seq, token)
-        out = {"token": token, "done": done}
+        L = len(seq.tokens)
+        kr = plan.kr
+        drafts = plan.fed[1:]
+        targets = [int(np.argmax(logits_rows[r])) for r in range(kr)]
+        j = 0
+        while j < len(drafts) and drafts[j] == targets[j]:
+            j += 1
+        # always >= 1 committed token: the accepted drafts, then the
+        # target's token at the first divergence (or after them all)
+        committed = drafts[:j] + [targets[j]]
+        if drafts:
+            self._spec_proposed += len(drafts)
+            self._spec_accepted += j
+        done = False
+        for tok in committed:
+            seq.tokens.append(tok)
+            if self._finished(seq, tok):
+                done = True
+                break
+        # the cache holds L - 1 + kr positions, the committed sequence
+        # needs len(tokens) - 1
+        if len(seq.tokens) - 1 < L - 1 + kr:
+            self.cache.truncate(sid, len(seq.tokens) - 1)
+        if self.window is not None and not done:
+            self.cache.release_below(
+                sid, self._release_floor(len(seq.tokens)))
+        out = {"token": seq.tokens[-1], "done": done}
+        m = len(seq.tokens) - L
+        if m != 1:
+            out["n_tokens"] = m
+            # a streaming consumer needs every committed token
+            out["tokens"] = list(seq.tokens[L:])
         seq.done = done
         if done:
             out["result"] = self._result_locked(seq)
+            if seq.session is not None:
+                self._session_stash(sid, seq)
         seq.outcomes.append(out)
         seq.next_step += 1
         return out
 
-    def _run_step(self, rows: List[tuple]) -> List[np.ndarray]:
-        """Run the one-token step over the packed rows ``(sid, start)``;
-        returns each row's fp32 logits."""
+    def _plan_group(self, sid, step: int,
+                    plans: List[_RowPlan]) -> Optional[Dict[str, Any]]:
+        from tosem_tpu_torch.serve.kv_cache import CachePressure
+        g = self._groups[sid]
+        out = self._replay_or_advance(g, step, sid)
+        if out is not None:
+            return out
+        live = [b for b in g.beams if not b.done]
+        extended: List[_Beam] = []
+        try:
+            for b in live:
+                self._extend_with_relief(b.cid, 1)
+                extended.append(b)
+        except CachePressure:
+            # all-or-nothing for the whole group, so a retried step
+            # starts from the same state
+            for b in extended:
+                self.cache.truncate(b.cid, len(b.tokens) - 1)
+            return {"pressure": True}
+        for b in live:
+            plans.append(_RowPlan(b.cid, [b.tokens[-1]],
+                                  len(b.tokens) - 1))
+        return None
+
+    def _commit_group(self, sid, rows) -> Dict[str, Any]:
+        g = self._groups[sid]
+        live = [b for b in g.beams if not b.done]
+        lps = [_log_softmax(rows[i][0]) for i in range(len(live))]
+        step_no = g.next_step + 1          # the admit took draw 0
+        if g.beam:
+            self._beam_select(sid, g, live, lps)
+        else:
+            for i, b in enumerate(live):
+                branch = g.beams.index(b)
+                tok = self._sample(lps[i], g, branch, step_no)
+                b.tokens.append(tok)
+                b.logprob += float(lps[i][tok])
+                self._settle_branch(g, b)
+        g.done = all(b.done for b in g.beams)
+        best = max(g.beams, key=lambda b: b.logprob)
+        out = {"token": best.tokens[-1], "done": g.done,
+               "n_tokens": len(live)}
+        if g.done:
+            out["result"] = self._group_result(g)
+        g.outcomes.append(out)
+        g.next_step += 1
+        return out
+
+    def _settle_branch(self, g: _DecodeGroup, b: _Beam) -> None:
+        """After an append: a finished branch frees its cache now
+        (shared prefix pages survive for its siblings); a live windowed
+        branch releases below its floor."""
+        if self._finished_at(len(b.tokens), g.prompt_len, b.tokens[-1],
+                             budget=g.budget):
+            b.done = True
+            self.cache.free(b.cid)
+        elif self.window is not None:
+            self.cache.release_below(
+                b.cid, self._release_floor(len(b.tokens)))
+
+    def _beam_select(self, sid, g: _DecodeGroup, live: List[_Beam],
+                     lps) -> None:
+        """One beam-search transition: the global top-|live|
+        continuations by cumulative logprob. A parent chosen twice forks
+        (copy-on-write); an unchosen parent's pages roll back through a
+        refcount free."""
+        width = len(live)
+        cands = []                          # (score, live idx, token)
+        for i, b in enumerate(live):
+            lp = lps[i]
+            for t in np.argsort(-lp)[:width]:
+                cands.append((b.logprob + float(lp[t]), i, int(t)))
+        # deterministic tie-break: score desc, then branch, then token
+        cands.sort(key=lambda c: (-c[0], c[1], c[2]))
+        chosen = cands[:width]
+        used = {i for _, i, _ in chosen}
+        for i, b in enumerate(live):
+            if i not in used:
+                self.cache.free(b.cid)      # dropped beam: rollback
+        parents = [(b.cid, list(b.tokens)) for b in live]
+        taken: Dict[int, int] = {}
+        assigned = []                       # (slot, cid, tokens, score)
+        for slot, (score, i, tok) in enumerate(chosen):
+            cid, toks = parents[i]
+            if i in taken:
+                g.forks += 1
+                new_cid = f"{sid}#f{g.forks}"
+                self.cache.fork(cid, new_cid)
+                cid = new_cid
+            else:
+                taken[i] = 1
+            assigned.append((slot, cid, toks + [tok], score))
+        # settle after every fork landed: a finished first child frees
+        # the parent's cache name, which a later fork still needs
+        for slot, cid, toks, score in assigned:
+            b = live[slot]
+            b.cid = cid
+            b.tokens = toks
+            b.logprob = score
+            self._settle_branch(g, b)
+
+    def _group_result(self, g: _DecodeGroup) -> Dict[str, Any]:
+        branches = sorted(g.beams, key=lambda b: -b.logprob)
+        entries = [{"tokens": list(b.tokens),
+                    "generated": list(b.tokens[g.prompt_len:]),
+                    "prompt_len": g.prompt_len,
+                    "logprob": b.logprob} for b in branches]
+        best = entries[0]
+        key = "beams" if g.beam else "samples"
+        return {"tokens": best["tokens"], "generated": best["generated"],
+                "prompt_len": g.prompt_len, key: entries}
+
+    def _run_step(self, plans: List[_RowPlan]) -> List[np.ndarray]:
+        """Run the step over the packed rows; returns each plan's fp32
+        logits rows ``[kr, vocab]``."""
         B = self.max_batch
-        ids_t = np.zeros((B,), np.int32)
-        positions = np.zeros((B,), np.int32)
-        tables = np.zeros((B, self.max_pages), np.int32)
+        t = self._tensor
+        tables = np.zeros((B, self.table_w), np.int32)
         lens = np.zeros((B,), np.int32)
-        for row, (sid, start) in enumerate(rows):
-            ids_t[row] = self._seqs[sid].tokens[-1]
-            positions[row] = start
-            tables[row] = self.cache.block_table(sid, self.max_pages)
-            lens[row] = start + 1
+        pools = (self.cache.k_pool, self.cache.v_pool)
+        if not self._general:
+            ids_t = np.zeros((B,), np.int32)
+            positions = np.zeros((B,), np.int32)
+            for row, p in enumerate(plans):
+                ids_t[row] = p.fed[0]
+                positions[row] = p.start
+                tables[row] = self.cache.block_table(p.cid, self.table_w)
+                lens[row] = p.start + 1
+            logits, _, _ = self._step_compiled()(
+                t(ids_t), t(positions), *pools, t(tables), t(lens))
+            lg = logits[:len(plans)].float().cpu().numpy()
+            return [lg[row:row + 1] for row in range(len(plans))]
+        K = self.K
+        ids_t = np.zeros((B, K), np.int32)
+        positions = np.zeros((B, K), np.int32)
+        q_rows = np.ones((B,), np.int32)
+        offs = np.zeros((B,), np.int32)
+        for row, p in enumerate(plans):
+            kr = p.kr
+            ids_t[row, :kr] = p.fed
+            ids_t[row, kr:] = p.fed[-1]        # padding mirrors the last
+            positions[row, :kr] = np.arange(p.start, p.start + kr)
+            positions[row, kr:] = p.start + kr - 1
+            tables[row] = self.cache.block_table(p.cid, self.table_w)
+            lens[row] = p.start + kr
+            q_rows[row] = kr
+            offs[row] = self.cache.page_offset(p.cid)
         logits, _, _ = self._step_compiled()(
-            self._tensor(ids_t), self._tensor(positions),
-            self.cache.k_pool, self.cache.v_pool, self._tensor(tables),
-            self._tensor(lens))
-        lg = logits[:len(rows)].float().cpu().numpy()
-        return [lg[row] for row in range(len(rows))]
+            t(ids_t), t(positions), *pools, t(tables), t(lens), t(q_rows),
+            t(offs))
+        lg = logits[:len(plans)].float().cpu().numpy()
+        return [lg[row, :plans[row].kr] for row in range(len(plans))]
 
     @staticmethod
     def _result_locked(seq: _DecodeSeq) -> Dict[str, Any]:
@@ -586,12 +1214,194 @@ class BertDecodeBackend(CompiledBackendMixin):
 
     def result(self, seq_id) -> Dict[str, Any]:
         with self._lock:
+            if seq_id in self._groups:
+                return self._group_result(self._groups[seq_id])
             return self._result_locked(self._seqs[seq_id])
+
+    # ------------------------------------------------- release and spill
 
     def release(self, seq_id) -> None:
         with self._lock:
-            if self._seqs.pop(seq_id, None) is not None:
-                self.cache.free(seq_id)
+            group = self._groups.pop(seq_id, None)
+            if group is not None:
+                for b in group.beams:
+                    if not b.done:
+                        self._release_cid(b.cid)
+                return
+            if seq_id in self._seqs:
+                self._release_cid(seq_id)
+                del self._seqs[seq_id]
+
+    def _release_cid(self, cid) -> None:
+        if self.cache.is_spilled(cid):
+            self.cache.drop_spilled(cid)
+        else:
+            self.cache.free(cid)
+
+    def _live_cids(self, seq_id) -> List[tuple]:
+        """(cache id, cached-token history) of each live cache sequence
+        of a request: one for a plain sequence, one per live branch."""
+        if seq_id in self._groups:
+            return [(b.cid, b.tokens[:-1])
+                    for b in self._groups[seq_id].beams if not b.done]
+        return [(seq_id, self._seqs[seq_id].tokens[:-1])]
+
+    def spill_seq(self, seq_id) -> None:
+        with self._lock:
+            for cid, _ in self._live_cids(seq_id):
+                if not self.cache.is_spilled(cid):
+                    self.cache.spill(cid)
+
+    def restore_seq(self, seq_id) -> None:
+        """Bring a spilled request back (every live branch): byte for
+        byte when the payload survived, else by re-prefilling the cache
+        from the branch's token history. Raises
+        :class:`~tosem_tpu_torch.serve.kv_cache.CachePressure` when the
+        pool has no room (nothing changed for the branch that hit it)."""
+        with self._lock:
+            for cid, cached in self._live_cids(seq_id):
+                self._restore_cid(cid, cached)
+
+    def _restore_cid(self, cid, cached: List[int]) -> None:
+        from tosem_tpu_torch.serve.kv_cache import (CachePressure,
+                                                    PagesLostError)
+        if not self.cache.is_spilled(cid):
+            return
+        try:
+            self.cache.restore(cid)
+        except PagesLostError:
+            # re-prefill the FULL history: a windowed position's K/V
+            # depends on its whole in-window context at every layer
+            need = -(-len(cached) // self.page_size)
+            if need > self.cache.num_pages:
+                # can never fit this pool (a windowed pool is sized for
+                # the window, not the history): fail terminally
+                raise PagesLostError(
+                    f"re-prefill of {cid!r} needs {need} pages but the "
+                    f"pool holds {self.cache.num_pages}; sequence is "
+                    "unrecoverable on this replica")
+            # capacity first: CachePressure must leave the spilled entry
+            # as it was, so a retry finds it
+            if need > self.cache.stats()["pages_free"]:
+                raise CachePressure(
+                    f"re-prefill of {cid!r} needs {need} pages; "
+                    "parked until something retires")
+            self.cache.drop_spilled(cid)
+            self.cache.create(cid)
+            try:
+                self.cache.extend(cid, len(cached))
+                self._prefill_into_cache(cid, cached)
+                if self.window is not None:
+                    self.cache.release_below(
+                        cid, self._release_floor(len(cached) + 1))
+            except BaseException:
+                self.cache.free(cid)
+                raise
+
+    # ------------------------------------------------------ live migration
+    #
+    # A sequence (or branch group) moves between replicas mid-decode and
+    # continues from its current step: the pages travel in the cache's
+    # wire format beside the token history and the step ledger, so a
+    # step committed on the source just before the export replays from
+    # the imported ledger on the destination.
+
+    def list_seqs(self) -> List[Any]:
+        """Request ids holding decode state here — what a drain must
+        move. Self-driven ``call()`` sequences are left out: their
+        driving thread lives on this replica."""
+        with self._lock:
+            return sorted(
+                [s for s in list(self._seqs) + list(self._groups)
+                 if not str(s).startswith("__call__/")], key=str)
+
+    def export_seq(self, seq_id) -> Dict[str, Any]:
+        """The full migratable state of one request: its bookkeeping and
+        each live branch's KV payload (a spilled branch exports its
+        stored payload). The state here is unchanged: the caller releases
+        it only after the destination's import succeeded."""
+        with self._lock:
+            if seq_id in self._groups:
+                g = self._groups[seq_id]
+                return {
+                    "kind": "group", "n": g.n, "beam": g.beam,
+                    "temperature": g.temperature, "seed": g.seed,
+                    "prompt_len": g.prompt_len,
+                    "next_step": g.next_step, "done": g.done,
+                    "outcomes": list(g.outcomes), "forks": g.forks,
+                    "admit_token": g.admit_token, "budget": g.budget,
+                    "branches": [{
+                        "cid": b.cid, "tokens": list(b.tokens),
+                        "logprob": b.logprob, "done": b.done,
+                        "kv": (None if b.done
+                               else self.cache.export_seq(b.cid)),
+                    } for b in g.beams],
+                }
+            seq = self._seqs[seq_id]
+            return {"kind": "seq", "tokens": list(seq.tokens),
+                    "prompt_len": seq.prompt_len,
+                    "next_step": seq.next_step, "done": seq.done,
+                    "outcomes": list(seq.outcomes),
+                    "budget": seq.budget,
+                    "kv": self.cache.export_seq(seq_id)}
+
+    def import_seq(self, seq_id, state: Dict[str, Any]) -> None:
+        """Adopt an exported request, all or nothing: a KV header
+        mismatch raises :class:`~tosem_tpu_torch.serve.kv_cache.
+        KVWireError` and pressure :class:`~tosem_tpu_torch.serve.
+        kv_cache.CachePressure`, leaving nothing changed (a group's
+        imported branches roll back). Idempotent per sequence id."""
+        with self._lock:
+            if seq_id in self._seqs or seq_id in self._groups:
+                return                    # at-least-once replay
+            if state.get("kind") == "seq":
+                self.cache.import_seq(seq_id, state["kv"])
+                seq = _DecodeSeq(list(state["tokens"]),
+                                 int(state["prompt_len"]),
+                                 budget=state.get("budget"))
+                seq.next_step = int(state["next_step"])
+                seq.done = bool(state["done"])
+                seq.outcomes = list(state["outcomes"])
+                self._seqs[seq_id] = seq
+                return
+            if state.get("kind") != "group":
+                raise ValueError(
+                    f"unknown decode-state kind {state.get('kind')!r}")
+            imported: List[Any] = []
+            try:
+                for br in state["branches"]:
+                    if not br["done"]:
+                        self.cache.import_seq(br["cid"], br["kv"])
+                        imported.append(br["cid"])
+            except BaseException:
+                for cid in imported:
+                    self.cache.free(cid)
+                raise
+            g = _DecodeGroup(n=int(state["n"]), beam=bool(state["beam"]),
+                             temperature=float(state["temperature"]),
+                             seed=int(state["seed"]),
+                             prompt_len=int(state["prompt_len"]),
+                             budget=state.get("budget"))
+            g.next_step = int(state["next_step"])
+            g.done = bool(state["done"])
+            g.outcomes = list(state["outcomes"])
+            g.forks = int(state["forks"])
+            g.admit_token = int(state["admit_token"])
+            for br in state["branches"]:
+                beam = _Beam(br["cid"], list(br["tokens"]),
+                             float(br["logprob"]))
+                beam.done = bool(br["done"])
+                g.beams.append(beam)
+            self._groups[seq_id] = g
+
+    def prefix_digest(self) -> List[List[Any]]:
+        """Bounded ``[depth, n_tokens, hash]`` entries for this replica's
+        hottest prefixes (what a router's longest-prefix routing reads)."""
+        if self._prefix is None:
+            return []
+        return self._prefix.digest()
+
+    # ---------------------------------------------- synchronous decode
 
     def call(self, request: Dict[str, Any]) -> Dict[str, Any]:
         """Self-driven single-request decode (admit -> step loop ->
@@ -607,6 +1417,9 @@ class BertDecodeBackend(CompiledBackendMixin):
             while not out.get("done"):
                 out = self.step_batch([sid], [step])[0]
                 if out.get("pressure"):
+                    # concurrent calls hold pages and free them as they
+                    # retire: retry the same step, a bounded number of
+                    # times
                     stalls += 1
                     if stalls > self.CALL_PRESSURE_LIMIT:
                         raise CachePressure(
@@ -626,12 +1439,17 @@ class BertDecodeBackend(CompiledBackendMixin):
     def cache_stats(self) -> Dict[str, int]:
         out = dict(self.cache.stats())
         with self._lock:
+            out["spec_proposed"] = self._spec_proposed
+            out["spec_accepted"] = self._spec_accepted
             out["prefix_hits"] = self._prefix_hits
             out["prefix_misses"] = self._prefix_misses
             out["prefix_pages_reused"] = self._prefix_pages_reused
             out["prefix_pages_prefilled"] = self._prefix_pages_prefilled
             out["prefill_tokens"] = self._prefill_tokens
             out["reused_tokens"] = self._reused_tokens
+            out["session_hits"] = self._session_hits
+            out["sessions"] = len(self._sessions)
+            out["prefix_remote_imports"] = self._prefix_remote_imports
             if self._prefix is not None:
                 out.update(self._prefix.stats())
         return out
@@ -640,5 +1458,5 @@ class BertDecodeBackend(CompiledBackendMixin):
         out = super().stats()
         out.update(self.cache_stats())
         with self._lock:
-            out["decode_sequences"] = len(self._seqs)
+            out["decode_sequences"] = len(self._seqs) + len(self._groups)
         return out

@@ -36,8 +36,9 @@ package compiles one XLA program per bucket, the port's backends build
 one step callable per bucket. :class:`DecodeQueue` turns on spill,
 migration and streamed hand-off only for a backend that has them
 (``spill_seq``, ``export_seq``, ``send_seq``); the port's
-``BertDecodeBackend`` has none yet (ROADMAP.md A6/A7), and a request for
-a session or ``n > 1`` branches fails typed at its admit.
+``BertDecodeBackend`` has the first two, so disaggregated prefill hands
+each prefilled sequence over by export until the transport behind
+``send_seq`` is ported (ROADMAP.md A11).
 """
 from __future__ import annotations
 
@@ -748,6 +749,9 @@ class DecodeQueue:
         self._pending: collections.deque = collections.deque()
         self._active: List[_DecodeItem] = []      # admit order
         self._waiting: List[_DecodeItem] = []     # spilled, awaiting restore
+        # replicas whose last step spilled a pressured sequence for its
+        # batchmates: their restores skip the next turn (C-ref9)
+        self._hold_restores: set = set()
         self._closed = False
         self._close_error: Optional[BaseException] = None
         self._seq_counter = 0
@@ -1181,7 +1185,12 @@ class DecodeQueue:
         from tosem_tpu_torch.serve.kv_cache import CachePressure
         with self._lock:
             waiting = list(self._waiting)
+            # a pressure spill's pages go to its batchmates' next step
+            # first, not straight back to a restore on that replica
+            held, self._hold_restores = self._hold_restores, set()
         for it in waiting:
+            if it.replica in held:
+                continue
             try:
                 rt.get(it.replica.restore_seq.remote(it.seq_id),
                        timeout=60.0)
@@ -1404,6 +1413,10 @@ class DecodeQueue:
         with self._lock:
             pending = list(self._prefilling)
         if not pending:
+            # sequences parked by a pressured import retry even when no
+            # prefill is left to finish (the JAX package's copy returns
+            # here and leaves them parked for good: ROADMAP.md C-ref8)
+            self._activate_prefilled()
             return
         refs = [ref for _, ref in pending]
         done, _ = rt.wait(refs, num_returns=len(refs), timeout=0.0)
@@ -1442,6 +1455,9 @@ class DecodeQueue:
                 self._fail(item, e, verdict=False)
                 continue
             self._tokens += int(first.get("n_tokens", 1))
+            # the admit's token streams now, as on the colocated path
+            # (the JAX package's copy never streams it: ROADMAP.md C-ref7)
+            self._fire_on_token(item, first)
             if first.get("done"):
                 # done at admit (short budget / eos): the state never
                 # left the PREFILL replica — retire must release it
@@ -1834,13 +1850,28 @@ class DecodeQueue:
                 # quietly otherwise, and only a sequence that stays
                 # pressured across PRESSURE_STALL_LIMIT iterations
                 # without emitting a token — the pool genuinely cannot
-                # hold it plus anyone — fails.
-                pressured.stalls += 1
+                # hold it plus anyone — fails. A spill that hands its
+                # pages to other actives on the replica is progress, not
+                # a stall, and that replica's restores wait one iteration
+                # so that those actives, not the restore, take the freed
+                # pages (the JAX package's copy restores first and counts
+                # every spill, failing sequences a tight pool could
+                # serve: ROADMAP.md C-ref9). A spill that did not happen
+                # (no spill_seq, a failed call) counts as the reference's.
                 with self._lock:
                     others = len([i for i in self._active
                                   if i.replica is replica]) > 1
                     rotating = bool(self._waiting)
-                if pressured.stalls > self.PRESSURE_STALL_LIMIT:
+                stalled = (pressured.stalls + 1
+                           > self.PRESSURE_STALL_LIMIT)
+                spilled = (not stalled and (others or rotating)
+                           and self._spill_item(pressured))
+                if spilled and others:
+                    with self._lock:
+                        self._hold_restores.add(replica)
+                else:
+                    pressured.stalls += 1
+                if stalled:
                     from tosem_tpu_torch.serve.kv_cache import CachePressure
                     with self._lock:
                         if pressured in self._active:
@@ -1850,8 +1881,6 @@ class DecodeQueue:
                         f"sequence {pressured.seq_id} cannot grow: KV "
                         f"pool still exhausted after "
                         f"{self.PRESSURE_STALL_LIMIT} eviction attempts"))
-                elif others or rotating:
-                    self._spill_item(pressured)
         self._check_stragglers(elapsed, handles)
         with self._lock:
             self._steps += 1
