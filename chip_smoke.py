@@ -81,7 +81,11 @@ Phases, each printing one JSON line:
               equal to a cold admit), and spill/restore and
               export/import at step 10 (byte-identical pages, streams
               equal to greedy). Where two streams part, the margin is
-              printed before the run fails.
+              printed before the run fails. C6's probe: from one cache
+              state, 4 greedy steps against one speculative step of 4
+              rows fed the same tokens, every module's rows held bit for
+              bit, printing the first op that parts for each row, and
+              LayerNorm's statistics reduced over 8 rows against 32.
 4. encode   — one padded BERT-base batch through ``BertEncodeBackend``.
 4a. serve   — the same BERT-base served from replica processes through
               the control plane: ``Serve`` deploys the decode backend
@@ -128,6 +132,17 @@ Phases, each printing one JSON line:
               yardstick), remat full/dots against none bit for bit,
               ``fit`` resumed after a preemption bit for bit, and a
               profile of the flash and of the dense step.
+7a. train_dp — data-parallel BERT-base training through
+              ``DistributedTrainer`` (threads backend, the chain all-reduce
+              over the tensor transport): the train batch as 4 logical
+              shards of 2 x 512, fp32 master weights with bf16 compute,
+              3 steps at world 1, 2 and 4, world 4 with ``overlap=False``,
+              and world 4 with the last rank lost at step 1 and one grown
+              back; each run's losses and final parameters equal to the
+              single-process local fold bit for bit, B1-B3 launched 12 a
+              shard computed. Prints the step ms per world beside the
+              plain train step, one profiled world-4 step split into
+              device kernels, copies and transport, and peak memory.
 8. suite    — north-star config 5 through the port's experiment runner,
               ``tosem_tpu_torch.cli --config=bert_kernels`` (BERT-base:
               8 x 512, 12 heads of 64, hidden 768, bf16) into a
@@ -139,15 +154,16 @@ Phases, each printing one JSON line:
               forward+backward). Every row must read under the card's
               peak (a row above it means a timing window closed early).
 
-``--phases`` picks a subset (default: all eleven), e.g. ``build,kernels``
+``--phases`` picks a subset (default: all twelve), e.g. ``build,kernels``
 for a first call after a kernel change, ``build,kernels,train`` for the
-training path, ``build,kernels,suite`` for the kernel suite,
+training path, ``build,train_dp`` for data-parallel training,
+``build,kernels,suite`` for the kernel suite,
 ``build,decode,serve`` for the served path, or
 ``build,kernels,decode,decode_modes,serve`` for the decode modes.
 
 The launch counts of every kernel are set to 0 just before the decode,
-each decode mode, the encode, the sparse encode, the train and the suite
-paths run and
+each decode mode, the encode, the sparse encode, the train, each
+data-parallel run and the suite paths run and
 read just after (the serve path's inside its replicas: set to 0 as
 deploy's warm-up ends, read after the traffic); a kernel of the path
 that never launched fails the run. Before the last line it prints the card's name and
@@ -2242,6 +2258,116 @@ def greedy_logprob(rows, stream):
     return sum(float(_log_softmax(r)[t]) for r, t in zip(rows, stream))
 
 
+def first_parting_op(model, prompts, page=128, k=SPEC_K):
+    """C6's probe: from one cache state, ``k`` greedy steps (8 rows of
+    one token, B4) and one speculative step (8 rows of ``k`` tokens, B5)
+    that feeds each sequence the tokens greedy chose, so speculative row
+    r sees what greedy's step r sees. Hooks on every submodule record
+    each call's input and output; in call order, greedy step r's row is
+    held against speculative row r bit for bit. Returns, for each r, the
+    first op that parts — a module whose input rows are equal and output
+    rows are not, the code between two modules where a module's input
+    parts after the previous output agreed, or the LM head after the
+    last module (``tok.attend``, no module call) — with the logits gap,
+    and the calls that part at r = 0 and r = 1."""
+    import torch
+    dev = model.device
+    cfg = model.cfg
+    B, L, H = len(prompts), cfg.layers, cfg.heads
+    D = cfg.dim // H
+    lens = [len(p) for p in prompts]
+    per = [-(-(n + k) // page) for n in lens]
+    dt = next(model.parameters()).dtype
+    kp = torch.zeros(L, sum(per), page, H, D, dtype=dt, device=dev)
+    vp = torch.zeros_like(kp)
+    tables = torch.zeros(B, max(per), dtype=torch.int32, device=dev)
+    prefill = model.prefill_fn()
+    first, nxt = [], 0
+    for b, prompt in enumerate(prompts):
+        ids = torch.as_tensor([prompt], dtype=torch.int32, device=dev)
+        lg, kk, vv = prefill(ids, torch.ones_like(ids))
+        first.append(int(lg[0, -1].argmax()))
+        for j in range(per[b]):
+            tables[b, j] = nxt
+            lo, hi = j * page, min(lens[b], (j + 1) * page)
+            if lo < hi:
+                kp[:, nxt, :hi - lo] = kk[:, 0, lo:hi].to(dt)
+                vp[:, nxt, :hi - lo] = vv[:, 0, lo:hi].to(dt)
+            nxt += 1
+    n = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    calls = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, outp, name=name: calls[-1].append(
+            (name, inp[0].detach(), outp.detach())))
+        for name, m in model.named_modules() if name]
+    try:
+        step = model.decode_step_fn(page_size=page)
+        kg, vg = kp.clone(), vp.clone()
+        tok = torch.as_tensor(first, dtype=torch.int32, device=dev)
+        fed, g_logits = [], []
+        for r in range(k):
+            calls.append([])
+            fed.append(tok)
+            lg, _, _ = step(tok, n + r, kg, vg, tables, n + r + 1)
+            g_logits.append(lg)
+            tok = lg.argmax(-1).to(torch.int32)
+        calls.append([])
+        multi = model.decode_multi_fn(page_size=page, q_tokens=k)
+        pos = n[:, None] + torch.arange(k, dtype=torch.int32,
+                                        device=dev)[None]
+        s_logits, _, _ = multi(torch.stack(fed, 1), pos, kp.clone(),
+                               vp.clone(), tables, n + k,
+                               torch.full_like(n, k), torch.zeros_like(n))
+    finally:
+        for h in hooks:
+            h.remove()
+    spec = calls[-1]
+    check(all([c[0] for c in g] == [c[0] for c in spec]
+              for g in calls[:-1]),
+          "C6 probe: the greedy and speculative steps call other modules")
+
+    def gap(g, s, r):
+        g = g.reshape(B, -1).float()
+        s = s.reshape(B, k, -1)[:, r].float()
+        return (g - s).abs().max().item()
+    rows, parting = [], {}
+    for r in range(k):
+        first_op, prev_out, part = None, 0.0, []
+        for (name, gi, go), (_, si, so) in zip(calls[r], spec):
+            d_in, d_out = gap(gi, si, r), gap(go, so, r)
+            if d_in > 0 or d_out > 0:
+                part.append([name, d_in, d_out])
+            if first_op is None and d_in > 0 and prev_out == 0:
+                first_op = f"the code before {name} (its input parts)"
+            if first_op is None and d_in == 0 and d_out > 0:
+                first_op = name
+            prev_out = d_out
+        lg = gap(g_logits[r], s_logits, r)
+        if first_op is None and lg > 0:
+            first_op = "the LM head (tok.attend: fp32 GEMM of the rows)"
+        rows.append({"row": r, "first_parting_op": first_op,
+                     "logits_gap": lg, "calls_parting": len(part)})
+        if r < 2:
+            parting[r] = part[:8]
+    # LayerNorm's statistics alone (nn/layers.py: fp32 mean over the
+    # last dim): the 8 rows reduced as [8, dim] against the same rows
+    # reduced inside [8 * k, dim], as greedy and speculative steps do
+    xs = torch.randn((B, k, cfg.dim), generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    stats = {}
+    for r in range(k):
+        alone = xs[:, r].contiguous()
+        for what, f in (("mean", lambda t: t.mean(-1)),
+                        ("var", lambda t: ((t - t.mean(-1, keepdim=True))
+                                           ** 2).mean(-1))):
+            d = (f(alone) - f(xs)[:, r]).abs()
+            stats[f"{what}_row{r}_rows_parting"] = int((d > 0).sum())
+    return {"rows": rows, "calls": len(spec),
+            "largest_logit": max(x.float().abs().max().item()
+                                 for x in g_logits),
+            "parting": parting, "layernorm_stats_8_vs_32_rows": stats}
+
+
 def phase_decode_modes(dev, seed, new_tokens, direct=None):
     """BERT-base (bf16, page 128) in every decode mode, each backend
     loading the same weights (``params=``): sliding window (card against
@@ -2361,6 +2487,10 @@ def phase_decode_modes(dev, seed, new_tokens, direct=None):
                  [r["generated"] for r in spec["results"]], model,
                  lambda i: prompts[i])
     out["rows"]["spec"] = hold_rows("spec", g_rows, rows_of(spec_be))
+    # C6: which op makes a speculative row part from greedy's
+    out["c6_probe"] = first_parting_op(model, prompts)
+    emit({"phase": "decode_modes", "c6_probe": out["c6_probe"]})
+    registry.reset_launch_counts()
     check(sst["spec_accepted"] > 0, f"no draft accepted: {sst}")
     check(spec["tokens_per_seq_step"] > 1.0,
           f"{spec['tokens_per_seq_step']} tokens a step")
@@ -3575,6 +3705,260 @@ def phase_train_resume(dev, seed, layers=2, steps=4):
           "seconds": time.perf_counter() - t0})
 
 
+# ------------------------------------------------------- data-parallel train
+
+DP_STEPS = 3        # steps of each data-parallel run
+DP_GRAIN = 4        # logical shards of the 8 x 512 batch: 2 x 512 each
+# the BERT-base job's transport: every gradient leaf is fp32 (440 MB a
+# shard-step). 64 MiB buckets (the 93.8 MB token table rides alone), 4
+# MiB chunks, and a receive segment of twice the gradient bytes (one
+# partial and one final sum of every bucket at once), so nothing spills
+# to the heap
+DP_CFG = dict(grain=DP_GRAIN, bucket_bytes=64 << 20, chunk_bytes=4 << 20,
+              transport_capacity=1 << 30)
+
+
+def bert_dp_job(dev, seed, batch):
+    """BERT-base masked-LM as a one-stage ``DPJob``: fp32 master weights
+    from ``seed`` with bf16 compute (``mixed_precision``), dropout 0.1,
+    adamw(1e-4), flash attention (B1-B3), ``batch`` every step, grain 4.
+    The stage loss binds the stage's parameters to one module through
+    ``torch.func.functional_call`` (the tied LM head stays fp32, as in
+    ``models/bert.py``). The ranks are threads of one process and that
+    call swaps the module's parameters while the forward runs, so the
+    forwards take a lock; each backward runs outside it."""
+    import dataclasses
+    import functools
+    import threading
+
+    import torch
+    from torch import nn
+    from tosem_tpu_torch.models.bert import Bert, BertConfig
+    from tosem_tpu_torch.nn.attention import flash_attn_fn
+    from tosem_tpu_torch.train import adamw, mlm_loss
+    from tosem_tpu_torch.train.distributed import DPJob
+    model = Bert(dataclasses.replace(BertConfig.base(), dtype="float32"),
+                 device=dev, seed=seed)
+    init = {n: p.detach() for n, p in model.named_parameters()}
+    attn = flash_attn_fn()
+
+    class MLM(nn.Module):
+        def __init__(self, bert):
+            super().__init__()
+            self.bert = bert
+
+        def forward(self, b, generator):
+            return mlm_loss(self.bert, b, generator, attn_fn=attn)[0]
+    wrapper, lock = MLM(model), threading.Lock()
+
+    def loss(params, b, generator):
+        bound = {f"bert.{n}": t for n, t in params["bert"].items()}
+        with lock:
+            return torch.func.functional_call(wrapper, bound, (b, generator))
+
+    return DPJob(init_params=lambda: {"bert": init},
+                 stage_losses=[("bert", loss)],
+                 batch_fn=lambda step: batch,
+                 optimizer=adamw(1e-4), grain=DP_GRAIN,
+                 global_batch=int(batch["ids"].shape[0]), seed=seed,
+                 mixed_precision=True)
+
+
+def dp_breakdown(prof, outs, wall_ms):
+    """One profiled data-parallel step: the device's kernel time, its
+    device-to-host and host-to-device copy time (the trace's ``Memcpy``
+    rows), and each rank's host-clock compute region (forward, backward
+    and the gradients' host copies), chain reduce (transport and host
+    folds; the buckets' reduces run at once, so the longest one and their
+    sum) and apply (the sum's host-to-device copy, the optimizer)."""
+    import torch
+    dev = {"kernels_ms": 0.0, "dtoh_ms": 0.0, "htod_ms": 0.0,
+           "other_ms": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        key = ("dtoh_ms" if e.name.startswith("Memcpy DtoH") else
+               "htod_ms" if e.name.startswith("Memcpy HtoD") else
+               "other_ms" if e.name.startswith(("Memcpy", "Memset")) else
+               "kernels_ms")
+        dev[key] += ms
+    ranks = [{"compute_ms": o["compute_ms"], "apply_ms": o["apply_ms"],
+              "reduce_ms_longest_bucket": max(r["ms"] for r in
+                                              o["reduce"].values()),
+              "reduce_ms_all_buckets": sum(r["ms"] for r in
+                                           o["reduce"].values()),
+              "reduce_mb_sent": sum(r["bytes"] for r in
+                                    o["reduce"].values()) / 2**20,
+              "buckets": len(o["reduce"])} for o in outs]
+    return {"wall_ms": wall_ms, "device": dev, "ranks": ranks}
+
+
+def phase_train_dp(dev, seed):
+    """Data-parallel BERT-base training through ``DistributedTrainer``
+    (threads backend, the chain all-reduce over the tensor transport):
+    the ``bert_train`` leg's 8 x 512 batch from ``seed + 1`` as 4 logical
+    shards of 2 x 512, 3 steps at world 1, 2 and 4, at world 4 with
+    ``overlap=False``, and at world 4 with the last rank lost at step 1
+    (chaos ``train.dist_step``/``kill_node``) and a rank grown back after
+    it. Every run's loss history and final parameters must equal the
+    single-process local fold (``make_dp_train_step``) bit for bit,
+    ``torch.equal`` on every tensor, and B1, B2 and B3 must launch 12 a
+    shard computed: 12 x 4 x 3 a run, and 3 shards more in the shrink
+    run (the survivors of the lost rank compute step 1's shards before
+    the chain aborts). Prints the step ms per world beside the plain
+    ``make_train_step`` on the same batch (a bf16 model), one profiled
+    world-4 step split into device compute, copies and transport, and the
+    peak device memory. Returns the launch counts of the checked runs."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tosem_tpu_torch.chaos import ChaosController, Fault, FaultPlan
+    from tosem_tpu_torch.models.bert import Bert, BertConfig
+    from tosem_tpu_torch.nn.attention import flash_attn_fn
+    from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.train.distributed import (DataParallelConfig,
+                                                   DistributedTrainer,
+                                                   make_dp_train_step)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 1)
+    ids = torch.as_tensor(rng.integers(0, 30522, (8, 512)), device=dev)
+    masked = torch.as_tensor(rng.random((8, 512)) < 0.15, device=dev)
+    batch = _mlm_batch(ids, masked)
+    job = bert_dp_job(dev, seed, batch)
+    flash = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    counts = {k: 0 for k in KERNELS}
+    out = {"phase": "train_dp", "gpu": gpu_line(),
+           "config": "BERT-base fp32 master, bf16 compute, dropout 0.1, "
+                     "adamw(1e-4), flash attention",
+           "batch": [8, 512], "grain": DP_GRAIN, "steps": DP_STEPS,
+           "transport": DP_CFG, "runs": {}}
+
+    def counted(what, shards):
+        c = dict(registry.LAUNCH_COUNTS)
+        for k in flash:
+            check(c[k] == 12 * shards,
+                  f"train_dp {what}: {k} launched {c[k]} times, expected "
+                  f"12 x {shards} shards")
+        for k in counts:
+            counts[k] += c[k]
+        registry.reset_launch_counts()
+        return {k: c[k] for k in flash}
+
+    # the single-process local fold: the trajectory every run must equal
+    state = job.init_state()
+    step_fn = make_dp_train_step(job)
+    torch.cuda.synchronize()
+    registry.reset_launch_counts()
+    ref_losses, ref_ms = [], []
+    for _ in range(DP_STEPS):
+        t0 = time.perf_counter()
+        state, m = step_fn(state)
+        torch.cuda.synchronize()
+        ref_ms.append((time.perf_counter() - t0) * 1e3)
+        ref_losses.append(m["loss"])
+    out["local_fold"] = {"losses": ref_losses, "step_ms": ref_ms,
+                         "launches": counted("local fold",
+                                             DP_GRAIN * DP_STEPS)}
+    check(all(np.isfinite(ref_losses)), f"local fold losses {ref_losses}")
+    ref_params = [p.detach().clone() for p in state.leaves()]
+    del state, step_fn
+
+    def held(what, tr, losses):
+        params = tr.fetch_state().leaves()
+        same = (len(params) == len(ref_params) and
+                all(torch.equal(a, b) for a, b in zip(params, ref_params)))
+        check(losses == ref_losses,
+              f"train_dp {what}: losses {losses} != local fold {ref_losses}")
+        check(same, f"train_dp {what}: final parameters differ from the "
+                    "local fold")
+
+    def run(what, world, overlap=True, shrink_grow=False, profiled=False):
+        cfg = DataParallelConfig(job=f"bert-{what}", overlap=overlap,
+                                 **DP_CFG)
+        marks = []
+        torch.cuda.synchronize()
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        with DistributedTrainer(job=job, cfg=cfg, world=world) as tr:
+            def on_step(done, _):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+            if shrink_grow:
+                plan = FaultPlan(seed=seed, name="dp-shrink", faults=[
+                    Fault(site="train.dist_step", action="kill_node",
+                          at=2)])
+                with ChaosController(plan):
+                    tr.fit(2, on_step=on_step)
+                check(tr.world == world - 1 and tr.stats()["shrinks"] == 1,
+                      f"train_dp {what}: no shrink: {tr.stats()}")
+                tr.add_worker()
+                losses = tr.fit(DP_STEPS, on_step=on_step)
+                check(tr.world == world and tr.stats()["grows"] == 1,
+                      f"train_dp {what}: no grow: {tr.stats()}")
+            else:
+                losses = tr.fit(DP_STEPS, on_step=on_step)
+            shards = DP_GRAIN * DP_STEPS + (DP_GRAIN - 1) * shrink_grow
+            rec = {"world": world, "overlap": overlap, "losses": losses,
+                   "step_ms": [(b - a) * 1e3 for a, b in
+                               zip([t0] + marks[:-1], marks)],
+                   "launches": counted(what, shards),
+                   "stats": tr.stats()}
+            held(what, tr, losses)
+            if profiled:
+                # one more step, traced: the step's breakdown
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                tr.fit(DP_STEPS + 1)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t1) * 1e3
+                # the device's activity only: tracing the host's ops
+                # as well stretched this step thirtyfold
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                with prof:
+                    t1 = time.perf_counter()
+                    tr.fit(DP_STEPS + 2)
+                    torch.cuda.synchronize()
+                    traced = (time.perf_counter() - t1) * 1e3
+                rec["breakdown"] = dp_breakdown(prof, tr.last_step_outs,
+                                                traced)
+                rec["breakdown"]["unprofiled_wall_ms"] = wall
+                registry.reset_launch_counts()
+        out["runs"][what] = rec
+        emit({"phase": "train_dp", "run": what, "gpu": out["gpu"], **rec})
+
+    run("world1", 1)
+    run("world2", 2)
+    run("world4", 4, profiled=True)
+    run("world4_serial", 4, overlap=False)
+    run("world4_shrink_grow", 4, shrink_grow=True)
+    del job
+    torch.cuda.empty_cache()
+    # the plain train step on the same batch: one bf16 model, no shards
+    model = Bert(BertConfig.base(), device=dev, seed=seed)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    _, _, plain_losses, plain_ms, _ = train_steps(
+        model, init, batch, flash_attn_fn(), seed, 1, DP_STEPS)
+    registry.reset_launch_counts()
+    del model, init
+    torch.cuda.empty_cache()
+    out["plain_make_train_step"] = {"step_ms": plain_ms,
+                                    "losses": plain_losses,
+                                    "model": "bf16 weights, no shards"}
+    out["step_ms_by_world"] = {
+        w: float(np.mean(out["runs"][w]["step_ms"][1:]))
+        for w in ("world1", "world2", "world4", "world4_serial")}
+    out["local_fold_step_ms"] = float(np.mean(ref_ms[1:]))
+    out["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t_phase
+    out["bit_exact"] = True
+    emit({k: v for k, v in out.items() if k != "runs"})
+    return counts
+
+
 def phase_suite():
     """North-star config 5 through the port's experiment runner at its
     default BERT-base shapes. Returns the suite's launch counts."""
@@ -3673,7 +4057,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,decode,decode_modes,encode,"
-                            "serve,encode_sparse,cpu,profile,train,suite")
+                            "serve,encode_sparse,cpu,profile,train,"
+                            "train_dp,suite")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(ROOT, "tosem_tpu_torch")):
@@ -3735,6 +4120,9 @@ def main(argv=None):
         phase_train_grads(dev, SEED)
         phase_train_remat(dev, SEED)
         phase_train_resume(dev, SEED)
+    if "train_dp" in phases:
+        for k, n in phase_train_dp(dev, SEED).items():
+            launches[k] += n
     if "suite" in phases:
         for k, n in phase_suite().items():
             launches[k] += n

@@ -38,6 +38,9 @@ def test_import_loads_neither_jax_nor_triton():
             "breaker); "
             "from tosem_tpu_torch.chaos import plan, injector; "
             "from tosem_tpu_torch.serve import kv_cache, prefix_cache; "
+            "from tosem_tpu_torch.train import distributed; "
+            "from tosem_tpu_torch.cluster import fencing, transport; "
+            "from tosem_tpu_torch.chaos import network; "
             "print(sorted(m for m in ('jax', 'triton', 'tosem_tpu', "
             "'ml_dtypes') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -57,11 +60,14 @@ COPIED_MODULES = [
     "tosem_tpu_torch.obs.memory_monitor", "tosem_tpu_torch.chaos",
     "tosem_tpu_torch.chaos.plan", "tosem_tpu_torch.chaos.injector",
     "tosem_tpu_torch.serve.breaker", "tosem_tpu_torch.serve.batching",
-    "tosem_tpu_torch.serve.core", "tosem_tpu_torch.serve.http"]
+    "tosem_tpu_torch.serve.core", "tosem_tpu_torch.serve.http",
+    "tosem_tpu_torch.chaos.network", "tosem_tpu_torch.cluster",
+    "tosem_tpu_torch.cluster.fencing", "tosem_tpu_torch.cluster.transport",
+    "tosem_tpu_torch.train.distributed"]
 # the control plane: a replica of a plain backend imports these only
 CONTROL_MODULES = [m for m in COPIED_MODULES
                    if m.split(".")[1] in ("native", "runtime", "obs",
-                                          "chaos", "serve")]
+                                          "chaos", "serve", "cluster")]
 
 
 @pytest.mark.parametrize("module", COPIED_MODULES)
@@ -112,7 +118,7 @@ def test_scan_reaches_every_subpackage_and_function_level_imports():
     subpackages = {os.path.relpath(p, PKG).split(os.sep)[0]
                    for p in _package_files()}
     assert {"native", "runtime", "obs", "chaos", "serve", "ops",
-            "train"} <= subpackages
+            "train", "cluster"} <= subpackages
     nested = {}
     for path in _package_files():
         tree = ast.parse(open(path).read(), path)

@@ -475,7 +475,7 @@ class TestStatsSurface:
                                         timeout=30) as r:
                 body = json.loads(r.read())
             assert body["deployments"]["statd"]["batched"] is True
-            assert "train" not in body       # waits for ROADMAP.md A9
+            assert "train" not in body       # no training job is live
         finally:
             ingress.shutdown()
         serve.delete("statd")

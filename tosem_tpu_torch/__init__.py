@@ -5,7 +5,7 @@ The JAX package ``tosem_tpu`` stays the reference; this package is built
 beside it slice by slice, with every Pallas kernel on a slice's path
 rewritten by hand in CUDA C++ for ``sm_90a``. Ported so far (the BERT
 serving and training slices, the BERT kernel suite, block-sparse mask
-programs, and the serving control plane):
+programs, the serving control plane, and data-parallel training):
 
 - ``tosem_tpu_torch.ops``     flash attention forward and backward (dense,
                               causal, segment ids, and the schedule mode
@@ -30,7 +30,12 @@ programs, and the serving control plane):
 - ``tosem_tpu_torch.obs``     metric registry and Prometheus export,
                               memory watchdog
 - ``tosem_tpu_torch.train``   train state, AdamW, MLM loss, train step,
-                              ``fit`` with atomic checkpoints and resume
+                              ``fit`` with atomic checkpoints and resume,
+                              data-parallel training
+                              (``DistributedTrainer``: a chain all-reduce
+                              over the transport, elastic shrink/grow)
+- ``tosem_tpu_torch.cluster`` the chunked tensor transport and epoch
+                              fences
 - ``tosem_tpu_torch.chaos``   seeded fault plans and the injection seam
 - ``tosem_tpu_torch.utils``   result CSVs, device timing, the roofline
 - ``tosem_tpu_torch.cli``     the experiment runner (``bert_kernels``,
@@ -94,6 +99,18 @@ _LAZY_EXPORTS = {
     "fit": ("tosem_tpu_torch.train.trainer", "fit"),
     "CheckpointCorruptError": ("tosem_tpu_torch.train.checkpoint",
                                "CheckpointCorruptError"),
+    "DataParallelConfig": ("tosem_tpu_torch.train.distributed",
+                           "DataParallelConfig"),
+    "DistributedTrainer": ("tosem_tpu_torch.train.distributed",
+                           "DistributedTrainer"),
+    "DPJob": ("tosem_tpu_torch.train.distributed", "DPJob"),
+    "fit_distributed": ("tosem_tpu_torch.train.distributed",
+                        "fit_distributed"),
+    "make_dp_train_step": ("tosem_tpu_torch.train.distributed",
+                           "make_dp_train_step"),
+    "TensorReceiver": ("tosem_tpu_torch.cluster.transport",
+                       "TensorReceiver"),
+    "send_tensors": ("tosem_tpu_torch.cluster.transport", "send_tensors"),
 }
 
 __all__ = sorted(_LAZY_EXPORTS)

@@ -50,7 +50,7 @@ NOT_PORTED = {
     "decode_scenarios": "A11 (serve/bench_decode.py)",
     "cluster_bench": "A11 (serve/bench_cluster.py)",
     "control_bench": "A11 (cluster serving)",
-    "train_bench": "A9 (train/distributed.py)",
+    "train_bench": "A11 (train/bench_train.py, after serve/bench_common.py)",
     "kernel_matrix": "A12 (ops/bench_kernels.py)",
     "analysis": "A12 (the CLI)",
     "chaos": "A12 (the CLI's chaos subcommand)",

@@ -27,6 +27,7 @@ from __future__ import annotations
 import inspect
 import json
 import queue
+import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
@@ -140,9 +141,18 @@ class HttpIngress:
                     # per-request outcome counts — the operator's view
                     # of whether batching is actually engaging
                     payload = {"deployments": serve.stats()}
-                    # the JAX package adds its live distributed-training
-                    # jobs here ("train"); that waits for the port's
-                    # train/distributed.py (ROADMAP.md A9)
+                    # distributed-training jobs share the stats surface
+                    # (dp size, step, examples/s) when any are live; none
+                    # can be unless their module is loaded, and a
+                    # control-plane process need not load torch for this
+                    try:
+                        dist = sys.modules.get(
+                            "tosem_tpu_torch.train.distributed")
+                        train = dist.jobs_stats() if dist else {}
+                        if train:
+                            payload["train"] = train
+                    except Exception:
+                        pass     # telemetry never fails the endpoint
                     self._reply(200, payload)
                 else:
                     self._reply(404, {"error": "POST to /<endpoint>"})

@@ -9,9 +9,11 @@ A loss function is ``loss_fn(model, batch, generator) -> (loss, aux)``;
 the generator (on the model's device) drives dropout where the JAX
 package passed an ``rng`` key.
 
-Data-parallel and partitioned steps (``mesh=``, ``shard_batch``,
-``make_partitioned_train_step``) are not ported yet (``ROADMAP.md`` A9,
-A10), nor is ``classification_loss`` (it waits for ResNet, A12).
+Data-parallel training over the tensor transport is
+:mod:`tosem_tpu_torch.train.distributed`. The steps over a device mesh
+(``mesh=``, ``shard_batch``, ``make_partitioned_train_step``) need a
+mesh type and are not ported yet (``ROADMAP.md`` A10), nor is
+``classification_loss`` (it waits for ResNet, A12).
 """
 from __future__ import annotations
 
@@ -119,7 +121,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     ``metrics`` holds the loss (a 0-d tensor, not synchronised) and the
     loss function's aux values."""
     if mesh is not None:
-        raise _not_ported("data-parallel train steps (mesh=)", "A9/A10")
+        raise _not_ported("train steps over a device mesh (mesh=)", "A10")
 
     def step(state: TrainState, batch, generator=None):
         if state.model is not model or state.optimizer is not optimizer:
@@ -146,7 +148,7 @@ def make_partitioned_train_step(*args, **kwargs):
 
 
 def shard_batch(*args, **kwargs):
-    raise _not_ported("batch sharding over a mesh", "A9/A10")
+    raise _not_ported("batch sharding over a mesh", "A10")
 
 
 def fold_in(seed: int, step: int) -> int:
