@@ -84,8 +84,13 @@ Phases, each printing one JSON line:
               printed before the run fails. C6's probe: from one cache
               state, 4 greedy steps against one speculative step of 4
               rows fed the same tokens, every module's rows held bit for
-              bit, printing the first op that parts for each row, and
-              LayerNorm's statistics reduced over 8 rows against 32.
+              bit, printing the first op that parts for each row (none
+              since the repair); the decode steps' LayerNorm
+              (``LayerNorm.rows``) and LM head (tiles of 32 rows) over 8
+              rows against the same rows among 32, which must give equal
+              bits, beside the forms the repair replaced there, and each
+              form's device ms at 8 and 32 rows. The speculative rows must
+              equal greedy's bit for bit.
 4. encode   — one padded BERT-base batch through ``BertEncodeBackend``.
 4a. serve   — the same BERT-base served from replica processes through
               the control plane: ``Serve`` deploys the decode backend
@@ -143,6 +148,29 @@ Phases, each printing one JSON line:
               shard computed. Prints the step ms per world beside the
               plain train step, one profiled world-4 step split into
               device kernels, copies and transport, and peak memory.
+7b. parallel — the device mesh on one card, every position on it: the
+              six collectives exact on integer-valued fp32 over 4
+              positions; sharded flash (B1) equal to the unsharded
+              kernel bit for bit at [8, 512, 12, 64] bf16 with padding
+              segments over (dp, tp) = (2, 2), (1, 4) and (2, 3), and a
+              12-head MultiHeadMask (schedule mode) at tp = 4; sharded
+              paged decode equal to the unsharded B4 (q [8, 12, 64],
+              page 128, lengths 0-512), B5 at k = 4 and B5 windowed on
+              rolling tables; ShardedAttentionBackend and
+              ShardedPagedDecodeBackend equal to their reference() in
+              every request mode, bytes equal; the shard_map data-parallel
+              step (train_dp's BERT-base job, a dp mesh of 4 positions, 3
+              steps) within rtol 2e-5 of the local fold in losses and all
+              199 parameters, with its step ms; ring and Ulysses attention
+              at 12 heads of 64, T = 512 over sp = 4, fp32 outputs and
+              gradients against the plain attention. Every sharded path's
+              launches equal positions x calls. Then the device ms of the
+              sharded calls beside the unsharded kernels (one card: no
+              speedup is read), and ``--config=allreduce`` at its
+              default of 4 positions a card (1 KB to 64 MB a position,
+              each timing calibrated to 20 ms windows),
+              each row beside the card's name and power limit; on one
+              card the "bus" is its memory.
 8. suite    — north-star config 5 through the port's experiment runner,
               ``tosem_tpu_torch.cli --config=bert_kernels`` (BERT-base:
               8 x 512, 12 heads of 64, hidden 768, bf16) into a
@@ -154,16 +182,17 @@ Phases, each printing one JSON line:
               forward+backward). Every row must read under the card's
               peak (a row above it means a timing window closed early).
 
-``--phases`` picks a subset (default: all twelve), e.g. ``build,kernels``
+``--phases`` picks a subset (default: all thirteen), e.g. ``build,kernels``
 for a first call after a kernel change, ``build,kernels,train`` for the
 training path, ``build,train_dp`` for data-parallel training,
+``build,parallel`` for the device mesh,
 ``build,kernels,suite`` for the kernel suite,
 ``build,decode,serve`` for the served path, or
 ``build,kernels,decode,decode_modes,serve`` for the decode modes.
 
 The launch counts of every kernel are set to 0 just before the decode,
 each decode mode, the encode, the sparse encode, the train, each
-data-parallel run and the suite paths run and
+data-parallel run, each sharded path and the suite paths run and
 read just after (the serve path's inside its replicas: set to 0 as
 deploy's warm-up ends, read after the traffic); a kernel of the path
 that never launched fails the run. Before the last line it prints the card's name and
@@ -2126,10 +2155,11 @@ def rows_on(be, cid, ids, tag=None):
     return got
 
 
-def hold_rows(what, want, got, extra=None):
+def hold_rows(what, want, got, extra=None, exact=False):
     """Hold the logits rows ``got`` against ``want`` ({(sequence,
     position): row}) where both computed one (one side's keys must all
-    be the other's): within ROW_TOL of the largest logit. Yardstick:
+    be the other's): within ROW_TOL of the largest logit, or bit for bit
+    when ``exact``. Yardstick:
     ``got`` against ``want``'s row one position later (earlier at its
     last) must break that limit at every position (a row written at the
     wrong offset), and so must each of ``extra``'s rows ({name: {key:
@@ -2139,13 +2169,14 @@ def hold_rows(what, want, got, extra=None):
     check(common and len(common) == min(len(want), len(got)),
           f"{what}: rows at {sorted(got)} against {sorted(want)}")
     scale = max(float(np.abs(want[p]).max()) for p in common)
-    limit = ROW_TOL * max(1.0, scale)
+    limit = 0.0 if exact else ROW_TOL * max(1.0, scale)
     err = max(float(np.abs(got[p] - want[p]).max()) for p in common)
     off = [float(np.abs(got[i, p] - want[nb]).max())
            for i, p in common
            for nb in [(i, p + 1) if (i, p + 1) in want else (i, p - 1)]
            if nb in want]
     rec = {"positions": len(common), "max_abs_diff": err, "limit": limit,
+           "exact": exact,
            "largest_logit": scale, "off_by_one_min": min(off),
            "off_by_one_max": max(off)}
     for name, rows in (extra or {}).items():
@@ -2349,23 +2380,41 @@ def first_parting_op(model, prompts, page=128, k=SPEC_K):
                      "logits_gap": lg, "calls_parting": len(part)})
         if r < 2:
             parting[r] = part[:8]
-    # LayerNorm's statistics alone (nn/layers.py: fp32 mean over the
-    # last dim): the 8 rows reduced as [8, dim] against the same rows
-    # reduced inside [8 * k, dim], as greedy and speculative steps do
+    # C6's two ops alone, each over the 8 rows as [8, dim] against the
+    # same rows inside [8 * k, dim], as greedy and speculative steps
+    # call them: the decode steps' LayerNorm (``LayerNorm.rows``) and LM
+    # head (``Bert._head_rows``), beside the forms the probe first caught
+    # (``LayerNorm.forward``'s plain fp32 ``mean``, which the encoder,
+    # prefill and training keep, and one GEMM of all the rows)
     xs = torch.randn((B, k, cfg.dim), generator=torch.Generator(
-        device=dev).manual_seed(0), device=dev)
+        device=dev).manual_seed(0), device=dev).to(dt)
+    ln = model.layers[3].ln1
+    forms = {"layernorm": ln.rows, "layernorm_plain_mean": ln,
+             "head_rows": model._head_rows, "head_one_gemm": model._head}
     stats = {}
-    for r in range(k):
-        alone = xs[:, r].contiguous()
-        for what, f in (("mean", lambda t: t.mean(-1)),
-                        ("var", lambda t: ((t - t.mean(-1, keepdim=True))
-                                           ** 2).mean(-1))):
-            d = (f(alone) - f(xs)[:, r]).abs()
-            stats[f"{what}_row{r}_rows_parting"] = int((d > 0).sum())
+    with torch.no_grad():
+        for what, f in forms.items():
+            whole = f(xs)
+            stats[f"{what}_rows_parting"] = sum(
+                int(((f(xs[:, r].contiguous()) - whole[:, r]).abs()
+                     .amax(-1) > 0).sum()) for r in range(k))
+        # the repair's cost: device ms of each form at 8 and 32 rows
+        cost = {f"{what}_ms_{n}_rows": device_ms(f, xs.reshape(-1, cfg.dim)
+                                                 [:n].contiguous())
+                for what, f in forms.items() for n in (B, B * k)}
+    # a step runs 2 LayerNorms a layer and ln_emb (and ln_out in the
+    # head), and one head: what the repair adds to a step of 8 and of 32
+    for n, what in ((B, "greedy"), (B * k, "spec")):
+        cost[f"{what}_step_ms_added"] = (
+            (2 * L + 1) * (cost[f"layernorm_ms_{n}_rows"]
+                           - cost[f"layernorm_plain_mean_ms_{n}_rows"])
+            + cost[f"head_rows_ms_{n}_rows"]
+            - cost[f"head_one_gemm_ms_{n}_rows"])
     return {"rows": rows, "calls": len(spec),
             "largest_logit": max(x.float().abs().max().item()
                                  for x in g_logits),
-            "parting": parting, "layernorm_stats_8_vs_32_rows": stats}
+            "parting": parting, "ops_8_vs_32_rows": stats,
+            "repair_cost": cost}
 
 
 def phase_decode_modes(dev, seed, new_tokens, direct=None):
@@ -2486,11 +2535,18 @@ def phase_decode_modes(dev, seed, new_tokens, direct=None):
     same_streams("spec", g_streams,
                  [r["generated"] for r in spec["results"]], model,
                  lambda i: prompts[i])
-    out["rows"]["spec"] = hold_rows("spec", g_rows, rows_of(spec_be))
-    # C6: which op makes a speculative row part from greedy's
+    # C6: which op, if any, makes a speculative row part from greedy's
     out["c6_probe"] = first_parting_op(model, prompts)
     emit({"phase": "decode_modes", "c6_probe": out["c6_probe"]})
     registry.reset_launch_counts()
+    parted = out["c6_probe"]["ops_8_vs_32_rows"]
+    check(parted["layernorm_rows_parting"] == 0
+          and parted["head_rows_rows_parting"] == 0,
+          f"C6 probe: a repaired op gives a row other bits among 8 rows "
+          f"than among 32: {parted}")
+    # the North star's pin: speculative rows are greedy's, bit for bit
+    out["rows"]["spec"] = hold_rows("spec", g_rows, rows_of(spec_be),
+                                    exact=True)
     check(sst["spec_accepted"] > 0, f"no draft accepted: {sst}")
     check(spec["tokens_per_seq_step"] > 1.0,
           f"{spec['tokens_per_seq_step']} tokens a step")
@@ -3959,6 +4015,318 @@ def phase_train_dp(dev, seed):
     return counts
 
 
+# ---------------------------------------------------------------- parallel
+
+PAR_POSITIONS = 4   # positions of the one-card meshes (dp x tp = 2 x 2)
+PAR_FLASH_MESHES = ((2, 2), (1, 4), (2, 3))
+PAR_RING_T = 512    # ring/Ulysses sequence, split over sp = 4
+PAR_SWEEP_MAX = 1 << 26     # the allreduce rows: 1 KB to 64 MB a position
+
+
+def phase_parallel(dev, seed):
+    """The device mesh (``tosem_tpu_torch.parallel``) on one card, every
+    position on it: the six collectives exact on integer-valued fp32 over
+    4 positions and their bus-bandwidth rows (``--config=allreduce``);
+    sharded flash (B1) equal to the unsharded kernel bit for bit at
+    BERT-base's attention ([8, 512, 12, 64] bf16, padding segments) over
+    (dp, tp) = (2, 2), (1, 4) and (2, 3), and a 12-head MultiHeadMask
+    (schedule mode) at tp = 4; sharded paged decode equal to the
+    unsharded B4 (q [8, 12, 64], page 128, lengths 0-512), B5 at k = 4
+    and B5 windowed on rolling tables; both sharded replicas equal to
+    their ``reference()`` in every request mode; the shard_map
+    data-parallel step on the train_dp job (a dp mesh of 4 positions)
+    within rtol 2e-5 of the local fold; ring and Ulysses attention at
+    BERT-base heads, T = 512 over sp = 4, fp32 outputs and gradients
+    against the plain attention. Every sharded path's launches equal
+    positions x calls; every join of position threads has a time limit
+    (``shard_map``'s ``timeout``). Returns the launch counts of the
+    sharded paths."""
+    import numpy as np
+    import torch
+    from tosem_tpu_torch import cli
+    from tosem_tpu_torch.nn.attention import dot_product_attention
+    from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.ops.flash_attention import flash_attention
+    from tosem_tpu_torch.ops.paged_attention import paged_attention
+    from tosem_tpu_torch.parallel import collectives as col
+    from tosem_tpu_torch.parallel import (MeshSpec, default_mesh, dp_tp_mesh,
+                                          make_mesh, make_ring_attn_fn,
+                                          make_ulysses_attn_fn,
+                                          sharded_flash_attention,
+                                          sharded_paged_attention)
+    from tosem_tpu_torch.serve.backends import (ShardedAttentionBackend,
+                                                ShardedPagedDecodeBackend)
+    from tosem_tpu_torch.train.distributed import make_dp_train_step
+    t_phase = time.perf_counter()
+    gpu = gpu_line()
+    out = {"phase": "parallel", "gpu": gpu, "launches": {}}
+    counts = {k: 0 for k in KERNELS}
+    gen = torch.Generator().manual_seed(seed + 12)
+
+    def launched(what, want):
+        """The launch counts since the last reset must be ``want`` ({kernel:
+        positions x calls}), every other kernel 0."""
+        c = dict(registry.LAUNCH_COUNTS)
+        got = {k: v for k, v in c.items() if v}
+        check(got == want, f"parallel {what}: launches {got} != {want}")
+        for k in counts:
+            counts[k] += c[k]
+        out["launches"][what] = got
+        registry.reset_launch_counts()
+
+    def same(what, got, want):
+        check(torch.equal(got, want),
+              f"parallel {what}: sharded differs from unsharded by "
+              f"{(got.float() - want.float()).abs().max().item()}")
+
+    # (a) collectives: exact on integer-valued fp32 over 4 positions
+    mesh = default_mesh("x", [dev] * PAR_POSITIONS)
+    n = PAR_POSITIONS
+    x = torch.arange(n * 8 * 128, dtype=torch.float32,
+                     device=dev).reshape(n * 8, 128) % 977
+    xs = x.split(8)
+    x2 = torch.arange(n * n * 128, dtype=torch.float32,
+                      device=dev).reshape(n * n, 128) % 977
+    want = {"all_reduce": sum(xs[1:], xs[0]), "all_gather": x,
+            "reduce_scatter": sum(xs[1:], xs[0]),
+            "ring_permute": torch.cat([xs[(i - 1) % n] for i in range(n)]),
+            "all_to_all": x2.reshape(n, n, 128).transpose(0, 1)
+            .reshape(n * n, 128),
+            "broadcast": xs[3]}
+    exact = {}
+    for name, op in col._COLLECTIVES.items():
+        op = op(mesh, "x", 3) if name == "broadcast" else op(mesh, "x")
+        got = op(x2 if name == "all_to_all" else x)
+        exact[name] = bool(torch.equal(got, want[name]))
+        check(exact[name], f"parallel {name} on {n} positions is not exact")
+    out["collectives_exact"] = exact
+    registry.reset_launch_counts()
+
+    # (b) sharded flash (B1) == unsharded, bit for bit
+    B, T, H, D = 8, 512, 12, 64
+    q, k, v, seg = flash_case(dev, "bfloat16", B, T, "segments", gen)
+    ref = flash_attention(q, k, v, None, False, segment_ids=seg,
+                          layout="bthd")
+    registry.reset_launch_counts()
+    out["flash"] = {}
+    runs = {}
+    for dp, tp in PAR_FLASH_MESHES:
+        run = runs[dp, tp] = sharded_flash_attention(
+            dp_tp_mesh(dp, tp, [dev] * (dp * tp)))
+        got = run(q, k, v, seg)
+        launched(f"flash_{dp}x{tp}", {"flash_fwd": dp * tp})
+        same(f"flash ({dp}, {tp})", got, ref)
+        out["flash"][f"{dp}x{tp}"] = {"bit_exact": True}
+    timed = {"flash": (runs[2, 2], (q, k, v, seg), lambda *a: flash_attention(
+        *a[:3], None, False, segment_ids=a[3], layout="bthd"))}
+    mh = sched_mask("mh", T)
+    ref = flash_attention(q, k, v, None, False, mask=mh, layout="bthd")
+    registry.reset_launch_counts()
+    got = sharded_flash_attention(dp_tp_mesh(1, 4, [dev] * 4),
+                                  mask=mh)(q, k, v)
+    launched("flash_multihead_1x4", {"flash_fwd_sched": 4})
+    same("flash MultiHeadMask (1, 4)", got, ref)
+    out["flash"]["multihead_1x4"] = {"bit_exact": True}
+
+    # (c) sharded paged (B4, B5) == unsharded, bit for bit
+    lens = [0, 1, 77, 128, 129, 300, 511, 512]
+    pmesh = dp_tp_mesh(2, 2, [dev] * 4)
+    q, kp, vp, bt, sl = paged_case(dev, "bfloat16", lens, 0, gen)
+    ref = paged_attention(q, kp, vp, bt, sl)
+    registry.reset_launch_counts()
+    run = sharded_paged_attention(pmesh)
+    got = run(q, kp, vp, bt, sl)
+    launched("paged_b4_2x2", {"paged_decode": 4})
+    same("paged B4 (2, 2)", got, ref)
+    out["paged"] = {"b4": {"bit_exact": True}}
+    timed["paged_b4"] = (run, (q, kp, vp, bt, sl), paged_attention)
+    q4 = torch.randn(8, SPEC_K, H, D, generator=gen).to(q.dtype).to(dev)
+    sl4 = torch.clamp(sl, min=SPEC_K)
+    kr = torch.tensor([4, 1, 2, 4, 3, 4, 4, 4], dtype=torch.int32,
+                      device=dev)
+    ref = paged_attention(q4, kp, vp, bt, sl4, q_rows=kr)
+    registry.reset_launch_counts()
+    got = run(q4, kp, vp, bt, sl4, q_rows=kr)
+    launched("paged_b5_k4_2x2", {"paged_decode_multi": 4})
+    same("paged B5 k = 4 (2, 2)", got, ref)
+    narrow, po = rolling_table(bt, sl4.tolist(), SPEC_K, WINDOW, 128)
+    ref = paged_attention(q4, kp, vp, narrow, sl4, q_rows=kr, window=WINDOW,
+                          page_offsets=po)
+    registry.reset_launch_counts()
+    got = sharded_paged_attention(pmesh, window=WINDOW)(
+        q4, kp, vp, narrow, sl4, q_rows=kr, page_offsets=po)
+    launched("paged_b5_window_2x2", {"paged_decode_multi": 4})
+    same("paged B5 window 128 rolling (2, 2)", got, ref)
+    out["paged"]["b5_k4"] = out["paged"]["b5_window_rolling"] = {
+        "bit_exact": True}
+
+    # (d) the sharded replicas == their reference(), every request mode
+    attn_dims = dict(batch=8, heads=12, seq=512, dim=64)
+    be = ShardedAttentionBackend(dp=2, tp=2, device=dev, **attn_dims)
+    for seed_ in (1, 2):
+        got = be.call({"seed": seed_})
+        check(got["devices"] == 4 and got["mesh"] == [2, 2], f"{got}")
+        launched("replica_attention", {"flash_fwd": 4})
+        want_ = ShardedAttentionBackend.reference({"seed": seed_},
+                                                  device=dev, **attn_dims)
+        registry.reset_launch_counts()
+        check(got["out"].tobytes() == want_.tobytes(),
+              "ShardedAttentionBackend differs from its reference()")
+    paged_dims = dict(batch=8, heads=12, head_dim=64, page_size=128,
+                      pages=64, table_w=4)
+    modes = ({"seed": 1}, {"seed": 2, "q_tokens": 4},
+             {"seed": 3, "q_tokens": 2, "offsets": True})
+    for window in (None, WINDOW):
+        be = ShardedPagedDecodeBackend(dp=2, tp=2, window=window,
+                                       device=dev, **paged_dims)
+        for req in modes:
+            got = be.call(dict(req))
+            kernel = ("paged_decode" if window is None and
+                      "q_tokens" not in req else "paged_decode_multi")
+            launched("replica_paged", {kernel: 4})
+            want_ = ShardedPagedDecodeBackend.reference(
+                req, window=window, device=dev, **paged_dims)
+            registry.reset_launch_counts()
+            check(got["out"].tobytes() == want_.tobytes(),
+                  f"ShardedPagedDecodeBackend {req} window {window} "
+                  "differs from its reference()")
+    out["replicas"] = {"attention": {**attn_dims, "dp": 2, "tp": 2,
+                                     "bytes_equal": True},
+                       "paged": {**paged_dims, "dp": 2, "tp": 2,
+                                 "modes": [dict(m) for m in modes],
+                                 "windows": [None, WINDOW],
+                                 "bytes_equal": True}}
+    emit({"phase": "parallel", "flash": out["flash"],
+          "paged": out["paged"], "replicas": out["replicas"]})
+    del be
+    torch.cuda.empty_cache()
+
+    # (e) the shard_map data-parallel step against the local fold
+    rng = np.random.default_rng(seed + 1)
+    ids = torch.as_tensor(rng.integers(0, 30522, (8, 512)), device=dev)
+    masked = torch.as_tensor(rng.random((8, 512)) < 0.15, device=dev)
+    batch = _mlm_batch(ids, masked)
+    arms = {}
+    for reduce in ("local", "shard_map"):
+        job = bert_dp_job(dev, seed, batch)
+        state = job.init_state()
+        step_fn = make_dp_train_step(
+            job, reduce=reduce, mesh=default_mesh("dp", [dev] * DP_GRAIN)
+            if reduce == "shard_map" else None)
+        torch.cuda.synchronize()
+        registry.reset_launch_counts()
+        losses, ms = [], []
+        for _ in range(DP_STEPS):
+            t0 = time.perf_counter()
+            state, m = step_fn(state)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"])
+        shards = DP_GRAIN * DP_STEPS
+        launched(f"train_dp_{reduce}",
+                 {"flash_fwd": 12 * shards, "flash_bwd_dkv": 12 * shards,
+                  "flash_bwd_dq": 12 * shards})
+        arms[reduce] = {"losses": losses, "step_ms": ms,
+                        "params": [p.detach().clone()
+                                   for p in state.leaves()]}
+        del job, state, step_fn
+        torch.cuda.empty_cache()
+    loc, sm = arms["local"], arms["shard_map"]
+    check(np.allclose(sm["losses"], loc["losses"], rtol=2e-5, atol=0),
+          f"shard_map losses {sm['losses']} against local {loc['losses']}")
+    worst = max(float(((a.float() - b.float()).abs()
+                       / (b.float().abs() + 1e-30)).max())
+                for a, b in zip(sm["params"], loc["params"]))
+    close = all(torch.allclose(a, b, rtol=2e-5, atol=1e-7)
+                for a, b in zip(sm["params"], loc["params"]))
+    check(len(sm["params"]) == 199 and close,
+          f"shard_map parameters part from the local fold: {worst}")
+    out["train_dp_shard_map"] = {
+        "mesh": {"dp": DP_GRAIN}, "positions_on": str(dev), "gpu": gpu,
+        "losses": sm["losses"], "local_losses": loc["losses"],
+        "step_ms": sm["step_ms"], "local_step_ms": loc["step_ms"],
+        "params": len(sm["params"]), "rtol": 2e-5,
+        "bit_exact_vs_local": bool(
+            sm["losses"] == loc["losses"] and
+            all(torch.equal(a, b) for a, b in zip(sm["params"],
+                                                  loc["params"])))}
+    emit({"phase": "parallel", "train_dp_shard_map":
+          out["train_dp_shard_map"]})
+    del arms, loc, sm
+    torch.cuda.empty_cache()
+
+    # (f) ring and Ulysses attention, fp32, forward and gradients
+    smesh = make_mesh(MeshSpec.of(sp=4), [dev] * 4)
+    atol, rtol = BWD_TOL["float32"]
+    out["sequence_parallel"] = {}
+    for causal in (False, True):
+        q, k, v = (torch.randn(2, PAR_RING_T, H, D, generator=gen)
+                   .to(dev).requires_grad_() for _ in range(3))
+        do = torch.randn(2, PAR_RING_T, H, D, generator=gen).to(dev)
+        mask = (torch.tril(torch.ones(PAR_RING_T, PAR_RING_T,
+                                      dtype=torch.bool, device=dev))
+                [None, None] if causal else None)
+        want_o = dot_product_attention(q, k, v, mask, precision="float32")
+        want_g = torch.autograd.grad(want_o, (q, k, v), do)
+        for name, make in (("ring", make_ring_attn_fn),
+                           ("ulysses", make_ulysses_attn_fn)):
+            fn = make(smesh, dp=None, tp=None, causal=causal)
+            got_o = fn(q, k, v)
+            got_g = torch.autograd.grad(got_o, (q, k, v), do)
+            err = (got_o - want_o).abs().max().item()
+            check(torch.allclose(got_o, want_o, atol=TOL["flash"]["float32"],
+                                 rtol=TOL["flash"]["float32"]),
+                  f"{name} causal={causal}: output off by {err}")
+            gerr = {}
+            for g, w, nm in zip(got_g, want_g, "qkv"):
+                gerr[nm] = (g - w).abs().max().item()
+                check(torch.allclose(g, w, atol=atol, rtol=rtol),
+                      f"{name} causal={causal}: d{nm} off by {gerr[nm]}")
+            out["sequence_parallel"][f"{name}_causal{int(causal)}"] = {
+                "max_abs_err": err, "grad_max_abs_err": gerr}
+    launched("sequence_parallel", {})
+    out["sequence_parallel"].update(
+        heads=H, head_dim=D, T=PAR_RING_T, sp=4, batch=2,
+        dtype="float32", tol=TOL["flash"]["float32"],
+        grad_tol=BWD_TOL["float32"])
+    emit({"phase": "parallel",
+          "sequence_parallel": out["sequence_parallel"]})
+
+    # (g) device times: the sharded calls at (2, 2) beside the unsharded
+    # kernel (one card: the positions share it, so no speedup is read
+    # here), and the collective sweep's rows
+    out["ms"] = {}
+    for what, (sharded, args, plain) in timed.items():
+        out["ms"][what] = {"sharded_2x2_ms": device_ms(sharded, *args),
+                           "unsharded_ms": device_ms(plain, *args),
+                           "gpu": gpu}
+    import tempfile
+    from tosem_tpu_torch.utils.results import read_results
+    with tempfile.TemporaryDirectory(prefix="torch_allreduce_") as d:
+        rows_csv = os.path.join(d, "allreduce.csv")
+        check(cli.main(["--config=allreduce", f"--max_bytes={PAR_SWEEP_MAX}",
+                        f"--results_csv={rows_csv}"]) == 0,
+              "the allreduce config failed")
+        sweep = [{"bench_id": r["bench_id"],
+                  "bus_bw_gbps": float(r["value"]),
+                  "time_us": r["extra"]["time_us"],
+                  "positions": r["extra"]["positions"],
+                  "cards": r["extra"]["cards"]}
+                 for r in read_results(rows_csv)]
+    cards = torch.cuda.device_count()   # the config's default: 4 a card
+    check(sweep and all(r["bus_bw_gbps"] > 0 and r["cards"] == cards and
+                        r["positions"] == 4 * cards for r in sweep),
+          f"allreduce rows {sweep}")
+    out["allreduce"] = {"positions": 4 * cards, "cards": cards, "gpu": gpu,
+                        "bus": ("one card's memory (no link, no NCCL)"
+                                if cards == 1 else "copies between cards, no NCCL"),
+                        "rows": sweep}
+    registry.reset_launch_counts()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return counts
+
+
 def phase_suite():
     """North-star config 5 through the port's experiment runner at its
     default BERT-base shapes. Returns the suite's launch counts."""
@@ -4058,7 +4426,7 @@ def main(argv=None):
     ap.add_argument("--phases",
                     default="build,kernels,decode,decode_modes,encode,"
                             "serve,encode_sparse,cpu,profile,train,"
-                            "train_dp,suite")
+                            "train_dp,parallel,suite")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(ROOT, "tosem_tpu_torch")):
@@ -4122,6 +4490,9 @@ def main(argv=None):
         phase_train_resume(dev, SEED)
     if "train_dp" in phases:
         for k, n in phase_train_dp(dev, SEED).items():
+            launches[k] += n
+    if "parallel" in phases:
+        for k, n in phase_parallel(dev, SEED).items():
             launches[k] += n
     if "suite" in phases:
         for k, n in phase_suite().items():

@@ -244,3 +244,43 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
         assert "Replaces" in head and "bounds it" in head
         for k in kernels:
             assert k in head
+
+
+def test_parallel_and_sharded_replicas_load_neither_jax_nor_triton():
+    """The device mesh, its sharded ops and the sharded replicas import
+    neither JAX, Triton nor the JAX package."""
+    code = ("import sys; import tosem_tpu_torch.parallel as par; "
+            "from tosem_tpu_torch.parallel import (mesh, spmd, collectives, "
+            "sharding, flash, ring); "
+            "[getattr(par, n) for n in par.__all__]; "
+            "from tosem_tpu_torch.serve.backends import ("
+            "ShardedAttentionBackend, ShardedPagedDecodeBackend); "
+            "from tosem_tpu_torch.ops.paged_attention import "
+            "paged_partition_specs; "
+            "print(sorted(m for m in ('jax', 'triton', 'tosem_tpu', "
+            "'ml_dtypes') if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("entry", ["make_mesh", "default_mesh", "dp_tp_mesh",
+                                   "attention_replica", "paged_replica"])
+def test_a_mesh_without_devices_raises_without_a_gpu(entry):
+    """With no ``devices`` a mesh takes every card; with none it raises
+    and never moves its positions to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: every card is a valid default")
+    from tosem_tpu_torch.parallel import (MeshSpec, default_mesh,
+                                          dp_tp_mesh, make_mesh)
+    from tosem_tpu_torch.serve.backends import (ShardedAttentionBackend,
+                                                ShardedPagedDecodeBackend)
+    make = {"make_mesh": lambda: make_mesh(MeshSpec.of(dp=-1)),
+            "default_mesh": lambda: default_mesh("x"),
+            "dp_tp_mesh": lambda: dp_tp_mesh(1, 1),
+            "attention_replica": lambda: ShardedAttentionBackend(dp=2, tp=2),
+            "paged_replica": lambda: ShardedPagedDecodeBackend(dp=2,
+                                                               tp=2)}[entry]
+    with pytest.raises(RuntimeError, match="cuda|device_count"):
+        make()

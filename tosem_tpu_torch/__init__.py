@@ -5,7 +5,8 @@ The JAX package ``tosem_tpu`` stays the reference; this package is built
 beside it slice by slice, with every Pallas kernel on a slice's path
 rewritten by hand in CUDA C++ for ``sm_90a``. Ported so far (the BERT
 serving and training slices, the BERT kernel suite, block-sparse mask
-programs, the serving control plane, and data-parallel training):
+programs, the serving control plane, data-parallel training, and the
+device mesh):
 
 - ``tosem_tpu_torch.ops``     flash attention forward and backward (dense,
                               causal, segment ids, and the schedule mode
@@ -34,6 +35,10 @@ programs, the serving control plane, and data-parallel training):
                               data-parallel training
                               (``DistributedTrainer``: a chain all-reduce
                               over the transport, elastic shrink/grow)
+- ``tosem_tpu_torch.parallel`` meshes of positions, ``shard_map`` and
+                              its collectives, the collective sweep,
+                              sharding rules, sharded flash and paged
+                              attention, ring/Ulysses attention
 - ``tosem_tpu_torch.cluster`` the chunked tensor transport and epoch
                               fences
 - ``tosem_tpu_torch.chaos``   seeded fault plans and the injection seam
@@ -108,6 +113,15 @@ _LAZY_EXPORTS = {
                         "fit_distributed"),
     "make_dp_train_step": ("tosem_tpu_torch.train.distributed",
                            "make_dp_train_step"),
+    "sharded_flash_attention": ("tosem_tpu_torch.parallel.flash",
+                                "sharded_flash_attention"),
+    "ShardedAttentionBackend": ("tosem_tpu_torch.serve.backends",
+                                "ShardedAttentionBackend"),
+    "dp_tp_mesh": ("tosem_tpu_torch.parallel.flash", "dp_tp_mesh"),
+    "sharded_paged_attention": ("tosem_tpu_torch.parallel.flash",
+                                "sharded_paged_attention"),
+    "ShardedPagedDecodeBackend": ("tosem_tpu_torch.serve.backends",
+                                  "ShardedPagedDecodeBackend"),
     "TensorReceiver": ("tosem_tpu_torch.cluster.transport",
                        "TensorReceiver"),
     "send_tensors": ("tosem_tpu_torch.cluster.transport", "send_tensors"),

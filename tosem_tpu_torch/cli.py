@@ -15,6 +15,11 @@ JAX package's CPU shapes (batch 1, seq 128, heads 2, head_dim 32, hidden
 config of the JAX package exits 2 and names the ``ROADMAP.md`` item that
 ports it.
 
+``--config=allreduce`` runs north-star config 3, the collective sweep
+(``parallel/collectives.py``), over a mesh of positions; each row says
+how many positions and cards it ran on, and on one card the "bus" is the
+card's memory.
+
 ``--config=flash_sparse`` runs ``sparse_kernel_suite``: flash forward and
 forward+backward under the block-sparse mask programs causal,
 ``local:1024`` and ``doc:2048+causal`` at [1, 12, 8192, 64] bf16 on the
@@ -36,7 +41,6 @@ NOT_PORTED = {
     "gemm": "A12 (ops/gemm.py)",
     "timing_check": "A12 (utils/timing.py harness checks)",
     "conv_sweep": "A12 (ops/conv.py)",
-    "allreduce": "A10 (parallel/collectives.py)",
     "resnet_train": "A12 (models/resnet.py)",
     "bert_train": "A12 (the CLI's bert_train leg)",
     "flash_autotune": "A4 (block selection and its cache)",
@@ -97,8 +101,44 @@ def run_flash_sparse(args, device) -> List[Any]:
     return rows
 
 
+def run_allreduce(args, device) -> List[Any]:
+    """North-star config 3: the six collectives over a 1-D mesh of
+    positions (8 on the CPU, as the JAX package's tests have 8 virtual
+    devices; 4 a card on cuda, spread over the cards in turn), 1 KB to
+    256 MB a position (``--max_bytes`` caps it; 4 MB on the CPU). On
+    cuda each timing is calibrated to 20 ms windows; the CPU takes one
+    call a timing."""
+    import torch
+    from tosem_tpu_torch.parallel.collectives import (
+        DEFAULT_COLLECTIVE_SWEEP, collective_bench)
+    from tosem_tpu_torch.parallel.mesh import default_mesh
+    if device.type == "cuda":
+        cards = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+        devices = [cards[i % len(cards)] for i in range(4 * len(cards))]
+    else:
+        devices = [device] * 8
+    mesh = default_mesh("x", devices)
+    cap = args.max_bytes or (1 << 22 if device.type == "cpu" else 0)
+    print(f"  {mesh.size} positions on {mesh.cards()} device(s)"
+          + (": the bus is that card's memory, not a link"
+             if device.type == "cuda" and mesh.cards() == 1 else ""))
+    rows = []
+    for spec in DEFAULT_COLLECTIVE_SWEEP:
+        if cap and spec.bytes_per_device > cap:
+            continue
+        row = collective_bench(
+            spec, mesh, n_iter=int(device.type == "cpu"),
+            reps=1 if device.type == "cpu" else 3)
+        rows.append(row)
+        print(f"  {row.bench_id} x{row.n_devices}: "
+              f"{row.value:.2f} {row.unit}")
+    return rows
+
+
 RUNNERS = {"bert_kernels": run_bert_kernels,
-           "flash_sparse": run_flash_sparse}
+           "flash_sparse": run_flash_sparse,
+           "allreduce": run_allreduce}
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -113,6 +153,9 @@ def make_parser() -> argparse.ArgumentParser:
                     help="batch (0 = the config's default)")
     ap.add_argument("--seq", type=int, default=0,
                     help="sequence length (0 = the config's default)")
+    ap.add_argument("--max_bytes", type=int, default=0,
+                    help="allreduce: largest buffer a position (0 = the "
+                         "device's default)")
     return ap
 
 

@@ -72,6 +72,17 @@ class BertConfig:
                    mlp_dim=64, dropout=0.0)
 
 
+# rows in one LM-head GEMM of the decode steps (Bert._head_rows): one
+# tile holds a greedy step of 8 rows or a speculative step of 8 x 4
+HEAD_ROWS = 32
+
+
+def _norm(ln, x, per_row):
+    """``ln(x)``, or its row-invariant form (``LayerNorm.rows``): the
+    decode steps' layernorms."""
+    return ln.rows(x) if per_row else ln(x)
+
+
 def _torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, str(name))
 
@@ -103,13 +114,15 @@ class EncoderLayer(nn.Module):
         h = self.drop(h, train=train, generator=generator)
         return x + h
 
-    def mlp_residual(self, x):
-        """The layer's second half (eval): ``x + fc2(gelu(fc1(ln2(x))))``."""
-        return x + self.fc2(gelu(self.fc1(self.ln2(x))))
+    def mlp_residual(self, x, per_row=False):
+        """The layer's second half (eval): ``x + fc2(gelu(fc1(ln2(x))))``;
+        ``per_row`` takes ln2's row-invariant form."""
+        return x + self.fc2(gelu(self.fc1(_norm(self.ln2, x, per_row))))
 
-    def qkv(self, x, shape):
-        """ln1 then the q/k/v projections, reshaped to ``shape``."""
-        h = self.ln1(x)
+    def qkv(self, x, shape, per_row=False):
+        """ln1 then the q/k/v projections, reshaped to ``shape``;
+        ``per_row`` takes ln1's row-invariant form."""
+        h = _norm(self.ln1, x, per_row)
         a = self.attn
         return (a.q(h).reshape(shape), a.k(h).reshape(shape),
                 a.v(h).reshape(shape))
@@ -205,12 +218,30 @@ class Bert(nn.Module):
             raise ValueError("decode path is inference-only; set "
                              "remat='none'")
 
-    def _embed(self, ids, pos_ids):
+    def _embed(self, ids, pos_ids, per_row=False):
         """Shared embedding stack (ids + pos -> ln_emb), eval mode."""
-        return self.ln_emb(self.tok(ids) + self.pos(pos_ids))
+        return _norm(self.ln_emb, self.tok(ids) + self.pos(pos_ids), per_row)
 
     def _head(self, h):
         return self.tok.attend(self.ln_out(h).float())
+
+    def _head_rows(self, h):
+        """The decode steps' LM head: ``h`` [..., dim] -> fp32 logits
+        [..., vocab], ``ln_out``'s row-invariant form, then the rows in
+        tiles of :data:`HEAD_ROWS` (the last padded with zeros), one GEMM
+        of one shape a tile. cuBLAS picks its GEMM by the row count, so a
+        row gets the same bits whether 8 rows (a greedy step) or 32 (a
+        speculative step of 4) share the call."""
+        x = self.ln_out.rows(h).float()
+        lead = x.shape[:-1]
+        x = x.reshape(-1, x.shape[-1])
+        n = x.shape[0]
+        if n % HEAD_ROWS:
+            x = torch.cat([x, x.new_zeros(HEAD_ROWS - n % HEAD_ROWS,
+                                          x.shape[1])])
+        tiles = [self.tok.attend(t) for t in x.split(HEAD_ROWS)]
+        out = tiles[0] if len(tiles) == 1 else torch.cat(tiles)
+        return out[:n].reshape(*lead, -1)
 
     def prefill_fn(self, *, attn_fn=None):
         """Causal prefill: ``fwd(ids [B,T], mask [B,T]) -> (logits
@@ -245,7 +276,8 @@ class Bert(nn.Module):
 
         @torch.no_grad()
         def fwd(ids, positions, k_pool, v_pool, block_tables, seq_lens):
-            h = self._embed(ids[:, None], positions[:, None])[:, 0]
+            h = self._embed(ids[:, None], positions[:, None],
+                            per_row=True)[:, 0]
             act = torch.nonzero(seq_lens > 0).flatten()
             pos_a = positions[act].long()
             pages = block_tables[act, pos_a // page_size].long()
@@ -254,7 +286,7 @@ class Bert(nn.Module):
                 h = _decode_layer_step(layer, h, i, k_pool, v_pool, act,
                                        pages, rows, block_tables, seq_lens,
                                        backend)
-            return self._head(h), k_pool, v_pool
+            return self._head_rows(h), k_pool, v_pool
         return fwd
 
     def decode_multi_fn(self, *, page_size: int, q_tokens: int,
@@ -278,7 +310,7 @@ class Bert(nn.Module):
             sl = seq_lens.to(torch.int32)
             kr = q_rows.to(torch.int32)
             po = page_offsets.to(torch.int32)
-            h = self._embed(ids, positions)                # [B, K, dim]
+            h = self._embed(ids, positions, per_row=True)  # [B, K, dim]
             col = torch.arange(K, device=ids.device)[None, :]
             active = (sl[:, None] > 0) & (col < kr[:, None])
             b_a, r_a = torch.nonzero(active, as_tuple=True)
@@ -291,7 +323,7 @@ class Bert(nn.Module):
                                         (b_a, r_a), pages, rows,
                                         block_tables, sl, kr, po, backend,
                                         window)
-            return self._head(h), k_pool, v_pool
+            return self._head_rows(h), k_pool, v_pool
         return fwd
 
 
@@ -344,13 +376,13 @@ def _decode_layer_step(layer, x, layer_idx, k_pool, v_pool, act, pages,
     from tosem_tpu_torch.ops.paged_attention import paged_attention
     B = x.shape[0]
     attn = layer.attn
-    q, k, v = layer.qkv(x, (B, attn.heads, attn.head_dim))
+    q, k, v = layer.qkv(x, (B, attn.heads, attn.head_dim), per_row=True)
     k_pool[layer_idx, pages, rows] = k[act].to(k_pool.dtype)
     v_pool[layer_idx, pages, rows] = v[act].to(v_pool.dtype)
     out = paged_attention(q, k_pool[layer_idx], v_pool[layer_idx],
                           block_tables, seq_lens, backend=backend)
     out = attn.o(out.reshape(B, attn.dim).to(x.dtype))
-    return layer.mlp_residual(x + out)
+    return layer.mlp_residual(x + out, per_row=True)
 
 
 def _decode_layer_multi(layer, x, layer_idx, k_pool, v_pool, act, pages,
@@ -361,7 +393,7 @@ def _decode_layer_multi(layer, x, layer_idx, k_pool, v_pool, act, pages,
     from tosem_tpu_torch.ops.paged_attention import paged_attention
     B, K, _ = x.shape
     attn = layer.attn
-    q, k, v = layer.qkv(x, (B, K, attn.heads, attn.head_dim))
+    q, k, v = layer.qkv(x, (B, K, attn.heads, attn.head_dim), per_row=True)
     k_pool[layer_idx, pages, rows] = k[act].to(k_pool.dtype)
     v_pool[layer_idx, pages, rows] = v[act].to(v_pool.dtype)
     out = paged_attention(q, k_pool[layer_idx], v_pool[layer_idx],
@@ -369,7 +401,7 @@ def _decode_layer_multi(layer, x, layer_idx, k_pool, v_pool, act, pages,
                           q_rows=q_rows, window=window,
                           page_offsets=page_offsets)
     out = attn.o(out.reshape(B, K, attn.dim).to(x.dtype))
-    return layer.mlp_residual(x + out)
+    return layer.mlp_residual(x + out, per_row=True)
 
 
 def pad_ids_batch(id_seqs, pad_to: int, pad_batch_to: int = 0):

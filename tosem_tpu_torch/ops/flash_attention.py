@@ -426,7 +426,7 @@ def _flash_fwd_cuda(q, k, v, segment_ids, causal, sm_scale, layout,
                            Tk // FLASH_BK)
     code = _kernel("flash_fwd", name)(*args, *mode, stream)
     _build.check(code, name)
-    registry.LAUNCH_COUNTS[name] += 1
+    registry.count_launch(name)
     return out, lse
 
 
@@ -482,7 +482,7 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, segment_ids, causal,
         *_strides(dk, layout), *_strides(dv, layout), float(sm_scale),
         *mode, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, name)
-    registry.LAUNCH_COUNTS[name] += 1
+    registry.count_launch(name)
     return dk, dv
 
 
@@ -500,7 +500,7 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, segment_ids, causal,
         float(sm_scale), *mode,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, name)
-    registry.LAUNCH_COUNTS[name] += 1
+    registry.count_launch(name)
     return dq
 
 

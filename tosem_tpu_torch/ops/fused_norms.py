@@ -166,7 +166,7 @@ def _ln_fwd_cuda(x2, gamma, beta, eps):
         x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
         mu.data_ptr(), rstd.data_ptr(), R, D, float(eps), _stream(x2))
     _build.check(code, "ln_fwd")
-    registry.LAUNCH_COUNTS["ln_fwd"] += 1
+    registry.count_launch("ln_fwd")
     return y, mu, rstd
 
 
@@ -200,7 +200,7 @@ def _ln_bwd_cuda(x2, gamma, mu, rstd, dy2):
         parts[1].data_ptr(), dg.data_ptr(), db.data_ptr(), R, D, n_parts,
         _stream(x2))
     _build.check(code, "ln_bwd")
-    registry.LAUNCH_COUNTS["ln_bwd"] += 1
+    registry.count_launch("ln_bwd")
     return dx, dg, db
 
 
@@ -213,7 +213,7 @@ def _sm_fwd_cuda(x2):
     code = _kernel("sm_fwd")(_DTYPE_CODE[x2.dtype], vecs, x2.data_ptr(),
                              y.data_ptr(), R, N, _stream(x2))
     _build.check(code, "sm_fwd")
-    registry.LAUNCH_COUNTS["sm_fwd"] += 1
+    registry.count_launch("sm_fwd")
     return y
 
 
@@ -228,7 +228,7 @@ def _sm_bwd_cuda(y2, dy2):
                              dy2.data_ptr(), dx.data_ptr(), R, N,
                              _stream(y2))
     _build.check(code, "sm_bwd")
-    registry.LAUNCH_COUNTS["sm_bwd"] += 1
+    registry.count_launch("sm_bwd")
     return dx
 
 

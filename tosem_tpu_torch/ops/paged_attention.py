@@ -72,8 +72,14 @@ def _gather(pages, block_tables):
 def _attend_rows(q, k, v, pos, bound, window, sm_scale):
     """One query row per sequence: q [B, H, D] over gathered k/v
     [B, T, H, D]; key t of sequence b sits at position ``pos[b, t]`` and
-    is visible when ``pos <= bound[b]`` (and inside the window)."""
-    s = torch.einsum("bhd,bthd->bht", q.float(), k.float()) * sm_scale
+    is visible when ``pos <= bound[b]`` (and inside the window). The dot
+    products are products summed over the last dim, not a batched
+    matmul (whose CPU kernel changes with the batch count), each
+    reduced over the contiguous last dim of a fresh product, so a
+    (sequence, head) cell gets the same bits however many share the
+    call, as on the card: a sharded call equals the unsharded one."""
+    s = (q.float()[:, :, None] * k.float().permute(0, 2, 1, 3)).sum(-1) \
+        * sm_scale
     valid = pos <= bound[:, None]
     if window is not None:
         valid = valid & (pos > bound[:, None] - window)
@@ -85,7 +91,7 @@ def _attend_rows(q, k, v, pos, bound, window, sm_scale):
     l = p.sum(-1, keepdim=True)
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     p = (p / l).to(v.dtype)
-    out = torch.einsum("bht,bthd->bhd", p.float(), v.float())
+    out = (p.float()[:, :, None] * v.float().permute(0, 2, 3, 1)).sum(-1)
     return out.to(q.dtype)
 
 
@@ -217,7 +223,7 @@ def _paged_decode_cuda(q, k_pages, v_pages, block_tables, seq_lens,
         seq_lens.data_ptr(), part.data_ptr(), B, H, W, page, ppc, n_chunks,
         float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "paged_decode")
-    registry.LAUNCH_COUNTS["paged_decode"] += 1
+    registry.count_launch("paged_decode")
     return out
 
 
@@ -244,7 +250,7 @@ def _paged_decode_multi_cuda(q, k_pages, v_pages, block_tables, seq_lens,
         0 if window is None else int(window), float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "paged_decode_multi")
-    registry.LAUNCH_COUNTS["paged_decode_multi"] += 1
+    registry.count_launch("paged_decode_multi")
     return out
 
 
@@ -298,6 +304,29 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
                                    block_tables, seq_lens, q_rows,
                                    page_offsets, scale, window)
     return out if multi else out[:, 0]
+
+
+def paged_partition_specs(data_axis="dp", model_axis="tp", multi=False):
+    """The partition specs that shard this kernel over a mesh
+    (:func:`tosem_tpu_torch.parallel.flash.sharded_paged_attention`): the
+    KV pools shard their HEAD dim over the model axis (each position owns
+    its heads' slice of every page, so a block-table id resolves locally),
+    q shards batch over data and heads over model, and the per-sequence
+    operands (block tables, seq lens, ``q_rows``, ``page_offsets``) follow
+    the batch. A dict keyed by operand name; ``multi`` selects the [B, K,
+    H, D] query layout."""
+    from tosem_tpu_torch.parallel.spmd import P
+    q_spec = (P(data_axis, None, model_axis, None) if multi
+              else P(data_axis, model_axis, None))
+    return {
+        "q": q_spec,
+        "kv_pages": P(None, None, model_axis, None),
+        "block_tables": P(data_axis, None),
+        "seq_lens": P(data_axis),
+        "q_rows": P(data_axis),
+        "page_offsets": P(data_axis),
+        "out": q_spec,
+    }
 
 
 def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,

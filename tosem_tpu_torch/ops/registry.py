@@ -19,11 +19,16 @@ fallback left is in :func:`tosem_tpu_torch.nn.attention.flash_attn_fn`,
 for dense masks that no kernel mode covers (:data:`FALLBACK_COUNTS`).
 
 :data:`LAUNCH_COUNTS` holds one plain integer per kernel; each wrapper
-adds one where it launches its kernel and nowhere else.
+adds one through :func:`count_launch` where it launches its kernel and
+nowhere else. The add takes a lock: the positions of a mesh
+(``tosem_tpu_torch.parallel``) and the ranks of a data-parallel job are
+threads that launch at once, and ``+= 1`` on a dict entry is a
+read-modify-write the interpreter may interleave.
 """
 from __future__ import annotations
 
 import collections
+import threading
 from typing import Dict, Optional
 
 FAMILIES = ("flash", "schedule", "paged", "norms")
@@ -90,6 +95,16 @@ def resolve(family: str, backend: Optional[str] = None, *,
     return backend
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``."""
+    with _COUNT_LOCK:
+        LAUNCH_COUNTS[name] += 1
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCH_COUNTS:
-        LAUNCH_COUNTS[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCH_COUNTS:
+            LAUNCH_COUNTS[name] = 0

@@ -27,6 +27,8 @@ _LAZY_EXPORTS = {
     "DecodePolicy": "batching", "DecodeQueue": "batching",
     "SamplingPolicy": "batching",
     "BertEncodeBackend": "backends", "BertDecodeBackend": "backends",
+    "ShardedAttentionBackend": "backends",
+    "ShardedPagedDecodeBackend": "backends",
 }
 
 __all__ = sorted(_LAZY_EXPORTS)

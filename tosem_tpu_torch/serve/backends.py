@@ -29,6 +29,13 @@ forks, and ``session`` requests keep their KV for the next turn (see
 :class:`BertDecodeBackend`). Streaming a sequence to a peer's receiver
 (``send_to``, ``send_seq``/``adopt_seq``) waits for the transport
 (ROADMAP.md A11).
+
+:class:`ShardedPagedDecodeBackend` and :class:`ShardedAttentionBackend`
+are one logical replica over a ``dp x tp`` mesh of positions on one
+device (:mod:`tosem_tpu_torch.parallel`), answering seeded workloads
+that their ``reference()`` computes through the unsharded kernels;
+deploying them across nodes (``ClusterServe.deploy(sharding=)``) waits
+for ROADMAP.md A11.
 """
 from __future__ import annotations
 
@@ -1460,3 +1467,175 @@ class BertDecodeBackend(CompiledBackendMixin):
         with self._lock:
             out["decode_sequences"] = len(self._seqs) + len(self._groups)
         return out
+
+
+# ---------------------------------------------------------------------------
+# sharded replicas
+
+
+def _positions(dp: int, tp: int, batch: int, heads: int, device):
+    """The ``(dp, tp)`` mesh of a sharded replica, every position on
+    ``device``, after the divisibility checks."""
+    from tosem_tpu_torch.ops.common import resolve_device
+    from tosem_tpu_torch.parallel.flash import dp_tp_mesh
+    if batch % dp:
+        raise ValueError(f"batch={batch} not divisible by dp={dp}")
+    if heads % tp:
+        raise ValueError(f"heads={heads} not divisible by tp={tp}")
+    dev = resolve_device(device)
+    return dev, dp_tp_mesh(dp, tp, devices=[dev] * (dp * tp))
+
+
+class ShardedPagedDecodeBackend:
+    """Sharded DECODE replica: one logical replica running paged decode
+    attention over a ``dp x tp`` mesh whose positions all sit on
+    ``device`` (default ``"cuda"``), through
+    :func:`~tosem_tpu_torch.parallel.flash.sharded_paged_attention`: KV
+    pools sharded over the model axis, the batch over dp, block tables
+    and seq lens following the batch. Requests are ``{"seed": int[,
+    "q_tokens": k, "offsets": bool]}``: the replica derives a paged fp32
+    workload from the seed with numpy, byte for byte the JAX package's,
+    so :meth:`reference` computes the same inputs through the unsharded
+    kernel, and the two agree bit for bit (decode attention reduces only
+    within a (batch row, head) cell)."""
+
+    def __init__(self, dp: int = 1, tp: int = 1, batch: int = 4,
+                 heads: int = 4, head_dim: int = 16, pages: int = 16,
+                 page_size: int = 8, table_w: int = 4,
+                 window: Optional[int] = None,
+                 backend: Optional[str] = None, device="cuda"):
+        from tosem_tpu_torch.parallel.flash import sharded_paged_attention
+        self.device, self._mesh = _positions(dp, tp, batch, heads, device)
+        self.dp, self.tp = dp, tp
+        self.dims = dict(batch=batch, heads=heads, head_dim=head_dim,
+                         pages=pages, page_size=page_size,
+                         table_w=table_w)
+        self.window = window
+        self.backend = backend
+        self._run = sharded_paged_attention(self._mesh, window=window,
+                                            backend=backend)
+
+    @staticmethod
+    def _workload(req_seed: int, *, batch, heads, head_dim, pages,
+                  page_size, table_w, q_tokens=0, offsets=False):
+        """Deterministic paged-decode inputs: a pure function of the
+        seed, byte-equal wherever it is computed."""
+        rng = np.random.default_rng(0xDEC0DE + req_seed)
+        if q_tokens:
+            q = rng.standard_normal((batch, q_tokens, heads, head_dim)
+                                    ).astype(np.float32)
+        else:
+            q = rng.standard_normal((batch, heads, head_dim)
+                                    ).astype(np.float32)
+        kp = rng.standard_normal((pages, page_size, heads, head_dim)
+                                 ).astype(np.float32)
+        vp = rng.standard_normal((pages, page_size, heads, head_dim)
+                                 ).astype(np.float32)
+        bt = rng.integers(0, pages, (batch, table_w)).astype(np.int32)
+        po = (rng.integers(0, 2, (batch,)).astype(np.int32)
+              if offsets else None)
+        lo = 1 if not q_tokens else max(q_tokens, 1)
+        sl = rng.integers(lo, table_w * page_size + 1,
+                          (batch,)).astype(np.int32)
+        if po is not None:
+            sl = np.minimum(sl + po * page_size,
+                            (po + table_w) * page_size).astype(np.int32)
+        kr = (rng.integers(1, q_tokens + 1, (batch,)).astype(np.int32)
+              if q_tokens else None)
+        return q, kp, vp, bt, sl, kr, po
+
+    @classmethod
+    def _tensors(cls, request, device, dims):
+        arrays = cls._workload(
+            int(request.get("seed", 0)), **dims,
+            q_tokens=int(request.get("q_tokens", 0) or 0),
+            offsets=bool(request.get("offsets", False)))
+        return [None if a is None else torch.as_tensor(a, device=device)
+                for a in arrays]
+
+    def call(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        q, kp, vp, bt, sl, kr, po = self._tensors(request, self.device,
+                                                  self.dims)
+        out = self._run(q, kp, vp, bt, sl, q_rows=kr, page_offsets=po)
+        return {"out": out.cpu().numpy(), "mesh": [self.dp, self.tp],
+                "devices": self._mesh.size, "cards": self._mesh.cards()}
+
+    def warmup(self, shapes: Sequence) -> Dict[str, Any]:
+        self.call({"seed": 0})
+        return {"warmed": 1}
+
+    @classmethod
+    def reference(cls, request: Dict[str, Any],
+                  window: Optional[int] = None, device="cuda", **dims):
+        """The unsharded kernel on the same inputs: what a dp x tp
+        response must equal bit for bit."""
+        from tosem_tpu_torch.ops.common import resolve_device
+        from tosem_tpu_torch.ops.paged_attention import paged_attention
+        full = dict(batch=4, heads=4, head_dim=16, pages=16,
+                    page_size=8, table_w=4)
+        full.update(dims)
+        q, kp, vp, bt, sl, kr, po = cls._tensors(
+            request, resolve_device(device), full)
+        return paged_attention(q, kp, vp, bt, sl, q_rows=kr, window=window,
+                               page_offsets=po).cpu().numpy()
+
+
+class ShardedAttentionBackend:
+    """Sharded serve replica: ONE logical replica spanning a ``dp x tp``
+    mesh whose positions all sit on ``device`` (default ``"cuda"``),
+    answering through :func:`~tosem_tpu_torch.parallel.flash.
+    sharded_flash_attention`: batch over dp, heads over tp, each position
+    the unmodified flash forward (B1). Requests are ``{"seed": int}``:
+    the replica derives fp32 (q, k, v) from the seed with numpy, byte for
+    byte the JAX package's, so :meth:`reference` runs the same inputs
+    through the unsharded kernel and the two agree bit for bit (sharding
+    splits batch and heads, never the softmax's reduction axis)."""
+
+    def __init__(self, dp: int = 1, tp: int = 1, batch: int = 4,
+                 heads: int = 4, seq: int = 128, dim: int = 64,
+                 causal: bool = True, seed: int = 0, device="cuda"):
+        from tosem_tpu_torch.parallel.flash import sharded_flash_attention
+        self.device, self._mesh = _positions(dp, tp, batch, heads, device)
+        self.dp, self.tp = dp, tp
+        self.batch, self.heads, self.seq, self.dim = batch, heads, seq, dim
+        self.causal = causal
+        self.seed = seed
+        self._run = sharded_flash_attention(self._mesh, causal=causal)
+
+    @staticmethod
+    def _qkv(batch: int, heads: int, seq: int, dim: int, req_seed: int):
+        """Deterministic request inputs: a pure function of the seed, so
+        replica and reference build byte-equal arrays independently."""
+        rng = np.random.default_rng(0xC1A0 + req_seed)
+        shape = (batch, seq, heads, dim)
+        return (rng.standard_normal(shape, dtype=np.float32),
+                rng.standard_normal(shape, dtype=np.float32),
+                rng.standard_normal(shape, dtype=np.float32))
+
+    def call(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        q, k, v = (torch.as_tensor(a, device=self.device) for a in self._qkv(
+            self.batch, self.heads, self.seq, self.dim,
+            int(request.get("seed", 0))))
+        out = self._run(q, k, v)
+        return {"out": out.cpu().numpy(), "mesh": [self.dp, self.tp],
+                "devices": self._mesh.size, "cards": self._mesh.cards()}
+
+    def warmup(self, shapes: Sequence) -> Dict[str, Any]:
+        """One call (``shapes`` is ignored: this backend serves one
+        static shape)."""
+        self.call({"seed": 0})
+        return {"warmed": 1}
+
+    @classmethod
+    def reference(cls, request: Dict[str, Any], batch: int = 4,
+                  heads: int = 4, seq: int = 128, dim: int = 64,
+                  causal: bool = True, device="cuda"):
+        """The unsharded kernel on the same inputs, no mesh: what a
+        dp x tp response must equal bit for bit."""
+        from tosem_tpu_torch.ops.common import resolve_device
+        from tosem_tpu_torch.ops.flash_attention import flash_attention
+        dev = resolve_device(device)
+        q, k, v = (torch.as_tensor(a, device=dev) for a in cls._qkv(
+            batch, heads, seq, dim, int(request.get("seed", 0))))
+        return flash_attention(q, k, v, None, causal,
+                               layout="bthd").cpu().numpy()

@@ -23,11 +23,13 @@ everything else falls out of it:
   or grow. It rests on every op of a shard's step giving the same bits
   for the same rows whatever runs beside it (no atomics that add into
   one address from several threads).
-- **One reduction lowering here.** The fold rides
+- **Two reduction lowerings.** The trainer's fold rides
   :mod:`tosem_tpu_torch.cluster.transport` chunked streams
-  worker→worker. The reference's on-device collective arm
-  (``make_dp_train_step(reduce="shard_map")``) needs a mesh type
-  (``parallel/mesh.py``, ROADMAP.md A10) and raises, naming it.
+  worker→worker. The single-process arm
+  ``make_dp_train_step(reduce="shard_map")`` computes each shard's
+  gradients in a position of a dp mesh
+  (:func:`tosem_tpu_torch.parallel.spmd.shard_map`) and sums them on the
+  device with ``psum``, the same left fold in shard order.
 - **Bucketed all-reduce overlapped with backward.** Parameters are
   grouped into size-targeted buckets (:func:`partition_buckets`;
   uneven tails and oversized leaves get their own buckets). Jobs that
@@ -908,8 +910,15 @@ def make_dp_train_step(job: DPJob, reduce: str = "local",
     - ``reduce="local"``: sequential shards + the canonical left fold —
       BIT-identical to the transport arm at any world size (the
       reference the tests pin against).
-    - ``reduce="shard_map"``: the reference's on-device collective arm;
-      it needs a mesh (ROADMAP.md A10) and raises.
+    - ``reduce="shard_map"``: the on-device collective arm. Each
+      position of ``mesh``'s ``dp_axis`` (its size must equal ``grain``)
+      computes its shard's loss and gradients inside a
+      :func:`~tosem_tpu_torch.parallel.spmd.shard_map` body, on its block
+      of the global batch, with the shard's generator; the bodies
+      ``psum`` them (no collective inside an autograd graph), and
+      ``job.apply`` runs once on the sum. The psum folds in shard order
+      on the device, where the local arm folds host copies, so the JAX
+      package holds the two arms to float parity only.
     """
     if reduce == "local":
         def step_fn(state: DPState, batch=None, rng=None):
@@ -928,8 +937,32 @@ def make_dp_train_step(job: DPJob, reduce: str = "local",
         return step_fn
     if reduce != "shard_map":
         raise ValueError(f"unknown reduce lowering {reduce!r}")
-    raise _not_ported("make_dp_train_step(reduce='shard_map'), the "
-                      "on-device collective arm over a dp mesh", "A10")
+    from tosem_tpu_torch.parallel.spmd import P, axis_index, psum, shard_map
+    if mesh is None:
+        raise ValueError("reduce='shard_map' needs a mesh")
+    if mesh.shape.get(dp_axis) != job.grain:
+        raise ValueError(f"mesh axis {dp_axis!r} size "
+                         f"{mesh.shape.get(dp_axis)} != grain {job.grain}")
+
+    def body(params, batch, step):
+        rng = job.shard_rng(step, axis_index(dp_axis))
+        total, leaves = None, []
+        for name in job.stage_names:
+            loss, grads = job.stage_grad(name)(params, batch, rng)
+            total = loss if total is None else total + loss
+            leaves.extend(grads)
+        return psum((total, leaves), dp_axis)
+
+    sharded = shard_map(body, mesh, in_specs=(P(), P(dp_axis), P()),
+                        out_specs=P())
+
+    def step_fn(state: DPState, batch=None, rng=None):
+        loss, grads = sharded(state.params, job.batch_fn(state.step),
+                              state.step)
+        new_state = job.apply(state, grads)
+        return new_state, {"loss": _mean_loss(np.float32(loss.item()),
+                                              job.grain)}
+    return step_fn
 
 
 # ------------------------------------------------------------ demo job

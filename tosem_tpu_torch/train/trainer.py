@@ -11,8 +11,9 @@ package passed an ``rng`` key.
 
 Data-parallel training over the tensor transport is
 :mod:`tosem_tpu_torch.train.distributed`. The steps over a device mesh
-(``mesh=``, ``shard_batch``, ``make_partitioned_train_step``) need a
-mesh type and are not ported yet (``ROADMAP.md`` A10), nor is
+(``mesh=``, ``shard_batch``, ``make_partitioned_train_step``) compute
+the global step over a mesh and are not ported yet (``ROADMAP.md``
+A10's remainder: global-semantics mesh training), nor is
 ``classification_loss`` (it waits for ResNet, A12).
 """
 from __future__ import annotations
@@ -121,7 +122,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     ``metrics`` holds the loss (a 0-d tensor, not synchronised) and the
     loss function's aux values."""
     if mesh is not None:
-        raise _not_ported("train steps over a device mesh (mesh=)", "A10")
+        raise _not_ported("train steps over a device mesh (mesh=)",
+                          "A10's remainder: global-semantics mesh training")
 
     def step(state: TrainState, batch, generator=None):
         if state.model is not model or state.optimizer is not optimizer:
@@ -144,11 +146,13 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
 
 
 def make_partitioned_train_step(*args, **kwargs):
-    raise _not_ported("partitioned (tp/sp/dp) train steps", "A10")
+    raise _not_ported("partitioned (tp/sp/dp) train steps",
+                      "A10's remainder: global-semantics mesh training")
 
 
 def shard_batch(*args, **kwargs):
-    raise _not_ported("batch sharding over a mesh", "A10")
+    raise _not_ported("batch sharding over a mesh",
+                      "A10's remainder: global-semantics mesh training")
 
 
 def fold_in(seed: int, step: int) -> int:
