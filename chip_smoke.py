@@ -106,13 +106,20 @@ Phases, each printing one JSON line:
               B1, B4 and B5 must launch in the replicas; the deployment
               must count 9 sequences ok and none failed, its breaker
               closed. Then a disaggregated deployment (a prefill replica
-              handing each sequence over by export to a decode replica
-              of 16 pages) serves the 8 prompts at once: streams equal
-              the direct ones, spills, restores and 8 migrations with no
-              fallback. After shutdown no replica process may hold the
-              card. Prints TTFT through HTTP, served tokens/s and ms a
-              scheduler step beside the replica's own admit and step
-              times, and the micro-batches the queue formed.
+              streaming each sequence replica to replica, ``admit(
+              send_to=)`` then ``adopt_seq``, to a decode replica of 16
+              pages) serves the 8 prompts at once: streams equal the
+              direct ones, spills, restores and 8 migrations with no
+              fallback, at least 8 hand-offs streamed and none by export.
+              After shutdown no replica process may hold the card. Prints
+              TTFT through HTTP, served tokens/s and ms a scheduler step
+              beside the replica's own admit and step times, and the
+              micro-batches the queue formed. Then two decode backends in
+              the phase's process: a sequence streamed between them
+              arrives as bf16 tensors and lands byte for byte, and a
+              prefix moved over (``send_prefix``, ``adopt_prefix``)
+              gives the peer a hit whose stream equals the cold one, its
+              logits rows within ROW_TOL of the cold backend's.
 4b. encode_sparse — long-document BERT-base encode: ``BertEncodeBackend``
               with ``local_window=128`` and with ``doc_len=128``, 8
               requests of 300-500 ids padded to 512, on B1's schedule
@@ -171,6 +178,25 @@ Phases, each printing one JSON line:
               each timing calibrated to 20 ms windows),
               each row beside the card's name and power limit; on one
               card the "bus" is its memory.
+7c. pipeline — BERT-base as a GPipe pipeline over pp = 4 positions on
+              the card (3 layers a stage, 8 x 512 in 4 microbatches,
+              flash attention): the encodings equal the layers applied
+              in turn to the same microbatches bit for bit and lie within
+              2e-2 of the unmicrobatched encoder; B1 launches 84 a
+              forward; fp32 MLM gradients within 1e-3 of the sequential
+              model's per tensor (a wrong model must break it), B1, B2
+              and B3 48 each in the backward; forward and forward +
+              backward ms beside the encoder's, and the bubble share.
+7d. mesh_train — the global-batch mesh steps on the card:
+              ``make_partitioned_train_step`` over (dp, tp, sp) = (2, 2,
+              2) and ``make_train_step(mesh=)`` over dp = 4 on a batch
+              whose dp shards are masked 40% and 5%; fp32 under SGD within
+              1e-3 of the unsharded step per tensor, the mean of the
+              shards' means breaking it; in bf16 a one-position mesh
+              equal to the unsharded step bit for bit, the rules' layout
+              after each step, no device tensor beyond the blocks and
+              moments held between steps, B1-B3 12 a position a step,
+              step ms and peak memory.
 8. suite    — north-star config 5 through the port's experiment runner,
               ``tosem_tpu_torch.cli --config=bert_kernels`` (BERT-base:
               8 x 512, 12 heads of 64, hidden 768, bf16) into a
@@ -182,20 +208,23 @@ Phases, each printing one JSON line:
               forward+backward). Every row must read under the card's
               peak (a row above it means a timing window closed early).
 
-``--phases`` picks a subset (default: all thirteen), e.g. ``build,kernels``
+``--phases`` picks a subset (default: all fifteen), e.g. ``build,kernels``
 for a first call after a kernel change, ``build,kernels,train`` for the
 training path, ``build,train_dp`` for data-parallel training,
-``build,parallel`` for the device mesh,
+``build,parallel`` for the device mesh, ``build,pipeline,mesh_train``
+for the pipeline and the global-batch mesh steps,
 ``build,kernels,suite`` for the kernel suite,
 ``build,decode,serve`` for the served path, or
 ``build,kernels,decode,decode_modes,serve`` for the decode modes.
 
 The launch counts of every kernel are set to 0 just before the decode,
 each decode mode, the encode, the sparse encode, the train, each
-data-parallel run, each sharded path and the suite paths run and
-read just after (the serve path's inside its replicas: set to 0 as
+data-parallel run, each sharded path, the pipelined forward and
+backward, each mesh train run and the suite paths run and read just
+after (the serve path's inside its replicas: set to 0 as
 deploy's warm-up ends, read after the traffic); a kernel of the path
-that never launched fails the run. Before the last line it prints the card's name and
+that never launched fails the run. A ``seconds`` line gives each
+phase's time. Before the last line it prints the card's name and
 power limit (``nvidia-smi``) and one ``{"kernels": [...]}`` line; the last
 line is ``{"ok": true, "device": {...}}``. Any failure raises.
 """
@@ -2155,7 +2184,8 @@ def rows_on(be, cid, ids, tag=None):
     return got
 
 
-def hold_rows(what, want, got, extra=None, exact=False):
+def hold_rows(what, want, got, extra=None, exact=False,
+              phase="decode_modes"):
     """Hold the logits rows ``got`` against ``want`` ({(sequence,
     position): row}) where both computed one (one side's keys must all
     be the other's): within ROW_TOL of the largest logit, or bit for bit
@@ -2182,7 +2212,7 @@ def hold_rows(what, want, got, extra=None, exact=False):
     for name, rows in (extra or {}).items():
         rec[name] = min(float(np.abs(r - want[k]).max())
                         for k, r in rows.items())
-    emit({"phase": "decode_modes", f"{what}_rows": rec})
+    emit({"phase": phase, f"{what}_rows": rec})
     check(err <= limit, f"{what}: logits rows differ: {rec}")
     check(len(off) >= 1 and min(off) > limit,
           f"{what}: the rows check cannot see a row one position off: "
@@ -2915,8 +2945,9 @@ def phase_serve(dev, seed, new_tokens, direct=None):
     (micro-batches in padding buckets); 8 streamed decodes arrive at once
     over ``HttpIngress``, then the prefix-hit prompt, then 8 encodes
     through a handle; then the 8 decodes again, at once, to a
-    disaggregated deployment (a prefill replica handing each sequence to
-    a decode replica of 16 pages by export, which must spill). ``direct``
+    disaggregated deployment (a prefill replica streaming each sequence to
+    a decode replica of 16 pages, which must spill), and the transfer leg
+    (:func:`transfer_leg`). ``direct``
     carries the decode phase's streams when it ran. Returns the kernels'
     launch counts read inside the replicas."""
     import threading
@@ -3060,6 +3091,9 @@ def phase_serve(dev, seed, new_tokens, direct=None):
                 "kv_spills", "kv_restores", "kv_migrations",
                 "kv_migration_fallbacks", "seqs_readmitted_step0")},
             "replica_admit_ms": [r["admit_ms"] for r in dis_reps],
+            "handoffs": {route: sum(r[f"handoffs_{route}"]
+                                    for r in dis_reps)
+                         for route in ("sent", "adopted", "exported")},
             "launches": [r["launch_counts"] for r in dis_reps]}
 
         # deployment state, the ingress' stats and the decode gauges
@@ -3137,6 +3171,7 @@ def phase_serve(dev, seed, new_tokens, direct=None):
               f"{np.abs(got_enc['pooled'] - want['pooled']).max()})")
     del direct_enc
     torch.cuda.empty_cache()
+    xfer = transfer_leg(dev, seed, new_tokens, prompts, hit_prompt, cold_hit)
     dl, el = out["launches"]["decode"], out["launches"]["encode"]
     for name in ("flash_fwd", "paged_decode", "paged_decode_multi"):
         check(dl[name] > 0, f"{name} never launched in the decode replica")
@@ -3157,6 +3192,10 @@ def phase_serve(dev, seed, new_tokens, direct=None):
           f"the 16-page decode replica never spilled and restored: {dd}")
     check(dd["kv_migrations"] >= 8 and dd["kv_migration_fallbacks"] == 0,
           f"prefilled sequences did not all migrate: {dd}")
+    ho = dd["handoffs"]
+    check(ho["sent"] >= 8 and ho["adopted"] == ho["sent"]
+          and ho["exported"] == 0,
+          f"hand-offs did not all stream replica to replica: {ho}")
     check(dd["sequences_ok"] == 8 and dd["sequences_err"] == 0,
           f"disaggregated sequences: {dd}")
     dis_l = {k: sum(r.get(k, 0) for r in dd["launches"]) for k in KERNELS}
@@ -3171,8 +3210,90 @@ def phase_serve(dev, seed, new_tokens, direct=None):
     missing = [g for g in SERVE_GAUGES if g not in text]
     check(not missing, f"decode gauges missing: {missing}")
     emit({"phase": "serve", "streams_equal_direct": True,
-          "hit_equals_cold": True, "encode_bit_exact": True})
-    return {k: dl.get(k, 0) + el.get(k, 0) + dis_l[k] for k in KERNELS}
+          "hit_equals_cold": True, "encode_bit_exact": True,
+          "disagg_streamed": True})
+    return {k: dl.get(k, 0) + el.get(k, 0) + dis_l[k] + xfer.get(k, 0)
+            for k in KERNELS}
+
+
+def transfer_leg(dev, seed, new_tokens, prompts, hit_prompt, cold_hit):
+    """Two BERT-base decode backends on the card, as two replicas would
+    hold them: a sequence streamed from one to the other (``send_seq``)
+    reaches the peer's receiver as bf16 tensors (never uint16, ROADMAP
+    C5) and lands in its pool byte for byte (``adopt_seq``); then the
+    prefix the first indexed moves over (``send_prefix``,
+    ``adopt_prefix``), and the peer's stream of the prefix-hit prompt
+    equals the cold stream token for token, its logits rows within
+    ROW_TOL of the cold backend's. Returns the launch counts of the
+    peer's hit decode."""
+    import torch
+    from tosem_tpu_torch.ops import registry
+    kw = decode_kwargs(dev, seed, new_tokens)
+    Rec = recording_decode()
+    warm, peer = Rec(**kw), Rec(**kw)
+    out = {"phase": "serve", "transfer": {}}
+    try:
+        addr = peer.transport_address()
+        # a sequence mid-decode, streamed
+        warm.admit("s", {"ids": prompts[1]})
+        warm.step_batch(["s"], [0])
+        sent = warm.export_seq("s")["kv"]
+        n = warm.send_seq("s", addr)
+        rx = peer._receiver.pop("seq:s", timeout=30.0)
+        wire = str(rx.arrays()["k0"].dtype)
+        peer._receiver.put_back("seq:s", rx)
+        peer.adopt_seq("s")
+        landed = peer.export_seq("s")["kv"]
+        same = all(landed[k].tobytes() == sent[k].tobytes()
+                   for k in ("k", "v"))
+        out["transfer"]["seq"] = {"bytes": n, "wire_dtype": wire,
+                                  "pages_equal": same}
+        check(wire == "torch.bfloat16", f"bf16 pages went as {wire}")
+        check(same, "streamed pages differ from the exported ones")
+        warm.release("s")
+        peer.release("s")
+        # a prefix, moved over
+        warm.call({"ids": prompts[0]})
+        depth, n_tok, h = max(warm.prefix_digest(), key=lambda r: r[0])
+        warm.send_prefix(depth, h, addr)
+        added = peer.adopt_prefix(h)
+        torch.cuda.synchronize()
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = peer.call({"ids": hit_prompt})["generated"]
+        torch.cuda.synchronize()
+        launches = dict(registry.LAUNCH_COUNTS)
+        st = peer.cache_stats()
+        out["transfer"]["prefix"] = {
+            "depth": depth, "tokens": n_tok, "entries_added": added,
+            "prefix_remote_imports": st["prefix_remote_imports"],
+            "peer_prefix_hits": st["prefix_hits"],
+            "hit_decode_ms": (time.perf_counter() - t0) * 1e3,
+            "launches": launches}
+        emit(out)
+        check(st["prefix_remote_imports"] == 1 and st["prefix_hits"] >= 1,
+              f"the peer took no transferred prefix: {st}")
+        check(got == cold_hit, f"peer's hit stream {got} != cold stream "
+              f"{cold_hit}")
+        cold = Rec(prefix_cache=False, **kw)
+        check(cold.call({"ids": hit_prompt})["generated"] == cold_hit,
+              "cold stream differs from the direct one")
+        ids_all = hit_prompt + cold_hit
+        cold_cid = next(iter(cold.fed))
+        peer_cid = next(c for c in peer.fed if str(c).startswith("__call__"))
+        hold_rows("prefix_transfer", rows_on(cold, cold_cid, ids_all, tag=0),
+                  {k: r for k, r in rows_on(peer, peer_cid, ids_all,
+                                            tag=0).items()
+                   if k[1] >= len(hit_prompt) - 1}, phase="serve")
+        for name in ("paged_decode", "paged_decode_multi"):
+            check(launches[name] > 0, f"{name} never launched in the "
+                  "peer's hit decode")
+        del cold
+    finally:
+        peer.shutdown()
+    del warm, peer
+    torch.cuda.empty_cache()
+    return launches
 
 
 def dense_fold_fn(mask):
@@ -4327,6 +4448,413 @@ def phase_parallel(dev, seed):
     return counts
 
 
+PP = 4              # pipeline stages (positions of the pp mesh)
+PP_MICRO = 4        # microbatches of the 8 x 512 batch: 2 x 512 each
+MESH_STEPS = 3      # steps of each mesh train run
+
+
+def _base_batch(seed, dev, masked_rows=None):
+    """The train phase's 8 x 512 batch of random ids from ``seed + 1``
+    (labels = ids); ``masked_rows`` gives each row's masked share (else
+    15% everywhere)."""
+    import numpy as np
+    import torch
+    B, T = 8, 512
+    rng = np.random.default_rng(seed + 1)
+    ids = torch.as_tensor(rng.integers(0, 30522, (B, T)), device=dev)
+    share = np.full(B, 0.15) if masked_rows is None else \
+        np.asarray(masked_rows)
+    masked = torch.as_tensor(rng.random((B, T)) < share[:, None],
+                             device=dev)
+    return _mlm_batch(ids, masked)
+
+
+def _grad_gaps(got, want):
+    """Largest gap over the largest gradient, per tensor, leaving out the
+    attention key biases (softmax is blind to a bias shared by every
+    key: their gradient is rounding noise) and a tensor the loss never
+    reached."""
+    return {n: ((got[n] - want[n]).abs().max()
+                / want[n].abs().max().clamp_min(1e-30)).item()
+            for n in want if not n.endswith("attn.k.b")
+            and float(want[n].abs().max()) > 0}
+
+
+def phase_pipeline(dev, seed):
+    """BERT-base as a GPipe pipeline (``models/bert_pipeline.py``) over
+    pp = 4 positions on the one card, 3 layers a stage, the 8 x 512 batch
+    in 4 microbatches, flash attention. Forward (bf16, dropout off): the
+    encodings equal the 12 layers applied in turn to the same
+    microbatches bit for bit, and lie within 2e-2 of the largest value of
+    the unmicrobatched encoder; B1 launches pp x (M + pp - 1) x 3 = 84 (a
+    stage computes at every tick). Gradients (fp32, no TF32): the
+    pipelined MLM gradients within 1e-3 of the largest gradient per
+    tensor of the sequential model's, where a model with layer 0's query
+    projection scaled by 1.1 must break the bound; the backward recomputes
+    each stage at its M real ticks, so B1, B2 and B3 launch pp x M x 3 =
+    48 each. Times the pipelined forward and forward + backward beside
+    the unpipelined encoder (host clock to a sync), and reports the bubble
+    share (pp - 1) / (M + pp - 1)."""
+    import dataclasses
+
+    import torch
+    from tosem_tpu_torch.models.bert import Bert, BertConfig
+    from tosem_tpu_torch.models.bert_pipeline import make_bert_pipeline_fn
+    from tosem_tpu_torch.nn.attention import flash_attn_fn
+    from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.ops.common import precision
+    from tosem_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from tosem_tpu_torch.parallel.pipeline import microbatch, unmicrobatch
+    from tosem_tpu_torch.train.trainer import cross_entropy_loss
+    mesh = make_mesh(MeshSpec.of(pp=PP), [dev] * PP)
+    batch = _base_batch(seed, dev)
+    ids = batch["ids"]
+    attn = flash_attn_fn()
+    per = BertConfig.base().layers // PP
+    ticks = PP_MICRO + PP - 1
+    out = {"phase": "pipeline", "gpu": gpu_line(), "pp": PP,
+           "n_micro": PP_MICRO, "layers_per_stage": per, "batch": [8, 512],
+           "bubble_share": (PP - 1) / ticks}
+
+    # forward, bf16, dropout off
+    model = Bert(dataclasses.replace(BertConfig.base(), dropout=0.0),
+                 device=dev, seed=seed)
+    fwd = make_bert_pipeline_fn(model, mesh, n_micro=PP_MICRO, attn_fn=attn)
+    with torch.no_grad():
+        fwd(None, ids)                      # warm-up: the kernels' build
+        torch.cuda.synchronize()
+        registry.reset_launch_counts()
+        got = fwd(None, ids)
+        torch.cuda.synchronize()
+        fcounts = dict(registry.LAUNCH_COUNTS)
+        T = ids.shape[1]
+        h = model._embed(ids, torch.arange(T, device=dev)[None])
+        seq = []
+        for x in microbatch(h, PP_MICRO):
+            for layer in model.layers:
+                x = layer(x, attn_fn=attn)
+            seq.append(x)
+        seq = model.ln_out(unmicrobatch(torch.stack(seq)))
+        full = model.apply(ids, attn_fn=attn)
+    bit = torch.equal(got, seq)
+    scale = float(full.float().abs().max())
+    err = float((got.float() - full.float()).abs().max())
+    out["forward"] = {"equal_to_microbatched_layers": bit,
+                      "max_abs_err_vs_encoder": err, "largest": scale,
+                      "limit": 2e-2 * scale, "launches": fcounts}
+    check(bit, "pipelined encodings differ from the layers applied in turn "
+          f"to the same microbatches (max |diff| "
+          f"{float((got.float() - seq.float()).abs().max())})")
+    check(err <= 2e-2 * scale, f"pipelined encodings vs the encoder: {err} "
+          f"beyond 2e-2 of {scale}")
+    b1 = PP * ticks * per
+    check(fcounts["flash_fwd"] == b1,
+          f"pipelined forward: {fcounts['flash_fwd']} B1 launches, "
+          f"expected {b1}")
+
+    # times: bf16, the pipelined forward and forward + backward beside the
+    # unpipelined encoder
+    def fb(run):
+        def go():
+            for p in model.parameters():
+                p.grad = None
+            run().float().square().mean().backward()
+        return go
+
+    def timed(fn, reps=3):
+        fn()
+        return min(_timed(fn) for _ in range(reps))
+    with torch.no_grad():
+        out["forward_ms"] = timed(lambda: fwd(None, ids))
+        out["encoder_forward_ms"] = timed(
+            lambda: model.apply(ids, attn_fn=attn))
+    out["fwd_bwd_ms"] = timed(fb(lambda: fwd(None, ids)))
+    out["encoder_fwd_bwd_ms"] = timed(
+        fb(lambda: model.apply(ids, attn_fn=attn)))
+    del model, fwd, got, seq, full, h
+    torch.cuda.empty_cache()
+
+    # gradients, fp32 without TF32
+    cfg32 = dataclasses.replace(BertConfig.base(), dtype="float32",
+                                precision="float32", dropout=0.0)
+
+    def grads(run, m):
+        for p in m.parameters():
+            p.grad = None
+        with precision("float32"):
+            enc = run()
+            loss = cross_entropy_loss(m.mlm_logits(enc), batch["labels"],
+                                      batch["masked"])
+            loss.backward()
+        torch.cuda.synchronize()
+        return {n: p.grad.detach().clone() for n, p in m.named_parameters()
+                if p.grad is not None}
+    m32 = Bert(cfg32, device=dev, seed=seed)
+    fwd32 = make_bert_pipeline_fn(m32, mesh, n_micro=PP_MICRO, attn_fn=attn)
+    want = grads(lambda: m32.apply(ids, attn_fn=attn), m32)
+    registry.reset_launch_counts()
+    with precision("float32"):
+        enc = fwd32(None, ids)
+    torch.cuda.synchronize()
+    gf = dict(registry.LAUNCH_COUNTS)
+    registry.reset_launch_counts()
+    for p in m32.parameters():
+        p.grad = None
+    with precision("float32"):
+        cross_entropy_loss(m32.mlm_logits(enc), batch["labels"],
+                           batch["masked"]).backward()
+    torch.cuda.synchronize()
+    gb = dict(registry.LAUNCH_COUNTS)
+    got_g = {n: p.grad.detach().clone() for n, p in m32.named_parameters()
+             if p.grad is not None}
+    with torch.no_grad():
+        m32.layers[0].attn.q.w.mul_(1.1)
+    wrong = grads(lambda: m32.apply(ids, attn_fn=attn), m32)
+    del m32, fwd32, enc
+    torch.cuda.empty_cache()
+    gaps = _grad_gaps(got_g, want)
+    wrong_gaps = _grad_gaps(wrong, want)
+    out["grads_fp32"] = {
+        "limit": 1e-3, "max_gap": max(gaps.values()),
+        "worst": max(gaps, key=gaps.get),
+        "wrong_model_max_gap": max(wrong_gaps.values()),
+        "tensors": len(gaps), "launches_forward": gf,
+        "launches_backward": gb}
+    check(max(gaps.values()) <= 1e-3,
+          f"pipelined fp32 gradients beyond 1e-3: {out['grads_fp32']}")
+    check(max(wrong_gaps.values()) > 1e-3,
+          f"the gradient check cannot see the wrong model: "
+          f"{out['grads_fp32']}")
+    b_real = PP * PP_MICRO * per
+    check(gf["flash_fwd"] == b1, f"fp32 pipelined forward: {gf}")
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        check(gb[name] == b_real,
+              f"pipelined backward: {gb[name]} {name} launches, expected "
+              f"{b_real}")
+    emit(out)
+    return {k: fcounts.get(k, 0) + gf.get(k, 0) + gb.get(k, 0)
+            for k in KERNELS}
+
+
+def _mesh_gaps(got, want):
+    """Largest gap over the largest value, per tensor (key biases left
+    out: see _grad_gaps)."""
+    return {n: ((got[n].float() - want[n].float()).abs().max()
+                / want[n].float().abs().max().clamp_min(1e-30)).item()
+            for n in want if not n.endswith("attn.k.b")}
+
+
+def phase_mesh_train(dev, seed):
+    """Global-batch training over a device mesh on the one card:
+    ``make_partitioned_train_step`` with ``bert_rules``/``seq_batch_rules``
+    over (dp, tp, sp) = (2, 2, 2) and ``make_train_step(mesh=)`` over dp
+    = 4, each 3 steps of BERT-base on the train phase's 8 x 512 batch
+    with dropout 0.1 drawn from ``step_generator(seed, i)``, whose rows
+    are masked at 40% (rows 0-3) and 5% (rows 4-7), so a mean of the dp
+    shards' means is another loss. In fp32 without TF32 under
+    SGD(lr=1e-2), losses and parameters within 1e-3 of the largest value
+    per tensor of the unsharded ``make_train_step`` (key biases left
+    out), where the mean of the dp shards' means must break that bound;
+    under adamw(1e-4) the (2, 2, 2) gap is reported. In bf16 (the train
+    phase's dtype, adamw(1e-4)): a mesh of one position equals the
+    unsharded step bit for bit; after every step each parameter's blocks keep the rule's
+    layout and the positions hold their blocks and moments only; B1, B2
+    and B3 launch 12 a position a step; step ms and peak memory beside
+    the unsharded step."""
+    import dataclasses
+    import functools
+    import gc
+
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.models.bert import Bert, BertConfig
+    from tosem_tpu_torch.nn.attention import flash_attn_fn
+    from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.ops.common import precision
+    from tosem_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from tosem_tpu_torch.parallel.sharding import (bert_rules,
+                                                   seq_batch_rules,
+                                                   spec_for_path)
+    from tosem_tpu_torch.train import (adamw, create_train_state,
+                                       make_partitioned_train_step,
+                                       make_train_step, mlm_loss,
+                                       shard_batch, shard_batch_by_rules,
+                                       shard_train_state)
+    from tosem_tpu_torch.train.trainer import step_generator
+    batch = _base_batch(seed, dev, masked_rows=[0.4] * 4 + [0.05] * 4)
+    counts = batch["masked"].sum(1).tolist()
+    loss_fn = functools.partial(mlm_loss, attn_fn=flash_attn_fn())
+    out = {"phase": "mesh_train", "gpu": gpu_line(), "steps": MESH_STEPS,
+           "batch": [8, 512], "masked_per_row": counts}
+
+    def run(kind, cfg, opt=adamw(1e-4)):
+        """(losses, full parameters, ms a step, launches, peak GiB, what
+        the positions hold between steps)."""
+        m = Bert(cfg, device=dev, seed=seed)
+        st = create_train_state(m, opt)
+        b = batch
+        if kind == "plain":
+            step = make_train_step(m, st.optimizer, loss_fn)
+        elif kind == "mean_of_means":
+            def mom(model, bb, generator=None):
+                parts = [loss_fn(model, {k: v[i:i + 2] for k, v in
+                                         bb.items()}, generator)[0]
+                         for i in range(0, 8, 2)]
+                return torch.stack(parts).mean(), {}
+            step = make_train_step(m, st.optimizer, mom)
+        elif kind in ("dp4", "one_dp"):
+            n = 4 if kind == "dp4" else 1
+            mesh = make_mesh(MeshSpec.of(dp=n), [dev] * n)
+            step = make_train_step(m, st.optimizer, loss_fn, mesh=mesh)
+            b = shard_batch(batch, mesh)
+        else:
+            shape = dict(dp=2, tp=2, sp=2) if kind == "dp_tp_sp" \
+                else dict(dp=1, tp=1, sp=1)
+            n = int(np.prod(list(shape.values())))
+            mesh = make_mesh(MeshSpec.of(**shape), [dev] * n)
+            st = shard_train_state(st, mesh, bert_rules())
+            step = make_partitioned_train_step(
+                m, None, loss_fn, mesh=mesh, rules=bert_rules(),
+                batch_rules=seq_batch_rules())
+            b = shard_batch_by_rules(batch, mesh, seq_batch_rules())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        registry.reset_launch_counts()
+        gc.collect()
+        earlier = {id(t) for t in big_cuda_tensors()}
+        losses, ms = [], []
+        for i in range(MESH_STEPS):
+            t0 = time.perf_counter()
+            with precision(cfg.precision):
+                st, met = step(st, b, step_generator(seed, i, dev))
+            losses.append(float(met["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if hasattr(st, "blocks"):
+                layout(kind, st)
+        launches = dict(registry.LAUNCH_COUNTS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        resident = None
+        if hasattr(st, "blocks"):
+            # between steps the positions hold their blocks and moments:
+            # no other device tensor of a MiB or more is reachable (the
+            # allocator's total also holds what no Python object owns,
+            # cuBLAS's workspace for each handle a position thread took,
+            # so it is reported beside the sum of the known tensors)
+            torch.cuda.synchronize()
+            held = [p for bl in st.blocks.values() for p in bl.pieces]
+            moments = [v for o in st.optimizers.pieces
+                       for s_ in o.state.values() for v in s_.values()
+                       if torch.is_tensor(v)]
+            known = held + moments + list(m.parameters()) + \
+                list(batch.values()) + [p for v in b.values()
+                                        for p in v.pieces]
+            ids = {id(t) for t in known} | earlier
+            gc.collect()
+            stray = [t for t in big_cuda_tensors() if id(t) not in ids]
+
+            def nbytes(ts):
+                return sum(t.numel() * t.element_size() for t in ts
+                           if t.is_cuda)
+            resident = {"allocated": torch.cuda.memory_allocated(),
+                        "blocks": nbytes(held), "moments": nbytes(moments),
+                        "model": nbytes(m.parameters()),
+                        "stray_tensors": len(stray),
+                        "stray_bytes": nbytes(stray)}
+            check(not stray, f"{kind}: positions hold more than their "
+                  f"blocks between steps: {resident}, shapes "
+                  f"{[tuple(t.shape) for t in stray][:8]}")
+            params = {k: v.cpu() for k, v in st.gather().items()}
+        else:
+            params = {n: p.detach().cpu() for n, p in m.named_parameters()}
+        del st, step, m
+        torch.cuda.empty_cache()
+        return losses, params, ms, launches, peak, resident
+
+    def big_cuda_tensors():
+        return [t for t in gc.get_objects()
+                if torch.is_tensor(t) and t.is_cuda
+                and t.numel() * t.element_size() >= 1 << 20]
+
+    def layout(kind, st):
+        for name, bl in st.blocks.items():
+            spec = tuple(spec_for_path(name, bert_rules()))[:bl.pieces[0]
+                                                              .ndim]
+            check(tuple(bl.spec) == spec, f"{kind}: {name} held as "
+                  f"{bl.spec}, rule {spec}")
+            full = st.model.get_parameter(name).shape
+            for i, p in enumerate(bl.pieces):
+                want = list(full)
+                for d, e in enumerate(bl.spec):
+                    if e is not None:
+                        want[d] //= st.mesh.shape[e]
+                check(list(p.shape) == want and p.grad is None,
+                      f"{kind}: position {i} holds {name} as "
+                      f"{tuple(p.shape)}, grad {p.grad is not None}")
+
+    # fp32 without TF32: the global step against the unsharded one, under
+    # SGD, whose parameters move by the gradients themselves. Under adamw
+    # a zero-initialised bias whose gradient sits at the rounding floor
+    # takes a step set by that rounding (|g| near eps = 1e-8), so its
+    # gap is reported beside, not held
+    cfg32 = dataclasses.replace(BertConfig.base(), dtype="float32",
+                                precision="float32")
+    sgd = functools.partial(torch.optim.SGD, lr=1e-2)
+    out["fp32"] = {"optimizer": "SGD(lr=1e-2)"}
+    for opt_name, opt, kinds in (
+            ("sgd", sgd, ("dp_tp_sp", "dp4", "mean_of_means")),
+            ("adamw", adamw(1e-4), ("dp_tp_sp",))):
+        ref = run("plain", cfg32, opt)
+        rec = out["fp32"][opt_name] = {"plain_losses": ref[0]}
+        for kind in kinds:
+            got = run(kind, cfg32, opt)
+            gaps = _mesh_gaps(got[1], ref[1])
+            lgap = max(abs(a - b) / abs(b) for a, b in zip(got[0], ref[0]))
+            rec[kind] = {"losses": got[0], "loss_gap": lgap,
+                         "param_gap_max": max(gaps.values()),
+                         "worst": max(gaps, key=gaps.get)}
+            if opt_name == "adamw":
+                continue
+            inside = lgap <= 1e-3 and max(gaps.values()) <= 1e-3
+            check(inside if kind != "mean_of_means" else not inside,
+                  f"fp32 {kind} against the unsharded step: {rec[kind]}")
+        del ref
+    # bf16: the bit pin, layout, launches, times, memory
+    cfg = BertConfig.base()
+    plain = run("plain", cfg)
+    out["bf16"] = {"plain": {"losses": plain[0], "step_ms": plain[2],
+                             "peak_gib": plain[4]}}
+    launches = {k: 0 for k in KERNELS}
+    for kind, positions in (("one", 1), ("one_dp", 1), ("dp_tp_sp", 8),
+                            ("dp4", 4)):
+        got = run(kind, cfg)
+        rec = {"losses": got[0], "step_ms": got[2], "peak_gib": got[4],
+               "launches": got[3]}
+        if kind.startswith("one"):
+            same = got[0] == plain[0] and all(
+                torch.equal(got[1][n], plain[1][n]) for n in plain[1])
+            rec["equal_to_unsharded"] = same
+            check(same, f"bf16 {kind}: a one-position mesh differs from "
+                  "the unsharded step")
+        else:
+            gaps = _mesh_gaps(got[1], plain[1])
+            rec["loss_gap"] = max(abs(a - b) / abs(b)
+                                  for a, b in zip(got[0], plain[0]))
+            rec["param_gap_max"] = max(gaps.values())
+            check(rec["loss_gap"] <= 1e-3,
+                  f"bf16 {kind} loss against the unsharded step: {rec}")
+        if got[5] is not None:
+            rec["resident"] = got[5]
+        for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+            want = cfg.layers * positions * MESH_STEPS
+            check(got[3][name] == want, f"bf16 {kind}: {got[3][name]} "
+                  f"{name} launches, expected {want}")
+        for k in KERNELS:
+            launches[k] += got[3].get(k, 0)
+        out["bf16"][kind] = rec
+    emit(out)
+    return launches
+
+
 def phase_suite():
     """North-star config 5 through the port's experiment runner at its
     default BERT-base shapes. Returns the suite's launch counts."""
@@ -4426,7 +4954,7 @@ def main(argv=None):
     ap.add_argument("--phases",
                     default="build,kernels,decode,decode_modes,encode,"
                             "serve,encode_sparse,cpu,profile,train,"
-                            "train_dp,parallel,suite")
+                            "train_dp,parallel,pipeline,mesh_train,suite")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(ROOT, "tosem_tpu_torch")):
@@ -4458,45 +4986,57 @@ def main(argv=None):
     check(not row_faults,
           "B6/B7/B8 warp-row bodies: " + "; ".join(row_faults))
     check(not paged_faults, "B4/B5 chunk bodies: " + "; ".join(paged_faults))
-    lines = phase_kernels(dev, SEED) if "kernels" in phases else {}
+    secs = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            secs[name] = secs.get(name, 0.0) + time.perf_counter() - t
+
+    lines = timed("kernels", phase_kernels, dev, SEED) \
+        if "kernels" in phases else {}
     launches = {k: 0 for k in KERNELS}
     direct = None
-    if "decode" in phases:
-        counts, direct = phase_decode(dev, SEED, NEW_TOKENS)
+
+    def add(counts):
         for k, n in counts.items():
             launches[k] += n
+    if "decode" in phases:
+        counts, direct = timed("decode", phase_decode, dev, SEED,
+                               NEW_TOKENS)
+        add(counts)
     if "decode_modes" in phases:
-        for k, n in phase_decode_modes(dev, SEED, NEW_TOKENS,
-                                       direct).items():
-            launches[k] += n
+        add(timed("decode_modes", phase_decode_modes, dev, SEED, NEW_TOKENS,
+                  direct))
     if "encode" in phases:
-        for k, n in phase_encode(dev, SEED).items():
-            launches[k] += n
+        add(timed("encode", phase_encode, dev, SEED))
     if "serve" in phases:
-        for k, n in phase_serve(dev, SEED, NEW_TOKENS, direct).items():
-            launches[k] += n
+        add(timed("serve", phase_serve, dev, SEED, NEW_TOKENS, direct))
     if "encode_sparse" in phases:
-        for k, n in phase_encode_sparse(dev, SEED).items():
-            launches[k] += n
+        add(timed("encode_sparse", phase_encode_sparse, dev, SEED))
     if "cpu" in phases:
-        phase_cpu(dev, SEED)
+        timed("cpu", phase_cpu, dev, SEED)
     if "profile" in phases:
-        phase_profile(dev, SEED)
+        timed("profile", phase_profile, dev, SEED)
     if "train" in phases:
-        for k, n in phase_train(dev, SEED).items():
-            launches[k] += n
-        phase_train_grads(dev, SEED)
-        phase_train_remat(dev, SEED)
-        phase_train_resume(dev, SEED)
+        add(timed("train", phase_train, dev, SEED))
+        timed("train", phase_train_grads, dev, SEED)
+        timed("train", phase_train_remat, dev, SEED)
+        timed("train", phase_train_resume, dev, SEED)
     if "train_dp" in phases:
-        for k, n in phase_train_dp(dev, SEED).items():
-            launches[k] += n
+        add(timed("train_dp", phase_train_dp, dev, SEED))
     if "parallel" in phases:
-        for k, n in phase_parallel(dev, SEED).items():
-            launches[k] += n
+        add(timed("parallel", phase_parallel, dev, SEED))
+    if "pipeline" in phases:
+        add(timed("pipeline", phase_pipeline, dev, SEED))
+    if "mesh_train" in phases:
+        add(timed("mesh_train", phase_mesh_train, dev, SEED))
     if "suite" in phases:
-        for k, n in phase_suite().items():
-            launches[k] += n
+        add(timed("suite", phase_suite))
+    emit({"phase": "seconds", **secs,
+          "total": time.perf_counter() - t0})
     src = "tosem_tpu_torch/ops/csrc/"
     meta = {"flash_fwd": ("flash_fwd.cu",
                           "tosem_tpu/ops/flash_attention.py:272"),

@@ -522,21 +522,6 @@ class TestBackendMigration:
                                       {"ids": hist + [4]})["tokens"]
 
 
-def test_streamed_handoff_waits_for_the_transport():
-    """The port has no transport yet: no ``send_seq`` or
-    ``transport_address`` (so ``DecodeQueue`` hands prefilled sequences
-    off by export), and ``admit(send_to=...)`` raises naming A11 before
-    it allocates anything."""
-    from tosem_tpu_torch.serve.backends import BertDecodeBackend
-    for name in ("send_seq", "adopt_seq", "transport_address",
-                 "send_prefix", "adopt_prefix"):
-        assert not hasattr(BertDecodeBackend, name)
-    b = make_backend(**MIG_KW)
-    with pytest.raises(NotImplementedError, match="A11"):
-        b.admit("s", dict(MIG_PROMPT), send_to="tcp://peer")
-    assert b.cache.stats()["pages_used"] == 0
-
-
 # ----------------------------------------------------- across packages
 
 

@@ -10,8 +10,8 @@ and restoring, the decode gauges) and of its deploy-time ``max_active``
 guard; of ``tests/test_decode_modes.py``'s ``TestServeModes`` (speculative,
 windowed and beam deployments) with a session's second turn; and of
 ``tests/test_kv_migration.py``'s ``TestServeMigration`` (a drain that
-migrates live sequences, disaggregated prefill by export, a one-replica
-fleet). ``TestStreaming`` stands in for ``test_serve.py``'s
+migrates live sequences, disaggregated prefill streamed replica to
+replica, a one-replica fleet). ``TestStreaming`` stands in for ``test_serve.py``'s
 ``TestStreamingThroughServe`` (whose backend is the speech stream, A13):
 a decode stream over HTTP, and one that survives a replica crash
 mid-stream. Across packages, the JAX package's tiny weights ride
@@ -380,25 +380,33 @@ class TestSpillAndMigration:
             assert [g["tokens"] for g in got] == expected
             # every token streams once, the admit's included (C-ref7)
             assert streamed == [g["generated"] for g in got]
-            return serve.get_deployment(name).stats()
+            st = serve.get_deployment(name).stats()
+            reps = [rt.get(r.stats.remote(), timeout=60)
+                    for r in serve.get_deployment(name)._replicas]
+            for route in ("exported", "sent", "adopted"):
+                st[f"handoffs_{route}"] = sum(r[f"handoffs_{route}"]
+                                              for r in reps)
+            return st
         finally:
             serve.delete(name)
 
     def test_disaggregated_prefill_decode_bit_identical(self, runtime):
-        """Each prefilled sequence's pages migrate from the prefill
-        replica to a decode replica, by export (the port has no streamed
-        hand-off yet)."""
+        """Each prefilled sequence's pages stream from the prefill
+        replica to a decode replica (``admit(send_to=)``, then
+        ``adopt_seq``), none by export."""
         prompts = [[1 + i, 2 + i, 3 + i] for i in range(4)]
         st = self._disaggregated("disagg", 3, prompts, 20)
         assert st["kv_migrations"] >= 4
         assert st["kv_migration_fallbacks"] == 0
+        assert st["handoffs_sent"] == st["handoffs_adopted"] == 4
+        assert st["handoffs_exported"] == 0
         assert st["sequences_ok"] == 4 and st["sequences_err"] == 0
 
     def test_disaggregated_prefill_onto_a_pressured_decode_replica(
             self, runtime):
         """Hand-off and the spill tier in one deployment: 8 sequences
-        needing 20 pages migrate to a decode replica of 13, which parks
-        pressured imports, spills and restores as they grow, and every
+        needing 20 pages stream to a decode replica of 13, which parks
+        pressured adopts, spills and restores as they grow, and every
         stream equals the direct one."""
         st = self._disaggregated("disagg-pressure", 2, TIGHT_PROMPTS, 8,
                                  max_active=8, max_batch=8, num_pages=13)
@@ -409,9 +417,9 @@ class TestSpillAndMigration:
 
     def test_parked_handoff_retries_once_the_prefill_tier_idles(
             self, runtime):
-        """The second sequence's import meets a decode pool the first
+        """The second sequence's adopt meets a decode pool the first
         one fills (3 pages each, 3 in the pool) and parks; once the
-        first retires it must import, though no prefill is left to
+        first retires it must be adopted, though no prefill is left to
         finish (C-ref8: the JAX package's copy retries parked imports
         only when a prefill completes, so this request hangs)."""
         prompts = [[3] * 30, [4] * 30]

@@ -85,6 +85,33 @@ def test_copied_modules_import_alone(module):
     assert out.stdout.strip() == "[]"
 
 
+# the device mesh's remainder and the replica-to-replica hand-off
+MESH_AND_HANDOFF_MODULES = [
+    "tosem_tpu_torch.parallel.pipeline",
+    "tosem_tpu_torch.models.bert_pipeline",
+    "tosem_tpu_torch.parallel.cluster",
+    "tosem_tpu_torch.parallel.cluster_worker",
+    "tosem_tpu_torch.parallel.jobs",
+    "tosem_tpu_torch.parallel.mesh",
+    "tosem_tpu_torch.train.trainer",
+    "tosem_tpu_torch.serve.backends"]
+
+
+@pytest.mark.parametrize("module", MESH_AND_HANDOFF_MODULES)
+def test_mesh_and_handoff_modules_import_alone(module):
+    """The pipeline, pipelined BERT, the cluster fixture and its jobs, the
+    mesh train steps and the hand-off load neither JAX, Triton nor the
+    JAX package, nor does resolving the parallel package's exports."""
+    code = (f"import sys, {module}; import tosem_tpu_torch.parallel as p; "
+            "[getattr(p, n) for n in p.__all__]; "
+            "print(sorted(m for m in ('jax', 'triton', 'tosem_tpu') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("module", CONTROL_MODULES)
 def test_control_plane_modules_load_no_torch(module):
     """The runtime and the serving control plane stand apart from the

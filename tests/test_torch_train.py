@@ -266,12 +266,24 @@ def test_parameters_are_trainable_and_serving_builds_no_graph(ref):
 
 
 def test_unported_training_paths_raise_naming_the_roadmap():
+    """The mesh train steps are ported (A10, ``test_torch_mesh_train.py``)
+    and build; what is left of training, ranks as replica processes,
+    names its item, and the classification loss waits for ResNet."""
+    from tosem_tpu_torch.parallel.mesh import default_mesh
     from tosem_tpu_torch.train import trainer
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.make_train_step(None, None, None, mesh=object())
-    for fn in (trainer.make_partitioned_train_step, trainer.shard_batch):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    from tosem_tpu_torch.train.distributed import (DataParallelConfig,
+                                                   DistributedTrainer)
+    model = torch.nn.Linear(2, 2)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    mesh = default_mesh("dp", ["cpu"] * 2)
+    assert callable(trainer.make_train_step(model, opt, None, mesh=mesh))
+    assert callable(trainer.make_partitioned_train_step(
+        model, opt, None, mesh=mesh, rules=[], batch_rules=[]))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
+        DistributedTrainer("tosem_tpu_torch.train.distributed:demo_job",
+                           {}, DataParallelConfig(job="nodes"),
+                           backend="nodes", world=1)
+    assert not hasattr(trainer, "classification_loss")      # A12
 
 
 def test_unreached_parameter_keeps_optax_momentum():

@@ -324,8 +324,9 @@ def _shard_map_run(num_steps=3, jobkw=JOB_KW, job=None):
 class TestReductionArms:
     def test_shard_map_arm_names_its_roadmap_item(self):
         # the on-device collective arm is ported (A10) and builds on a dp
-        # mesh; the mesh train steps beside it, whose loss is the global
-        # batch's, are what still name their roadmap item
+        # mesh, and so do the mesh train steps beside it, whose loss is
+        # the global batch's
+        from tosem_tpu_torch.parallel.spmd import P
         from tosem_tpu_torch.train.trainer import (
             make_partitioned_train_step, make_train_step, shard_batch)
         assert callable(make_dp_train_step(demo_job(**JOB_KW),
@@ -333,13 +334,12 @@ class TestReductionArms:
                                            mesh=_dp_mesh()))
         model = torch.nn.Linear(2, 2)
         opt = torch.optim.SGD(model.parameters(), lr=0.1)
-        remainder = "A10's remainder: global-semantics mesh training"
-        with pytest.raises(NotImplementedError, match=remainder):
-            make_train_step(model, opt, None, mesh=_dp_mesh())
-        with pytest.raises(NotImplementedError, match=remainder):
-            make_partitioned_train_step(model, opt, None, _dp_mesh())
-        with pytest.raises(NotImplementedError, match=remainder):
-            shard_batch({}, _dp_mesh())
+        assert callable(make_train_step(model, opt, None, mesh=_dp_mesh()))
+        assert callable(make_partitioned_train_step(
+            model, opt, None, mesh=_dp_mesh(), rules=[],
+            batch_rules=[("", P("dp"))]))
+        batch = shard_batch({"x": torch.zeros(4, 2)}, _dp_mesh())
+        assert batch["x"].gather().shape == (4, 2)
 
     def test_shard_map_arm_validates_mesh(self):
         job = demo_job(**JOB_KW)

@@ -1,1 +1,2 @@
-"""Model families ported so far: BERT (encoder and causal decoder)."""
+"""Model families ported so far: BERT (encoder and causal decoder), and
+the encoder as pipeline stages (``bert_pipeline``)."""

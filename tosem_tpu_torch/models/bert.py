@@ -40,7 +40,7 @@ from torch.utils import checkpoint as _ckpt
 
 from tosem_tpu_torch.nn.attention import MultiHeadAttention
 from tosem_tpu_torch.nn.layers import (Dense, Dropout, Embedding, LayerNorm,
-                                       gelu)
+                                       base_generator, gelu)
 from tosem_tpu_torch.ops.common import resolve_device
 
 
@@ -189,8 +189,9 @@ class Bert(nn.Module):
                          generator=generator)
         if self.cfg.remat == "none" or not torch.is_grad_enabled():
             return run(h)
-        if train and self.cfg.dropout > 0 and generator is not None:
-            run = _replaying(run, generator)
+        if train and self.cfg.dropout > 0 and \
+                base_generator(generator) is not None:
+            run = _replaying(run, base_generator(generator))
         kw = {"context_fn": _dots_contexts} if self.cfg.remat == "dots" \
             else {}
         return _ckpt.checkpoint(run, h, use_reentrant=False, **kw)

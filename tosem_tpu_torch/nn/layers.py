@@ -13,6 +13,7 @@ differs). Dropout masks are drawn on the activation's device.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -119,11 +120,31 @@ class Embedding(nn.Module):
         return torch.matmul(x, table.t())
 
 
+@dataclass(frozen=True)
+class RowSlice:
+    """A generator for rows ``[start, start + rows)`` of a batch of
+    ``batch`` rows: a dropout mask is drawn for the whole batch and these
+    rows are kept, so a position of a mesh step draws the masks the
+    unsharded step draws for its rows (as a sharded JAX program draws
+    the global masks)."""
+    generator: Optional[torch.Generator]
+    start: int
+    batch: int
+
+
+def base_generator(generator):
+    """The ``torch.Generator`` behind ``generator`` (a
+    :class:`RowSlice`'s, or itself)."""
+    return generator.generator if isinstance(generator, RowSlice) \
+        else generator
+
+
 class Dropout(nn.Module):
     """``where(mask, x / keep, 0)`` with ``keep = 1 - rate``, as the JAX
     package computes it. The mask is drawn on ``x.device`` from
     ``generator``, which must live on that device (None = the device's
-    default generator)."""
+    default generator), or for a :class:`RowSlice`'s rows of the whole
+    batch."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -134,7 +155,13 @@ class Dropout(nn.Module):
         if not train or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        if isinstance(generator, RowSlice):
+            full = torch.rand((generator.batch,) + tuple(x.shape[1:]),
+                              generator=generator.generator, device=x.device)
+            mask = full.narrow(0, generator.start, x.shape[0]) < keep
+        else:
+            mask = torch.rand(x.shape, generator=generator,
+                              device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 

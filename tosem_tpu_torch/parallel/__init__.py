@@ -7,21 +7,29 @@ under named axes, each on a ``torch.device`` (several may share one);
 position, each in its own thread, with the ``lax``-style collectives
 between them. On top: the collective ops and their bandwidth sweep
 (north-star config 3), rule-based sharding, sharded flash and paged
-attention, and ring/Ulysses sequence parallelism. ``pipeline.py``,
-``cluster.py``, ``cluster_worker.py`` and ``jobs.py`` are not ported yet
-(ROADMAP.md A10). Submodules import lazily.
+attention, ring/Ulysses sequence parallelism, GPipe pipelines over a
+``pp`` axis, meshes spanning the processes of a job
+(:func:`~tosem_tpu_torch.parallel.mesh.process_mesh`) and the local
+multi-process cluster fixture (``cluster.py``, ``cluster_worker.py``,
+``jobs.py``). Submodules import lazily.
 """
 
 # exported lazily (PEP 562), as the JAX package's parallel/__init__ exports
-# them (less the modules not ported yet)
+# them
 _LAZY_EXPORTS = {
     **{n: ("tosem_tpu_torch.parallel.mesh", n)
        for n in ("Mesh", "MeshSpec", "make_mesh", "default_mesh",
-                 "multihost_init", "replicated", "sharded")},
+                 "multihost_init", "process_mesh", "replicated",
+                 "sharded")},
     **{n: ("tosem_tpu_torch.parallel.spmd", n)
        for n in ("P", "Sharded", "shard_map", "psum", "all_gather",
                  "psum_scatter", "ppermute", "all_to_all", "pbroadcast",
-                 "axis_index", "axis_size")},
+                 "axis_index", "axis_size", "on_caller")},
+    **{n: ("tosem_tpu_torch.parallel.pipeline", n)
+       for n in ("make_pipeline_fn", "microbatch", "unmicrobatch",
+                 "stack_stage_params")},
+    **{n: ("tosem_tpu_torch.parallel.cluster", n)
+       for n in ("LocalCluster", "ClusterResult")},
     **{n: ("tosem_tpu_torch.parallel.collectives", n)
        for n in ("CollectiveSpec", "collective_bench",
                  "bus_bandwidth_factor", "DEFAULT_COLLECTIVE_SWEEP",

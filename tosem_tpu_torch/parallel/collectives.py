@@ -138,8 +138,8 @@ class CollectiveSpec:
 
 def _make_global_input(spec: CollectiveSpec, mesh: Mesh) -> torch.Tensor:
     """Ones of the JAX package's global shape: 2-D, 128 columns where the
-    buffer allows, rows a multiple of n (reduce_scatter) — on position
-    0's device."""
+    buffer allows, rows a multiple of n (reduce_scatter) — on the device
+    of this process's first position."""
     n = mesh.shape[spec.axis]
     dt = getattr(torch, spec.dtype)
     itemsize = torch.empty((), dtype=dt).element_size()
@@ -147,7 +147,8 @@ def _make_global_input(spec: CollectiveSpec, mesh: Mesh) -> torch.Tensor:
     cols = 128 if per_dev % 128 == 0 and n <= 128 else n
     rows = max(per_dev // cols, 1)
     rows = ((rows + n - 1) // n) * n
-    return torch.ones((n * rows, cols), dtype=dt, device=mesh.device_of(0))
+    return torch.ones((n * rows, cols), dtype=dt,
+                      device=mesh.device_of(mesh.local_positions()[0]))
 
 
 def collective_bench(spec: CollectiveSpec, mesh: Mesh, *,
@@ -167,7 +168,7 @@ def collective_bench(spec: CollectiveSpec, mesh: Mesh, *,
     alg_bw = actual_bytes / sec
     bus_bw = alg_bw * bus_bandwidth_factor(spec.name, n)
     cards = mesh.cards()
-    dev = mesh.device_of(0)
+    dev = mesh.device_of(mesh.local_positions()[0])
     extra = {"collective": spec.name, "bytes": actual_bytes,
              "alg_bw_gbps": alg_bw / 1e9, "time_us": sec * 1e6,
              "dtype": spec.dtype, "positions": n, "cards": cards}

@@ -13,11 +13,22 @@ With no ``devices``, :func:`make_mesh` and :func:`default_mesh` take
 every card (``torch.cuda.device_count()``) and raise when there is none:
 a mesh never moves to the CPU on its own. ``multihost_init`` keeps the
 JAX package's environment contract and joins a ``torch.distributed``
-process group (gloo for CPU processes, nccl for a process that owns a
-card).
+process group: nccl where every rank of the host gets a card of its own
+(``cuda:{local rank}``), gloo in a process that sees no card, and an
+error at join time where the host's ranks outnumber its cards.
+
+:func:`process_mesh` is the mesh of a multi-process job: its positions
+span the processes (each process owns the positions of its local
+devices, in rank order), ``shard_map`` runs the local positions only, and
+a collective whose members lie in several processes exchanges their
+values over the process group and combines them in global position
+order on every rank, so each rank gets the bits a one-process mesh of
+the same positions would give.
 """
 from __future__ import annotations
 
+import datetime
+import itertools
 import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
@@ -67,9 +78,13 @@ class MeshSpec:
 class Mesh:
     """Positions under named axes: ``devices`` is an object array of
     ``torch.device`` (one per position, repeats allowed) whose shape is
-    the axis sizes, in ``axis_names`` order."""
+    the axis sizes, in ``axis_names`` order. A mesh of a multi-process
+    job (:func:`process_mesh`) also holds the rank owning each position
+    (``ranks``, same shape) and this process's ``rank``; another
+    process's positions have the device ``meta`` here."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], *,
+                 ranks=None, rank: int = 0):
         arr = np.asarray(devices, dtype=object)
         names = tuple(axis_names)
         if arr.ndim != len(names):
@@ -81,6 +96,11 @@ class Mesh:
         flat[:] = [_device(d) for d in arr.reshape(-1)]
         self.devices = flat.reshape(arr.shape)
         self.axis_names = names
+        self.ranks = (None if ranks is None
+                      else np.asarray(ranks, dtype=np.int64).reshape(
+                          arr.shape))
+        self.rank = int(rank)
+        self._groups: Dict[tuple, object] = {}
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -100,15 +120,40 @@ class Mesh:
         return self.devices.reshape(-1)[flat]
 
     def cards(self) -> int:
-        """Distinct devices the positions sit on."""
-        return len({str(d) for d in self.devices.reshape(-1)})
+        """Distinct devices the positions sit on (this process's, in a
+        multi-process mesh)."""
+        return len({str(d) for d in self.devices.reshape(-1)
+                    if d.type != "meta"})
+
+    def rank_of(self, flat: int) -> int:
+        return 0 if self.ranks is None else int(self.ranks.reshape(-1)[flat])
+
+    def is_local(self, flat: int) -> bool:
+        return self.ranks is None or self.rank_of(flat) == self.rank
+
+    def local_positions(self) -> list:
+        return [i for i in range(self.size) if self.is_local(i)]
+
+    def process_group(self, members: Sequence[int]):
+        """The process group over the ranks owning ``members`` (flat
+        positions), or None when they all live in this process. Made
+        when the mesh is (:func:`process_mesh`), one per group of
+        members, so meetings of different groups never share one."""
+        ranks = sorted({self.rank_of(i) for i in members})
+        if len(ranks) < 2:
+            return None
+        return self._groups[tuple(sorted(members))]
 
     def __repr__(self) -> str:
         devs = sorted({str(d) for d in self.devices.reshape(-1)})
-        return f"Mesh({self.shape}, devices={devs})"
+        procs = "" if self.ranks is None else \
+            f", rank {self.rank} of {int(self.ranks.max()) + 1}"
+        return f"Mesh({self.shape}, devices={devs}{procs})"
 
 
 def _device(d) -> torch.device:
+    if str(d) == "meta":
+        return torch.device("meta")
     dev = resolve_device(d)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -162,9 +207,31 @@ def sharded(mesh: Mesh, *spec) -> NamedSharding:
     return NamedSharding(mesh, P(*spec))
 
 
+def _cards() -> int:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def _backend_for(local_rank: int, local_world: int) -> str:
+    """nccl where every rank of this host gets a card of its own, gloo in
+    a process that sees no card. More ranks than cards raises: two ranks
+    on one card would form an nccl group that fails at its first
+    collective (NCCL refuses a duplicate GPU)."""
+    cards = _cards()
+    if cards == 0:
+        return "gloo"
+    if local_world > cards or local_rank >= cards:
+        raise RuntimeError(
+            f"{local_world} ranks on this host but {cards} visible "
+            f"card(s): an nccl group needs a card for each rank (local "
+            f"rank {local_rank} would share one); hide the cards "
+            "(CUDA_VISIBLE_DEVICES=) for a gloo group on the CPU")
+    return "nccl"
+
+
 def multihost_init(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
-                   process_id: Optional[int] = None) -> bool:
+                   process_id: Optional[int] = None, *,
+                   timeout_s: float = 300.0) -> bool:
     """Join a multi-process job.
 
     Reads ``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID`` when
@@ -172,8 +239,15 @@ def multihost_init(coordinator_address: Optional[str] = None,
     initialised, False for a single-process run (no address: nothing to
     do). An address without the other two raises, as in the JAX package:
     defaulting to a one-process group would make every process of a
-    misconfigured job its own cluster. The group's backend is nccl in a
-    process that sees a card and gloo otherwise."""
+    misconfigured job its own cluster.
+
+    The host's ranks are ``LOCAL_WORLD_SIZE`` (default: every process)
+    and this one is ``LOCAL_RANK`` (default: ``PROCESS_ID``). A process
+    that sees cards takes ``cuda:{local rank}`` before the group forms
+    and joins over nccl; the host's ranks outnumbering its cards raises
+    here, before any rank joins. A process that sees no card joins over
+    gloo. Every collective of the group gives up after ``timeout_s``, so
+    the survivors of a killed rank raise instead of hanging."""
     addr = coordinator_address or os.environ.get("COORDINATOR_ADDRESS")
     if addr is None:
         return False
@@ -184,9 +258,65 @@ def multihost_init(coordinator_address: Optional[str] = None,
     if nproc is None or pid is None:
         raise ValueError(
             "COORDINATOR_ADDRESS set but NUM_PROCESSES/PROCESS_ID missing")
+    nproc, pid = int(nproc), int(pid)
+    local_rank = int(os.environ.get("LOCAL_RANK", pid))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", nproc))
+    backend = _backend_for(local_rank, local_world)
     import torch.distributed as dist
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(local_rank)
     init = addr if "://" in addr else f"tcp://{addr}"
-    dist.init_process_group(backend, init_method=init,
-                            world_size=int(nproc), rank=int(pid))
+    dist.init_process_group(backend, init_method=init, world_size=nproc,
+                            rank=pid,
+                            timeout=datetime.timedelta(seconds=timeout_s))
     return True
+
+
+def process_mesh(spec: MeshSpec, local: Sequence) -> Mesh:
+    """The mesh of every process of the job (``torch.distributed`` must be
+    initialised, e.g. by :func:`multihost_init`): each rank gives its
+    ``local`` positions' devices (every rank the same count; its card,
+    ``cuda:{local rank}``, in an nccl group), positions ordered by rank,
+    then by local index. Every rank must call it, in the same order as any other
+    collective: the process groups of the mesh's meetings are made here."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError("process_mesh needs an initialised process "
+                           "group (multihost_init)")
+    local = list(local)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    counts = [None] * world
+    dist.all_gather_object(counts, len(local))
+    if len(set(counts)) != 1:
+        raise ValueError(f"every rank must give the same number of "
+                         f"positions, got {counts}")
+    n_local = counts[0]
+    sizes = spec.resolve(world * n_local)
+    shape = tuple(sizes.values())
+    devs = np.empty(world * n_local, dtype=object)
+    devs[:] = [local[i % n_local] if i // n_local == rank else "meta"
+               for i in range(world * n_local)]
+    ranks = np.arange(world * n_local) // n_local
+    mesh = Mesh(devs.reshape(shape), tuple(sizes.keys()),
+                ranks=ranks.reshape(shape), rank=rank)
+    # one process group for each set of positions a meeting can join
+    # (every subset of the axes, at every coordinate of the others) that
+    # spans processes; new_group is collective, so every rank makes them
+    # all, in one order
+    names = mesh.axis_names
+    made = set()
+    for r in range(1, len(names) + 1):
+        for axes in itertools.combinations(names, r):
+            for flat in range(mesh.size):
+                c = mesh.coords(flat)
+                members = tuple(sorted(
+                    j for j in range(mesh.size)
+                    if all(mesh.coords(j)[a] == c[a] for a in names
+                           if a not in axes)))
+                if members in made:
+                    continue
+                made.add(members)
+                procs = sorted({mesh.rank_of(j) for j in members})
+                if len(procs) > 1:
+                    mesh._groups[members] = dist.new_group(procs)
+    return mesh

@@ -31,9 +31,26 @@ the differentiable sharded ops (:mod:`tosem_tpu_torch.parallel.ring`) are
 ``shard_map``, and a collective refuses an input that requires grad. A
 body without collectives stays differentiable: the split and the
 assembly are copies autograd sees, so gradients reach the global inputs.
+
+A body may hand work to the thread that called the ``shard_map``
+(:func:`on_caller`) and wait for its result. The backward of a
+differentiable sharded op runs on PyTorch's autograd thread of the card,
+and a position thread that itself ran a backward there would wait on
+that busy thread forever; the caller's thread runs it as a nested
+backward instead (:mod:`tosem_tpu_torch.parallel.pipeline`'s stage
+gradients).
+
+Over a multi-process mesh (:func:`~tosem_tpu_torch.parallel.mesh.
+process_mesh`) each process runs its own positions. A meeting whose
+members lie in several processes gathers the members' values over the
+meeting's process group (``all_gather_object``, values on the CPU) and
+every rank runs the same combine over all of them in member order, so
+the ranks get the bits of a one-process mesh. An output block that no
+position of some rank holds is gathered from the others the same way.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 import time
@@ -115,17 +132,20 @@ def _leaves(tree) -> list:
 
 
 def _rebuild(tree, leaves):
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in node}
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*(build(t) for t in node))
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(t) for t in node)
-        return next(it)
-    return build(tree)
+
+def _build(node, it):
+    # a module-level recursion: a nested closure that calls itself is a
+    # reference cycle, which would hold its leaves (device tensors) until
+    # the garbage collector runs
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in node}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_build(t, it) for t in node))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(t, it) for t in node)
+    return next(it)
 
 
 # ------------------------------------------------------ split / assemble
@@ -144,10 +164,12 @@ def split(x, mesh: Mesh, spec: P) -> list:
     tensor dimension named by the spec is split evenly (it must divide)
     and each position gets its block as an owned contiguous tensor on its
     device; a tensor with no named dimension is shared by the positions
-    on its device and copied to the others; any other value replicates."""
+    on its device and copied to the others; any other value replicates.
+    Another process's positions get None."""
     n = mesh.size
     if not torch.is_tensor(x):
         return [x] * n
+    local = mesh.local_positions()
     if len(spec) > x.ndim:
         raise ValueError(f"spec {spec!r} names {len(spec)} dimensions of a "
                          f"{x.ndim}-d tensor")
@@ -159,48 +181,65 @@ def split(x, mesh: Mesh, spec: P) -> list:
         if x.shape[d] % parts:
             raise ValueError(f"dimension {d} of {tuple(x.shape)} is not "
                              f"divisible by {axes} = {parts} positions")
-    out = []
-    for i in range(n):
+    out = [None] * n
+    for i in local:
         dev = mesh.device_of(i)
         if not dims:
-            out.append(x if x.device == dev else x.to(dev))
+            out[i] = x if x.device == dev else x.to(dev)
             continue
         c = mesh.coords(i)
         piece = x
         for d, axes in dims:
             size = x.shape[d] // int(np.prod([sizes[a] for a in axes]))
             piece = piece.narrow(d, _linear(c, axes, sizes) * size, size)
-        out.append(_owned(piece, dev))
+        out[i] = _owned(piece, dev)
     return out
+
+
+def _block_keys(mesh: Mesh, spec: P):
+    dims = [(d, _entry_axes(e)) for d, e in enumerate(spec) if e is not None]
+    for _, axes in dims:
+        _check_axes(mesh, axes)
+    named = [a for _, axes in dims for a in axes]
+    return dims, [tuple(mesh.coords(i)[a] for a in named)
+                  for i in range(mesh.size)]
 
 
 def assemble(pieces: Sequence, mesh: Mesh, spec: P):
     """The global value of per-position ``pieces`` under ``spec``: the
-    named dimensions concatenated in axis order, on position 0's device;
-    for axes the spec does not name, the pieces at index 0 of them."""
-    first = pieces[0]
+    named dimensions concatenated in axis order, on the device of this
+    process's first piece; each block from the first position
+    (row-major) holding it, which is the one at index 0 of the axes the
+    spec does not name. None marks a piece this process does not hold (or
+    a None output)."""
+    held = [i for i, p in enumerate(pieces) if p is not None]
+    if not held:
+        return None
+    first = next((pieces[i] for i in held if mesh.is_local(i)),
+                 pieces[held[0]])
     if not torch.is_tensor(first):
         return first
     sizes = mesh.shape
-    dims = [(d, _entry_axes(e)) for d, e in enumerate(spec) if e is not None]
-    named = {a for _, axes in dims for a in axes}
-    for _, axes in dims:
-        _check_axes(mesh, axes)
+    dims, keys = _block_keys(mesh, spec)
     if not dims:
         return first
     shape = list(first.shape)
     for d, axes in dims:
         shape[d] *= int(np.prod([sizes[a] for a in axes]))
     out = torch.empty(shape, dtype=first.dtype, device=first.device)
-    for i, piece in enumerate(pieces):
-        c = mesh.coords(i)
-        if any(c[a] for a in mesh.axis_names if a not in named):
+    done = set()
+    for i in held:
+        if keys[i] in done:
             continue
+        done.add(keys[i])
+        c = mesh.coords(i)
         view = out
         for d, axes in dims:
-            size = piece.shape[d]
+            size = pieces[i].shape[d]
             view = view.narrow(d, _linear(c, axes, sizes) * size, size)
-        view.copy_(piece)
+        view.copy_(pieces[i])
+    if len(done) != len(set(keys)):
+        raise RuntimeError(f"assemble under {spec!r}: blocks missing")
     return out
 
 
@@ -230,9 +269,12 @@ class _Aborted(RuntimeError):
 
 
 class _Meeting:
-    def __init__(self, op: str, n: int):
+    def __init__(self, op: str, n: int, members: Optional[List[int]],
+                 n_local: int):
         self.op = op
         self.values: list = [None] * n
+        self.members = members      # flat positions (process meshes)
+        self.n_local = n_local
         self.arrived = 0
         self.taken = 0
         self.results: Optional[list] = None
@@ -249,6 +291,8 @@ class _Call:
         self.cond = threading.Condition()
         self.meetings: Dict[tuple, _Meeting] = {}
         self.failed: Optional[str] = None
+        self.requests: collections.deque = collections.deque()
+        self.finished = 0
 
     def abort(self, why: str) -> None:
         with self.cond:
@@ -291,6 +335,18 @@ def _group(pos: _Position, axis_name) -> Tuple[Tuple[str, ...], int, int,
     return axes, _linear(pos.coords, axes, sizes), n, rest
 
 
+def _members(mesh: Mesh, axes, rest) -> List[int]:
+    """The flat positions of a group, in member order."""
+    sizes = mesh.shape
+    fixed = dict(rest)
+    out = []
+    for i in range(mesh.size):
+        c = mesh.coords(i)
+        if all(c[a] == v for a, v in fixed.items()):
+            out.append((_linear(c, axes, sizes), i))
+    return [i for _, i in sorted(out)]
+
+
 def axis_index(axis_name) -> int:
     """This position's index along ``axis_name`` (a name or a tuple of
     names, row-major)."""
@@ -301,12 +357,36 @@ def axis_size(axis_name) -> int:
     return _group(_here(), axis_name)[2]
 
 
+def _cpu(tree):
+    return _rebuild(tree, [x.detach().cpu() if torch.is_tensor(x) else x
+                           for x in _leaves(tree)])
+
+
+def _exchange(mesh: Mesh, members: List[int], values: list) -> list:
+    """Every member's (value, device) in member order: the local ones
+    as they are, the other processes' over the group's process group
+    (values on the CPU, where the combine puts their results too)."""
+    import torch.distributed as dist
+    group = mesh.process_group(members)
+    mine = {j: _cpu(values[j][0]) for j, i in enumerate(members)
+            if mesh.is_local(i)}
+    got = [None] * dist.get_world_size(group)
+    dist.all_gather_object(got, mine, group=group)
+    out = list(values)
+    cpu = torch.device("cpu")
+    for part in got:
+        for j, v in part.items():
+            if out[j] is None:
+                out[j] = (v, cpu)
+    return out
+
+
 def _meet(op: str, axis_name, value, combine: Callable[[list, list],
                                                         list]):
     """Deposit ``value`` in this position's meeting over ``axis_name`` and
     return its share of ``combine(values, devices)`` (one result per
-    member, in member order), computed once by the last member to
-    arrive."""
+    member, in member order), computed once by the last member of this
+    process to arrive (after gathering the other processes' members)."""
     pos = _here()
     if any(torch.is_tensor(v) and v.requires_grad for v in _leaves(value)):
         raise RuntimeError(
@@ -317,26 +397,39 @@ def _meet(op: str, axis_name, value, combine: Callable[[list, list],
             "write a torch.autograd.Function whose forward and backward "
             "are each a shard_map")
     call = pos.call
+    mesh = call.mesh
     axes, idx, n, rest = _group(pos, axis_name)
     key = (pos.seq, axes, rest)
     pos.seq += 1
     with call.cond:
         m = call.meetings.get(key)
         if m is None:
-            m = call.meetings[key] = _Meeting(op, n)
+            members = _members(mesh, axes, rest) if mesh.ranks is not None \
+                else None
+            n_local = n if members is None else \
+                sum(1 for i in members if mesh.is_local(i))
+            m = call.meetings[key] = _Meeting(op, n, members, n_local)
         if m.op != op:
             raise RuntimeError(f"collective {pos.seq - 1} over {axes}: "
                                f"{op} meets {m.op} (bodies must call the "
                                "same collectives in the same order)")
         m.values[idx] = (value, pos.device)
         m.arrived += 1
-        if m.arrived == n:
-            try:
-                m.results = combine([v for v, _ in m.values],
-                                    [d for _, d in m.values])
-            except BaseException as e:      # handed to every member
-                m.error = e
+        last = m.arrived == m.n_local
+    if last:
+        results = error = None
+        try:
+            values = m.values
+            if m.n_local < n:
+                values = _exchange(mesh, m.members, values)
+            results = combine([v for v, _ in values],
+                              [d for _, d in values])
+        except BaseException as e:      # handed to every member
+            error = e
+        with call.cond:
+            m.results, m.error = results, error
             call.cond.notify_all()
+    with call.cond:
         while m.results is None and m.error is None:
             if call.failed is not None:
                 raise _Aborted(call.failed)
@@ -349,11 +442,64 @@ def _meet(op: str, axis_name, value, combine: Callable[[list, list],
                 raise _Aborted(call.failed)
             call.cond.wait(left)
         m.taken += 1
-        if m.taken == n:
+        if m.taken == m.n_local:
             del call.meetings[key]
         if m.error is not None:
             raise RuntimeError(f"{op} over {axes} failed") from m.error
         return m.results[idx]
+
+
+def on_caller(fn: Callable, *args, **kwargs):
+    """Run ``fn(*args, **kwargs)`` on the thread that called the
+    ``shard_map`` (under this position's card) and return its result:
+    for work that must not run on a position thread, such as a backward
+    pass inside the backward of a sharded op."""
+    pos = _here()
+    call = pos.call
+    box: Dict[str, Any] = {}
+    with call.cond:
+        call.requests.append((fn, args, kwargs, pos.device, box))
+        call.cond.notify_all()
+        while "done" not in box:
+            if call.failed is not None:
+                raise _Aborted(call.failed)
+            left = call.deadline - time.monotonic()
+            if left <= 0:
+                call.failed = call.failed or (
+                    f"on_caller waited past the {call.timeout} s time "
+                    "limit")
+                call.cond.notify_all()
+                raise _Aborted(call.failed)
+            call.cond.wait(left)
+    if "error" in box:
+        raise box["error"]
+    return box["result"]
+
+
+def _serve_requests(call: _Call, n_threads: int) -> None:
+    """The caller's side of :func:`on_caller`: run the positions'
+    requests until they have all finished or the time limit passes."""
+    while True:
+        with call.cond:
+            while not call.requests and call.finished < n_threads \
+                    and call.failed is None:
+                left = call.deadline - time.monotonic()
+                if left <= 0:
+                    return
+                call.cond.wait(left)
+            if not call.requests:
+                return
+            fn, args, kwargs, dev, box = call.requests.popleft()
+        try:
+            with contextlib.ExitStack() as stack:
+                if dev.type == "cuda":
+                    stack.enter_context(torch.cuda.device(dev))
+                box["result"] = fn(*args, **kwargs)
+        except BaseException as e:     # raised in the position
+            box["error"] = e
+        with call.cond:
+            box["done"] = True
+            call.cond.notify_all()
 
 
 def _to(x, dev):
@@ -484,9 +630,40 @@ def _position_args(args, in_specs, mesh: Mesh) -> List[list]:
                 cut.append(leaf.pieces)
             else:
                 cut.append(split(leaf, mesh, s))
-        for i in range(mesh.size):
+        for i in mesh.local_positions():
             per_pos[i].append(_rebuild(arg, [c[i] for c in cut]))
     return per_pos
+
+
+def _gather_missing(pieces: List[list], mesh: Mesh, specs) -> None:
+    """Fill in, from the other processes, the output blocks some rank
+    holds no position of. Whether that is needed follows from the mesh
+    alone, so every rank takes part or none does."""
+    world = int(mesh.ranks.max()) + 1
+    needed = []
+    for j, spec in enumerate(specs):
+        _, keys = _block_keys(mesh, spec)
+        for r in range(world):
+            have = {keys[i] for i in range(mesh.size) if mesh.rank_of(i) == r}
+            if have != set(keys):
+                needed.append(j)
+                break
+    if not needed:
+        return
+    import torch.distributed as dist
+    mine = {}
+    for j in needed:
+        _, keys = _block_keys(mesh, specs[j])
+        for i, p in enumerate(pieces[j]):
+            if p is not None and (j, keys[i]) not in mine:
+                mine[(j, keys[i])] = (i, p.detach().cpu()
+                                      if torch.is_tensor(p) else p)
+    got = [None] * world
+    dist.all_gather_object(got, mine)
+    for part in got:
+        for (j, _), (i, p) in part.items():
+            if pieces[j][i] is None:
+                pieces[j][i] = p
 
 
 def shard_map(body: Callable, mesh: Mesh, in_specs, out_specs, *,
@@ -511,6 +688,7 @@ def shard_map(body: Callable, mesh: Mesh, in_specs, out_specs, *,
         grad = torch.is_grad_enabled()
         results: list = [None] * mesh.size
         errors: list = [None] * mesh.size
+        local = mesh.local_positions()
 
         def position(i):
             pos = _Position(call, i)
@@ -528,15 +706,19 @@ def shard_map(body: Callable, mesh: Mesh, in_specs, out_specs, *,
                 call.abort(f"position {i} raised {type(e).__name__}: {e}")
             finally:
                 _LOCAL.position = None
+                with call.cond:
+                    call.finished += 1
+                    call.cond.notify_all()
 
         threads = [threading.Thread(target=position, args=(i,), daemon=True,
                                     name=f"shard_map-pos{i}")
-                   for i in range(mesh.size)]
+                   for i in local]
         for t in threads:
             t.start()
+        _serve_requests(call, len(threads))
         for t in threads:
             t.join(max(0.0, call.deadline - time.monotonic()))
-        late = [i for i, t in enumerate(threads) if t.is_alive()]
+        late = [i for i, t in zip(local, threads) if t.is_alive()]
         if late:
             # wake the positions waiting in a meeting; give the others a
             # moment to return before calling them hung
@@ -544,7 +726,7 @@ def shard_map(body: Callable, mesh: Mesh, in_specs, out_specs, *,
                        f"{timeout} s time limit")
             for t in threads:
                 t.join(_GRACE_S)
-            hung = [i for i, t in enumerate(threads) if t.is_alive()]
+            hung = [i for i, t in zip(local, threads) if t.is_alive()]
             if hung:
                 raise TimeoutError(f"shard_map over {mesh}: positions "
                                    f"{hung} did not finish within "
@@ -555,10 +737,15 @@ def shard_map(body: Callable, mesh: Mesh, in_specs, out_specs, *,
             raise real[0]
         if any(e is not None for e in errors):
             raise TimeoutError(f"shard_map over {mesh}: {call.failed}")
-        pairs0 = _leaves_with_specs(results[0], out_specs)
-        per_leaf = [_leaves(r) for r in results]
-        out = [assemble([leaves[j] for leaves in per_leaf], mesh, s)
+        i0 = local[0]
+        pairs0 = _leaves_with_specs(results[i0], out_specs)
+        per_leaf = [None if r is None else _leaves(r) for r in results]
+        pieces = [[None if leaves is None else leaves[j]
+                   for leaves in per_leaf] for j in range(len(pairs0))]
+        if mesh.ranks is not None:
+            _gather_missing(pieces, mesh, [s for _, s in pairs0])
+        out = [assemble(pieces[j], mesh, s)
                for j, (_, s) in enumerate(pairs0)]
-        return _rebuild(results[0], out)
+        return _rebuild(results[i0], out)
 
     return run

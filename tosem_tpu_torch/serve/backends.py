@@ -26,9 +26,12 @@ computing what a sequential one-token step would. Sliding-window and
 speculative decode run every step through the multi-token kernel;
 ``n > 1`` requests decode as beam or sampling groups over copy-on-write
 forks, and ``session`` requests keep their KV for the next turn (see
-:class:`BertDecodeBackend`). Streaming a sequence to a peer's receiver
-(``send_to``, ``send_seq``/``adopt_seq``) waits for the transport
-(ROADMAP.md A11).
+:class:`BertDecodeBackend`). A sequence (or a cached prefix) moves
+replica to replica over the tensor transport
+(:mod:`tosem_tpu_torch.cluster.transport`): ``send_seq`` streams its
+pages to the peer's receiver and ``adopt_seq`` imports them there
+(``admit(send_to=)`` is the prefill tier's form); ``send_prefix`` /
+``adopt_prefix`` move an indexed prefix.
 
 :class:`ShardedPagedDecodeBackend` and :class:`ShardedAttentionBackend`
 are one logical replica over a ``dp x tp`` mesh of positions on one
@@ -65,10 +68,6 @@ def model_tag(name: str, cfg: Any, seed: int, **extra: Any) -> str:
     sig = ",".join(f"{k}={fields[k]}" for k in sorted(fields))
     ex = "".join(f";{k}={v}" for k, v in sorted(extra.items()))
     return f"{name}({sig};seed={seed}{ex})"
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 class CompiledBackendMixin:
@@ -475,9 +474,11 @@ class BertDecodeBackend(CompiledBackendMixin):
         self._prefill_tokens = 0
         self._reused_tokens = 0
         self._session_hits = 0
-        # prefixes adopted from another replica: stays 0 until the
-        # transport path (ROADMAP.md A11) is ported
+        # prefixes adopted from another replica (adopt_prefix), and the
+        # hand-offs out of and into this replica by each route
         self._prefix_remote_imports = 0
+        self._handoffs = collections.Counter()
+        self._receiver = None
         self._call_n = 0
         self._lock = threading.RLock()
         self._tag = model_tag("bert_decode", cfg, seed,
@@ -682,21 +683,18 @@ class BertDecodeBackend(CompiledBackendMixin):
         ``export=True`` is the prefill tier's hand-off (disaggregated
         prefill): the outcome carries the freshly prefilled state
         (``"state"``, :meth:`export_seq`'s) and this replica releases its
-        copy. ``send_to`` (streaming the pages to a peer's receiver)
-        waits for the transport (ROADMAP.md A11)."""
-        if send_to:
-            raise _not_ported("streamed hand-off (send_to)",
-                              "A11 transport")
+        copy. ``send_to=<address>`` streams the pages straight to that
+        peer's receiver instead (:meth:`send_seq`): the outcome carries
+        ``"sent": True``, the peer adopts by sequence id, and this
+        replica releases its copy."""
         with self._lock:
             if seq_id in self._handed:    # replayed hand-off admit
                 return dict(self._handed[seq_id])
             n = int(request.get("n", 1) or 1)
             if n > 1:
                 out = self._admit_group(seq_id, request, n)
-                if export and not out.get("done"):
-                    out["state"] = self.export_seq(seq_id)
-                    self.release(seq_id)
-                    self._record_handoff(seq_id, out)
+                if not out.get("done"):
+                    self._hand_off(seq_id, out, export, send_to)
                 return out
             if seq_id in self._seqs:              # at-least-once replay
                 seq = self._seqs[seq_id]
@@ -752,11 +750,25 @@ class BertDecodeBackend(CompiledBackendMixin):
                 # the final payload rides the outcome: retiring costs the
                 # scheduler no extra round trip
                 out["result"] = self._result_locked(seq)
-            elif export:
-                out["state"] = self.export_seq(seq_id)
-                self.release(seq_id)
-                self._record_handoff(seq_id, out)
+            else:
+                self._hand_off(seq_id, out, export, send_to)
             return out
+
+    def _hand_off(self, seq_id, out: Dict[str, Any], export: bool,
+                  send_to: Optional[str]) -> None:
+        """The prefill tier's hand-off of an admitted request: its state
+        inline (``export``) or streamed to ``send_to``; either way this
+        replica releases its copy."""
+        if export:
+            out["state"] = self.export_seq(seq_id)
+            self._handoffs["exported"] += 1
+        elif send_to:
+            self.send_seq(seq_id, send_to)
+            out["sent"] = True
+        else:
+            return
+        self.release(seq_id)
+        self._record_handoff(seq_id, out)
 
     def _record_handoff(self, seq_id, out: Dict[str, Any]) -> None:
         """Memoize a hand-off admit's outcome (bounded FIFO), without its
@@ -1228,7 +1240,12 @@ class BertDecodeBackend(CompiledBackendMixin):
     # ------------------------------------------------- release and spill
 
     def release(self, seq_id) -> None:
+        """Free a request's pages, and a stream sent for it that was
+        never adopted here."""
         with self._lock:
+            if self._receiver is not None and \
+                    f"seq:{seq_id}" in self._receiver.stats()["pending_keys"]:
+                self._receiver.pop(f"seq:{seq_id}", timeout=0).release()
             group = self._groups.pop(seq_id, None)
             if group is not None:
                 for b in group.beams:
@@ -1408,6 +1425,176 @@ class BertDecodeBackend(CompiledBackendMixin):
             return []
         return self._prefix.digest()
 
+    # ------------------------------------------ replica-to-replica hand-off
+    #
+    # Page bytes stream replica to replica over the tensor transport,
+    # never through the caller; only the small control calls
+    # (addresses, adopt) go through it. bf16 pages travel as "bfloat16" on the wire
+    # and land as the port's payload form (uint16 bits).
+
+    def transport_address(self) -> str:
+        """This replica's tensor receiver (started at the first call):
+        its address, where a peer streams a sequence or prefix."""
+        with self._lock:
+            if self._receiver is None:
+                from tosem_tpu_torch.cluster.transport import TensorReceiver
+                self._receiver = TensorReceiver()
+            return self._receiver.address
+
+    def shutdown(self) -> None:
+        """Close the receiver (streams not adopted yet are dropped)."""
+        with self._lock:
+            receiver, self._receiver = self._receiver, None
+        if receiver is not None:
+            receiver.shutdown()
+
+    def _page_tensors(self, kv: Dict[str, Any], i: int) -> Dict[str, Any]:
+        from tosem_tpu_torch.cluster.transport import _page_tensor
+        dtype = str(kv["header"].get("dtype", ""))
+        return {f"k{i}": _page_tensor(kv["k"], dtype),
+                f"v{i}": _page_tensor(kv["v"], dtype)}
+
+    def _strip_kv(self, state: Dict[str, Any]):
+        """Split an exported state into (JSON-safe metadata, page
+        tensors): each live branch's pages go on the wire, its KV header
+        stays in the metadata."""
+        arrays: Dict[str, Any] = {}
+        meta = dict(state)
+        if state.get("kind") == "seq":
+            arrays.update(self._page_tensors(state["kv"], 0))
+            meta["kv"] = {"header": state["kv"]["header"]}
+        else:
+            branches = []
+            for i, br in enumerate(state["branches"]):
+                br = dict(br)
+                if br.get("kv") is not None:
+                    arrays.update(self._page_tensors(br["kv"], i))
+                    br["kv"] = {"header": br["kv"]["header"], "slot": i}
+                branches.append(br)
+            meta["branches"] = branches
+        return meta, arrays
+
+    @staticmethod
+    def _payload(header: Dict[str, Any], k, v) -> Dict[str, Any]:
+        """A received branch's pages as a KV payload (views over the
+        receive buffer; the import is the one copy off it)."""
+        def host(t):
+            if t.dtype == torch.bfloat16:
+                return t.view(torch.int16).numpy().view(np.uint16)
+            return t.numpy()
+        return {"header": header, "k": host(k), "v": host(v),
+                "length": int(header["length"]),
+                "released": int(header["page_offset"])}
+
+    def send_seq(self, seq_id, address: str) -> int:
+        """Stream one request's state to a peer replica's receiver: the
+        pages as tensors, the decode bookkeeping in the stream's
+        metadata. Returns payload bytes sent; this replica keeps its copy
+        (the caller releases it once the peer adopted)."""
+        from tosem_tpu_torch.cluster.transport import send_tensors
+        meta, arrays = self._strip_kv(self.export_seq(seq_id))
+        n = send_tensors(address, {"key": f"seq:{seq_id}",
+                                   "decode_state": meta}, arrays)
+        with self._lock:
+            self._handoffs["sent"] += 1
+        return n
+
+    def _receiver_or_raise(self):
+        with self._lock:
+            if self._receiver is None:
+                raise RuntimeError("transport_address() was never called "
+                                   "on this replica")
+            return self._receiver
+
+    def adopt_seq(self, seq_id, timeout: float = 30.0) -> None:
+        """Import the stream :meth:`send_seq` delivered for ``seq_id``
+        and register the request: decode continues from the exported
+        step. Under :class:`~tosem_tpu_torch.serve.kv_cache.
+        CachePressure` the stream is parked back on the receiver, so a
+        retried adopt does not pay the transfer again. Idempotent: an
+        adopted request is left as it is."""
+        from tosem_tpu_torch.serve.kv_cache import CachePressure
+        receiver = self._receiver_or_raise()
+        with self._lock:
+            if seq_id in self._seqs or seq_id in self._groups:
+                return
+        rx = receiver.pop(f"seq:{seq_id}", timeout=timeout)
+        try:
+            state = dict(rx.meta["decode_state"])
+            arrs = rx.arrays()
+            if state.get("kind") == "seq":
+                hdr = state["kv"]["header"]
+                state["kv"] = self._payload(hdr, arrs["k0"], arrs["v0"])
+            else:
+                branches = []
+                for br in state["branches"]:
+                    br = dict(br)
+                    if br.get("kv") is not None:
+                        i = int(br["kv"]["slot"])
+                        br["kv"] = self._payload(br["kv"]["header"],
+                                                 arrs[f"k{i}"],
+                                                 arrs[f"v{i}"])
+                    branches.append(br)
+                state["branches"] = branches
+            self.import_seq(seq_id, state)
+        except CachePressure:
+            receiver.put_back(f"seq:{seq_id}", rx)
+            raise
+        except BaseException:
+            rx.release()
+            raise
+        rx.release()
+        with self._lock:
+            self._handoffs["adopted"] += 1
+
+    def send_prefix(self, depth: int, hash_: str, address: str) -> int:
+        """Stream one indexed prefix's pages to a peer's receiver, keyed
+        ``prefix:<hash>``, with its tokens in the stream's metadata. The
+        entry here is unchanged. Raises ``KeyError`` when the prefix is
+        no longer indexed (evicted since the digest was read)."""
+        from tosem_tpu_torch.cluster.transport import send_tensors
+        if self._prefix is None:
+            raise KeyError("prefix cache disabled on this replica")
+        with self._lock:
+            ent = self._prefix.by_hash(int(depth), str(hash_))
+            if ent is None:
+                raise KeyError(
+                    f"prefix ({depth}, {hash_}) not indexed on this replica")
+            kv = self.cache.export_seq(ent.cid)
+            tokens = list(ent.tokens)
+        arrays = self._page_tensors(kv, 0)
+        return send_tensors(address, {
+            "key": f"prefix:{hash_}",
+            "prefix_state": {"header": kv["header"], "tokens": tokens}},
+            arrays)
+
+    def adopt_prefix(self, hash_: str, timeout: float = 30.0) -> int:
+        """Index the prefix :meth:`send_prefix` streamed for ``hash_``:
+        import its pages, register every page-aligned depth in the local
+        index, and free the staging sequence (the index's references
+        keep the pages). Returns how many index entries landed."""
+        receiver = self._receiver_or_raise()
+        if self._prefix is None:
+            raise RuntimeError("prefix cache disabled on this replica")
+        rx = receiver.pop(f"prefix:{hash_}", timeout=timeout)
+        try:
+            meta = rx.meta["prefix_state"]
+            arrs = rx.arrays()
+            payload = self._payload(meta["header"], arrs["k0"], arrs["v0"])
+            with self._lock:
+                staging = f"__prefix_rx__/{hash_}"
+                self._with_relief(
+                    lambda: self.cache.import_seq(staging, payload))
+                try:
+                    added = self._prefix.insert(
+                        [int(t) for t in meta["tokens"]], staging)
+                finally:
+                    self.cache.free(staging)
+                self._prefix_remote_imports += 1
+        finally:
+            rx.release()
+        return added
+
     # ---------------------------------------------- synchronous decode
 
     def call(self, request: Dict[str, Any]) -> Dict[str, Any]:
@@ -1457,6 +1644,8 @@ class BertDecodeBackend(CompiledBackendMixin):
             out["session_hits"] = self._session_hits
             out["sessions"] = len(self._sessions)
             out["prefix_remote_imports"] = self._prefix_remote_imports
+            for route in ("exported", "sent", "adopted"):
+                out[f"handoffs_{route}"] = self._handoffs[route]
             if self._prefix is not None:
                 out.update(self._prefix.stats())
         return out

@@ -35,10 +35,11 @@ The port's copy of ``tosem_tpu/serve/batching.py``. Where the JAX
 package compiles one XLA program per bucket, the port's backends build
 one step callable per bucket. :class:`DecodeQueue` turns on spill,
 migration and streamed hand-off only for a backend that has them
-(``spill_seq``, ``export_seq``, ``send_seq``); the port's
-``BertDecodeBackend`` has the first two, so disaggregated prefill hands
-each prefilled sequence over by export until the transport behind
-``send_seq`` is ported (ROADMAP.md A11).
+(``spill_seq``, ``export_seq``, ``send_seq``); with the port's
+``BertDecodeBackend`` disaggregated prefill streams each prefilled
+sequence to its decode replica (``admit(send_to=)``, then
+``adopt_seq`` there), and a backend without ``send_seq`` hands it over
+by export.
 """
 from __future__ import annotations
 
@@ -1472,22 +1473,20 @@ class DecodeQueue:
             item.src_replica = None
             if first.get("sent"):
                 # pages already streamed worker→worker to item.replica
-                # (the send COMMITTED before the admit outcome): fire
-                # the idempotent adopt WITHOUT waiting and activate
-                # now — actor FIFO orders the adopt before any step
-                # this scheduler dispatches afterwards, so the slot
-                # never idles a round trip. A pressured adopt parks
-                # the payload and the step's "pending" outcome retries.
+                # (the send COMMITTED before the admit outcome): adopt
+                # there through the import harvest, which activates the
+                # item once the adopt lands. A pressured adopt parks the
+                # stream on that replica's receiver and the item in
+                # _prefilled until pages free (the JAX package's copy
+                # activates the item at once, so a parked adopt leaves it
+                # "pending" on every step until the stall limit fails it)
                 try:
-                    item.replica.adopt_seq.remote(item.seq_id, 10.0)
+                    ref = item.replica.adopt_seq.remote(item.seq_id, 10.0)
                 except BaseException as e:
                     self._fail_prefilled(item, e)
                     continue
                 with self._lock:
-                    self._active.append(item)
-                    self._migrations += 1
-                self._metrics["kv_migrations"].inc(
-                    1, (self._dep.name, "ok"))
+                    self._importing.append((item, ref, time.monotonic()))
                 continue
             item.prefill_state = first.get("state")
             item.replica = None

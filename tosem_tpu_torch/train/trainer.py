@@ -11,18 +11,27 @@ package passed an ``rng`` key.
 
 Data-parallel training over the tensor transport is
 :mod:`tosem_tpu_torch.train.distributed`. The steps over a device mesh
-(``mesh=``, ``shard_batch``, ``make_partitioned_train_step``) compute
-the global step over a mesh and are not ported yet (``ROADMAP.md``
-A10's remainder: global-semantics mesh training), nor is
-``classification_loss`` (it waits for ResNet, A12).
+(``make_train_step(mesh=)`` with ``shard_batch``, and
+``make_partitioned_train_step`` with ``shard_train_state`` and
+``shard_batch_by_rules``) compute the **global** step, as GSPMD computes
+the JAX package's: one ``shard_map`` in which each position gathers the
+parameters, computes the loss numerator and weight count of its rows
+(``loss_fn(..., reduce="sum")``), meets the others on the counts, takes
+its gradients of ``numerator / global count`` inside the position, and
+meets them on the gradients, so the masked mean is over the whole batch
+(a mean of the positions' means is another loss). ``classification_loss``
+waits for ResNet (ROADMAP.md A12).
 """
 from __future__ import annotations
 
+import copy
 import functools
 import hashlib
+import inspect
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -34,10 +43,6 @@ class TrainingPreempted(RuntimeError):
     ``preempt`` action, or raised by user code on a SIGTERM notice). A
     :func:`fit` with the same ``ckpt_dir`` resumes from the latest atomic
     checkpoint with a bit-exact metric history."""
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 @dataclass
@@ -82,13 +87,23 @@ def create_train_state(model: nn.Module, optimizer) -> TrainState:
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       weights: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       weights: Optional[torch.Tensor] = None, *,
+                       reduce: str = "mean"):
     """Token-level cross entropy in fp32; ``weights`` (same shape as
     labels) restricts the average to selected positions (e.g. MLM
-    masks)."""
+    masks). ``reduce="sum"`` gives ``(numerator, count)`` instead, whose
+    quotient ``numerator / max(count, 1)`` is the mean: what a mesh step
+    sums over its positions before it divides."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(-1, labels.long()[..., None])[..., 0]
+    if reduce == "sum":
+        if weights is None:
+            return -ll.sum(), torch.tensor(float(ll.numel()),
+                                           device=ll.device)
+        w = weights.float()
+        return -(ll * w).sum(), w.sum()
+    if reduce != "mean":
+        raise ValueError(f"reduce must be 'mean' or 'sum', got {reduce!r}")
     if weights is None:
         return -ll.mean()
     w = weights.float()
@@ -96,7 +111,8 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def mlm_loss(model, batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None, *, attn_fn=None):
+             generator: Optional[torch.Generator] = None, *, attn_fn=None,
+             reduce: str = "mean"):
     """Masked-LM loss for BERT-style batches.
 
     Batch keys: ``ids`` (with mask tokens substituted), ``labels``
@@ -104,26 +120,38 @@ def mlm_loss(model, batch: Dict[str, torch.Tensor],
     (which positions were masked). The loss averages only over masked
     positions, or over all of them when ``masked`` is absent (plain LM).
     ``attn_fn`` (e.g. ``flash_attn_fn()``) is bound with
-    ``functools.partial``."""
+    ``functools.partial``. ``reduce="sum"`` returns ``(numerator,
+    {"count": masked positions})`` (see :func:`cross_entropy_loss`)."""
     enc = model.apply(batch["ids"], mask=batch.get("mask"), train=True,
                       attn_fn=attn_fn, generator=generator)
     logits = model.mlm_logits(enc)
+    if reduce == "sum":
+        num, count = cross_entropy_loss(logits, batch["labels"],
+                                        batch.get("masked"), reduce="sum")
+        return num, {"count": count}
     return cross_entropy_loss(logits, batch["labels"],
-                              batch.get("masked")), {}
+                              batch.get("masked"), reduce=reduce), {}
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     loss_fn: Callable[..., Tuple[torch.Tensor,
                                                  Dict[str, Any]]],
-                    *, mesh=None):
+                    *, mesh=None, dp_axis: str = "dp"):
     """``step(state, batch, generator) -> (state, metrics)``: one
     forward, backward and optimizer update, in place. ``state`` must hold
     this ``model`` and ``optimizer`` (so its checkpoints are theirs);
     ``metrics`` holds the loss (a 0-d tensor, not synchronised) and the
-    loss function's aux values."""
+    loss function's aux values.
+
+    With ``mesh``, the parameters stay replicated (the model's) and the
+    batch is cut over ``dp_axis`` by its leading dim (:func:`shard_batch`,
+    or plain tensors the step cuts): the global step over the mesh's
+    positions (see the module docstring), its gradient applied to the
+    model by ``optimizer`` on the caller's thread. ``loss_fn`` must take
+    ``reduce="sum"`` (as :func:`mlm_loss` does)."""
     if mesh is not None:
-        raise _not_ported("train steps over a device mesh (mesh=)",
-                          "A10's remainder: global-semantics mesh training")
+        return _replicated_mesh_step(model, optimizer, loss_fn, mesh,
+                                     dp_axis)
 
     def step(state: TrainState, batch, generator=None):
         if state.model is not model or state.optimizer is not optimizer:
@@ -145,14 +173,332 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     return step
 
 
-def make_partitioned_train_step(*args, **kwargs):
-    raise _not_ported("partitioned (tp/sp/dp) train steps",
-                      "A10's remainder: global-semantics mesh training")
+# ------------------------------------------------------- mesh train steps
 
 
-def shard_batch(*args, **kwargs):
-    raise _not_ported("batch sharding over a mesh",
-                      "A10's remainder: global-semantics mesh training")
+def shard_batch(batch: Any, mesh, axis: str = "dp") -> Any:
+    """A batch (a dict of tensors) held as blocks of its leading dim over
+    ``axis`` (a 0-d leaf replicates)."""
+    from tosem_tpu_torch.parallel.spmd import P, Sharded
+    return {k: Sharded.of(v, mesh, P(axis) if getattr(v, "ndim", 0) >= 1
+                          else P()) for k, v in batch.items()}
+
+
+def shard_batch_by_rules(batch: Any, mesh, batch_rules) -> Any:
+    from tosem_tpu_torch.parallel.sharding import shard_tree
+    return shard_tree(batch, mesh, batch_rules)
+
+
+@dataclass
+class MeshTrainState:
+    """A train state held as blocks over a mesh: each parameter cut by
+    its rule's spec (``specs``), each position owning its blocks
+    (``blocks[name].pieces[i]``, an ``nn.Parameter`` on the position's
+    device) and an optimizer of its own over them, whose moments are
+    blocks of the same cut. ``model`` is the module the blocks came
+    from; a step does not touch it (:meth:`gather` gives the full
+    tensors)."""
+    model: nn.Module
+    mesh: Any
+    specs: Dict[str, Any]
+    blocks: Dict[str, Any]
+    optimizers: Any
+    step: int = 0
+
+    def gather(self) -> Dict[str, torch.Tensor]:
+        """The full parameters, by name (detached)."""
+        with torch.no_grad():
+            return {n: b.gather().detach() for n, b in self.blocks.items()}
+
+
+def shard_train_state(state: TrainState, mesh, rules) -> MeshTrainState:
+    """``state``'s parameters and optimizer moments cut by ``rules``
+    (:mod:`tosem_tpu_torch.parallel.sharding`), each position owning a
+    copy of its blocks on its device, and an optimizer of ``state``'s
+    type and hyperparameters over them on each position."""
+    from tosem_tpu_torch.parallel.sharding import spec_for_path, _clip_spec
+    from tosem_tpu_torch.parallel.spmd import P, Sharded, split
+    opt = state.optimizer
+    if len(opt.param_groups) != 1:
+        raise ValueError("shard_train_state takes an optimizer with one "
+                         "parameter group")
+    named = list(state.model.named_parameters())
+    specs = {n: _clip_spec(spec_for_path(n, rules), p.ndim)
+             for n, p in named}
+    local = mesh.local_positions()
+    blocks, moments = {}, {}
+    with torch.no_grad():
+        for n, p in named:
+            pieces = split(p.detach(), mesh, specs[n])
+            blocks[n] = Sharded(mesh, specs[n], [
+                None if x is None else
+                nn.Parameter(_own(x), requires_grad=p.requires_grad)
+                for x in pieces])
+            st = opt.state.get(p, {})
+            moments[n] = {k: (split(v, mesh, specs[n])
+                              if torch.is_tensor(v) and v.shape == p.shape
+                              else [v] * mesh.size) for k, v in st.items()}
+    # the group's hyperparameters that the optimizer's constructor takes
+    takes = inspect.signature(type(opt).__init__).parameters
+    group = {k: v for k, v in opt.param_groups[0].items()
+             if k != "params" and k in takes}
+    optimizers = [None] * mesh.size
+    for i in local:
+        params = [blocks[n].pieces[i] for n, _ in named]
+        o = type(opt)(params, **group)
+        for n, _ in named:
+            if moments[n]:
+                o.state[blocks[n].pieces[i]] = {
+                    k: (_own(v[i]) if torch.is_tensor(v[i]) else v[i])
+                    for k, v in moments[n].items()}
+        optimizers[i] = o
+    return MeshTrainState(model=state.model, mesh=mesh, specs=specs,
+                          blocks=blocks, optimizers=Sharded(mesh, P(),
+                                                            optimizers),
+                          step=state.step)
+
+
+def _own(x: torch.Tensor) -> torch.Tensor:
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    out.copy_(x)
+    return out
+
+
+class _LossOf(nn.Module):
+    """``loss_fn`` over ``model`` as a module, so ``functional_call`` can
+    run it on tensors that are not the model's."""
+
+    def __init__(self, model: nn.Module, loss_fn):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+
+    def forward(self, batch, generator):
+        return self.loss_fn(self.model, batch, generator, reduce="sum")
+
+
+def _batch_rows(batch: Dict[str, torch.Tensor], specs: Dict[str, Any],
+                mesh) -> Tuple[Dict[str, torch.Tensor], tuple, int, int]:
+    """This position's rows of the batch, inside a shard_map body: every
+    dim a spec cuts beyond the leading one is gathered, and the rows are
+    split over the axes that cut it. Returns (rows, the axes that split
+    rows, the first row's index in the global batch, global rows)."""
+    from tosem_tpu_torch.parallel.spmd import all_gather, axis_index
+    from tosem_tpu_torch.parallel.spmd import _entry_axes
+    sizes = mesh.shape
+    out, row_axes, start, total = {}, None, 0, None
+    for k, x in batch.items():
+        spec = tuple(specs[k])
+        if not torch.is_tensor(x) or x.ndim == 0:
+            out[k] = x
+            continue
+        lead = _entry_axes(spec[0]) if spec else ()
+        rest = tuple(a for e in spec[1:] for a in _entry_axes(e))
+        for d, e in enumerate(spec):
+            if d and e is not None:
+                x = all_gather(x, e, axis=d, tiled=True)
+        k_rest = int(np.prod([sizes[a] for a in rest])) if rest else 1
+        if x.shape[0] % k_rest:
+            raise ValueError(
+                f"batch leaf {k!r}: {x.shape[0]} rows a position do not "
+                f"split over {rest} = {k_rest} positions")
+        per = x.shape[0] // k_rest
+        i_rest = axis_index(rest) if rest else 0
+        x = x.narrow(0, i_rest * per, per)
+        axes = lead + rest
+        if row_axes is not None and axes != row_axes:
+            raise ValueError(f"batch leaves split rows over {row_axes} and "
+                             f"{axes}: every leaf must split alike")
+        row_axes = axes
+        n_lead = int(np.prod([sizes[a] for a in lead])) if lead else 1
+        i_lead = axis_index(lead) if lead else 0
+        start = i_lead * per * k_rest + i_rest * per
+        total = per * k_rest * n_lead
+        out[k] = x.contiguous()
+    return out, row_axes or (), start, total
+
+
+def _global_grads(skel, loss_fn, params, batch, row_axes, start, total,
+                  gen_state, device):
+    """Inside a position: (global loss, gradients of the global loss by
+    name, the generator's state after the step). ``params`` are full
+    tensors (no grad)."""
+    from torch.func import functional_call
+    from tosem_tpu_torch.nn.layers import RowSlice
+    from tosem_tpu_torch.parallel.spmd import psum
+    gen = None
+    if gen_state is not None:
+        gen = torch.Generator(device=device)
+        gen.set_state(torch.frombuffer(bytearray(gen_state),
+                                       dtype=torch.uint8))
+    leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
+    with torch.enable_grad():
+        num, aux = functional_call(
+            skel, {f"model.{n}": p for n, p in leaves.items()},
+            (batch, RowSlice(gen, start, total)))
+        if "count" not in aux:
+            raise ValueError("a mesh step's loss_fn(..., reduce='sum') "
+                             "returns (numerator, {'count': ...})")
+        count = aux["count"].detach()
+        if row_axes:
+            count = psum(count, row_axes)
+        local = num / torch.clamp(count, min=1.0)
+        names = list(leaves)
+        grads = torch.autograd.grad(local, [leaves[n] for n in names],
+                                    allow_unused=True)
+    grads = {n: torch.zeros_like(leaves[n]) if g is None else g
+             for n, g in zip(names, grads)}
+    num = num.detach()
+    if row_axes:
+        num, grads = psum((num, grads), row_axes)
+    loss = num / torch.clamp(count, min=1.0)
+    return loss, grads, (None if gen is None
+                         else bytes(gen.get_state().numpy()))
+
+
+def _skeletons(model: nn.Module, loss_fn, n: int) -> list:
+    """A parameterless copy of the loss over ``model`` for each position
+    (functional_call swaps a module's tensors for the call, so threads
+    never share one)."""
+    meta = copy.deepcopy(model).to("meta")
+    return [_LossOf(copy.deepcopy(meta), loss_fn) for _ in range(n)]
+
+
+def _gen_state(generator, mesh):
+    if generator is None:
+        return None
+    devs = {mesh.device_of(i).type for i in mesh.local_positions()}
+    if devs != {generator.device.type}:
+        raise ValueError(f"generator on {generator.device} for positions "
+                         f"on {sorted(devs)}")
+    return bytes(generator.get_state().numpy())
+
+
+def _replicated_mesh_step(model, optimizer, loss_fn, mesh, dp_axis):
+    from tosem_tpu_torch.parallel.spmd import P, Sharded, shard_map
+    names = [n for n, _ in model.named_parameters()]
+    skels = Sharded(mesh, P(), _skeletons(model, loss_fn, mesh.size))
+
+    def body(params, batch, skel, gen_state):
+        rows, axes, start, total = _batch_rows(batch, specs_of(batch),
+                                               mesh)
+        return _global_grads(skel, loss_fn, params, rows, axes, start,
+                             total, gen_state, _device_of(params))
+
+    def specs_of(batch):
+        return {k: (P(dp_axis) if getattr(v, "ndim", 0) >= 1 else P())
+                for k, v in batch.items()}
+
+    def step(state: TrainState, batch, generator=None):
+        if state.model is not model or state.optimizer is not optimizer:
+            raise ValueError("train state holds another model or optimizer "
+                             "than this step was built for")
+        bspecs = specs_of({k: _global_like(v) for k, v in batch.items()})
+        run = shard_map(body, mesh,
+                        in_specs=({n: P() for n in names}, bspecs, P(),
+                                  P()),
+                        out_specs=P())
+        params = dict(model.named_parameters())
+        with torch.no_grad():
+            loss, grads, gen_after = run(
+                {n: params[n].detach() for n in names}, batch, skels,
+                _gen_state(generator, mesh))
+        optimizer.zero_grad(set_to_none=True)
+        for n in names:
+            params[n].grad = grads[n].to(params[n].device)
+        optimizer.step()
+        if gen_after is not None:
+            generator.set_state(torch.frombuffer(bytearray(gen_after),
+                                                 dtype=torch.uint8))
+        state.step += 1
+        return state, {"loss": loss}
+    return step
+
+
+def _global_like(v):
+    """A batch leaf's global stand-in for its spec: a Sharded leaf's
+    first block (its rank is what matters)."""
+    from tosem_tpu_torch.parallel.spmd import Sharded
+    if isinstance(v, Sharded):
+        return next(p for p in v.pieces if p is not None)
+    return v
+
+
+def _device_of(params: Dict[str, torch.Tensor]) -> torch.device:
+    return next(iter(params.values())).device
+
+
+def make_partitioned_train_step(model: nn.Module, optimizer,
+                                loss_fn: Callable[..., Tuple[torch.Tensor,
+                                                             Dict[str,
+                                                                  Any]]],
+                                *, mesh, rules, batch_rules):
+    """Fully sharded train step over any named-axis mesh (tp/sp/dp):
+    ``step(mesh_state, batch, generator) -> (mesh_state, metrics)`` on a
+    :class:`MeshTrainState` from :func:`shard_train_state` with the same
+    ``rules``, and a batch cut by ``batch_rules``
+    (:func:`shard_batch_by_rules`, or plain tensors the step cuts).
+
+    One ``shard_map``: each position gathers the parameters from their
+    blocks, takes its rows of the batch (a batch cut over ``sp`` is
+    gathered along the sequence and that dp shard's rows split over
+    ``sp``; positions of other axes, ``tp``, repeat their rows' compute),
+    computes the global loss's gradients inside the position, meets the
+    positions sharing its rows' axes on them, and updates its own blocks
+    with its own optimizer. The blocks' layout is the rules' after every
+    step, and between steps a position holds only its blocks.
+    ``optimizer`` names the optimizer type the state was cut with; the
+    state carries the positions' optimizers."""
+    from tosem_tpu_torch.parallel.sharding import spec_for_path, _clip_spec
+    from tosem_tpu_torch.parallel.spmd import (P, Sharded, all_gather,
+                                               axis_index, shard_map)
+    skels = Sharded(mesh, P(), _skeletons(model, loss_fn, mesh.size))
+
+    def body(specs, bspecs, blocks, batch, opt, skel, gen_state):
+        full = {}
+        for n, b in blocks.items():
+            t = b.detach()
+            for d, e in enumerate(specs[n]):
+                if e is not None:
+                    t = all_gather(t, e, axis=d, tiled=True)
+            full[n] = t
+        rows, axes, start, total = _batch_rows(batch, bspecs, mesh)
+        loss, grads, gen_after = _global_grads(
+            skel, loss_fn, full, rows, axes, start, total, gen_state,
+            _device_of(blocks))
+        opt.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            for n, b in blocks.items():
+                g = grads[n]
+                for d, e in enumerate(specs[n]):
+                    if e is not None:
+                        size = b.shape[d]
+                        g = g.narrow(d, axis_index(e) * size, size)
+                b.grad = g.contiguous()
+        opt.step()
+        # a block's gradient may view the full one: drop them, so that
+        # between steps a position holds its blocks and moments only
+        opt.zero_grad(set_to_none=True)
+        return loss, gen_after
+
+    def step(state: MeshTrainState, batch, generator=None):
+        if state.mesh is not mesh:
+            raise ValueError("train state is held over another mesh")
+        bspecs = {k: _clip_spec(spec_for_path(k, batch_rules),
+                                getattr(_global_like(v), "ndim", 0))
+                  for k, v in batch.items()}
+        run = shard_map(functools.partial(body, state.specs, bspecs), mesh,
+                        in_specs=(state.specs, bspecs, P(), P(), P()),
+                        out_specs=P())
+        with torch.no_grad():
+            loss, gen_after = run(state.blocks, batch, state.optimizers,
+                                  skels, _gen_state(generator, mesh))
+        if gen_after is not None:
+            generator.set_state(torch.frombuffer(bytearray(gen_after),
+                                                 dtype=torch.uint8))
+        state.step += 1
+        return state, {"loss": loss}
+    return step
 
 
 def fold_in(seed: int, step: int) -> int:
