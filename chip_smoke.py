@@ -120,7 +120,35 @@ Phases, each printing one JSON line:
               prefix moved over (``send_prefix``, ``adopt_prefix``)
               gives the peer a hit whose stream equals the cold one, its
               logits rows within ROW_TOL of the cold backend's.
-4b. encode_sparse — long-document BERT-base encode: ``BertEncodeBackend``
+4b. cluster — the same BERT-base served over the cluster plane: three
+              node agents (``RemoteNode.spawn_local``) in a ``NodePool``
+              with a journal and a failure detector, ``ClusterServe``
+              with two router processes, and ``BertDecodeBackend`` (the
+              serve phase's settings and warm-up) as 2 replicas spread
+              over two of the agents, the third the spare capacity
+              re-placements land on. The 9 decode prompts, each under a
+              session key (the prefix-hit prompt under its donor's), go
+              through ``ClusterHandle.call`` in 3 rounds, each answer
+              equal bit for bit to the same backend's in-process
+              ``call`` in the same order; then 8 clients in a closed loop
+              while one replica's node is SIGKILLed: no error may reach a
+              client, every answer is the prompt's in-process stream,
+              the detector declares the node dead and the replica comes
+              back on a survivor under its id, and the journal shows it
+              removed and placed again. A sequence admitted and stepped 3
+              times through ``backend_call`` on the other replica moves
+              to a survivor with ``drain_node`` and finishes with an
+              undisturbed call's stream. Then ``ShardedPagedDecodeBackend``
+              (B4) and ``ShardedAttentionBackend`` (B1) at the parallel
+              phase's shapes with ``sharding=(1, 2)``: the node's
+              ``free_slots`` drop by 2 while the gang holds and come back
+              on delete, each answer equal to the unsharded kernel bit
+              for bit. B1, B4 and B5 must launch inside the replicas; no
+              replica process may outlive the plane. Prints the routed
+              and in-process latency p50/p99, requests/s before the kill
+              and after the re-placement, the seconds from the kill to
+              the re-placement and the drain's migrated count.
+4c. encode_sparse — long-document BERT-base encode: ``BertEncodeBackend``
               with ``local_window=128`` and with ``doc_len=128``, 8
               requests of 300-500 ids padded to 512, on B1's schedule
               mode, against the dense fold on the card and fp32 against
@@ -174,8 +202,11 @@ Phases, each printing one JSON line:
               launches equal positions x calls. Then the device ms of the
               sharded calls beside the unsharded kernels (one card: no
               speedup is read), and ``--config=allreduce`` at its
-              default of 4 positions a card (1 KB to 64 MB a position,
-              each timing calibrated to 20 ms windows),
+              default of 4 positions a card (64 KB to 64 MB a position,
+              each timing calibrated to 20 ms windows; the buffers
+              under 64 KB, whose windows capture thousands of calls,
+              took 141.9 of the whole sweep's 291.2 s on an NVIDIA H100
+              80GB HBM3 at 700 W),
               each row beside the card's name and power limit; on one
               card the "bus" is its memory.
 7c. pipeline — BERT-base as a GPipe pipeline over pp = 4 positions on
@@ -208,21 +239,22 @@ Phases, each printing one JSON line:
               forward+backward). Every row must read under the card's
               peak (a row above it means a timing window closed early).
 
-``--phases`` picks a subset (default: all fifteen), e.g. ``build,kernels``
+``--phases`` picks a subset (default: all sixteen), e.g. ``build,kernels``
 for a first call after a kernel change, ``build,kernels,train`` for the
 training path, ``build,train_dp`` for data-parallel training,
 ``build,parallel`` for the device mesh, ``build,pipeline,mesh_train``
 for the pipeline and the global-batch mesh steps,
 ``build,kernels,suite`` for the kernel suite,
-``build,decode,serve`` for the served path, or
+``build,decode,serve`` for the served path, ``build,decode,cluster``
+for cluster serving, or
 ``build,kernels,decode,decode_modes,serve`` for the decode modes.
 
 The launch counts of every kernel are set to 0 just before the decode,
 each decode mode, the encode, the sparse encode, the train, each
 data-parallel run, each sharded path, the pipelined forward and
 backward, each mesh train run and the suite paths run and read just
-after (the serve path's inside its replicas: set to 0 as
-deploy's warm-up ends, read after the traffic); a kernel of the path
+after (the serve and cluster paths' inside their replicas: set to 0 as
+each replica's warm-up ends, read after its traffic); a kernel of the path
 that never launched fails the run. A ``seconds`` line gives each
 phase's time. Before the last line it prints the card's name and
 power limit (``nvidia-smi``) and one ``{"kernels": [...]}`` line; the last
@@ -2761,6 +2793,25 @@ SERVE_GAUGES = ("serve_decode_active_sequences",
                 "serve_decode_batch_occupancy", "serve_kv_pages")
 
 
+def reset_counts():
+    """Set the kernels' launch counts and the flash dispatch tally to 0:
+    the last thing a replica's warm-up does."""
+    from tosem_tpu_torch.nn.attention import FLASH_DISPATCH_COUNTS
+    from tosem_tpu_torch.ops import registry
+    registry.reset_launch_counts()
+    FLASH_DISPATCH_COUNTS.clear()
+    FLASH_DISPATCH_COUNTS.update({"flash": 0, "dense": 0})
+
+
+def replica_stats(out):
+    """``out`` with the kernels' launch counts and the process id, read
+    inside the replica."""
+    from tosem_tpu_torch.ops import registry
+    out["launch_counts"] = dict(registry.LAUNCH_COUNTS)
+    out["pid"] = os.getpid()
+    return out
+
+
 def replica_classes():
     """The two BERT backends as the serve phase deploys them: each
     subclass adds, to what ``stats()`` returns, what the phase reads from
@@ -2776,19 +2827,6 @@ def replica_classes():
     replicas; their bases come from the package."""
     from tosem_tpu_torch.serve.backends import (BertDecodeBackend,
                                                 BertEncodeBackend)
-
-    def reset_counts():
-        from tosem_tpu_torch.nn.attention import FLASH_DISPATCH_COUNTS
-        from tosem_tpu_torch.ops import registry
-        registry.reset_launch_counts()
-        FLASH_DISPATCH_COUNTS.clear()
-        FLASH_DISPATCH_COUNTS.update({"flash": 0, "dense": 0})
-
-    def replica_stats(out):
-        from tosem_tpu_torch.ops import registry
-        out["launch_counts"] = dict(registry.LAUNCH_COUNTS)
-        out["pid"] = os.getpid()
-        return out
 
     class ServedDecode(BertDecodeBackend):
         def admit(self, seq_id, request, *args, **kw):
@@ -3294,6 +3332,399 @@ def transfer_leg(dev, seed, new_tokens, prompts, hit_prompt, cold_hit):
     del warm, peer
     torch.cuda.empty_cache()
     return launches
+
+
+def cluster_replica(backend, **kw):
+    """A backend as the cluster phase deploys it on node agents: by name,
+    ``"chip_smoke:cluster_replica"``, since a replica worker imports its
+    backend (this module's top level loads the standard library only).
+    ``backend="decode"`` is the serve phase's ``ServedDecode``; any other
+    name is a class of ``tosem_tpu_torch.serve.backends`` (the sharded
+    replicas) with the same two hooks: the warm-up sets the launch counts
+    to 0 as it ends, and ``stats()`` reads them inside the replica."""
+    if backend == "decode":
+        return replica_classes()[0](**kw)
+    from tosem_tpu_torch.serve import backends
+
+    class Counted(getattr(backends, backend)):
+        def warmup(self, shapes):
+            import torch
+            out = super().warmup(shapes)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            reset_counts()
+            return out
+
+        def stats(self):
+            return replica_stats({})
+    return Counted(**kw)
+
+
+# the sharded replicas' shapes: the parallel phase's (BERT-base attention,
+# and paged decode at page 128 with a 4-slot table)
+CLUSTER_ATTN_DIMS = dict(batch=8, heads=12, seq=512, dim=64)
+CLUSTER_PAGED_DIMS = dict(batch=8, heads=12, head_dim=64, page_size=128,
+                          pages=64, table_w=4)
+CLUSTER_ROUNDS = 3          # sequential passes over the prompts
+CLUSTER_CLIENTS = 8         # the fail-over leg's closed loop
+CLUSTER_WINDOW_S = 6.0      # its window before the kill and after re-placing
+
+
+def percentiles(ms):
+    import numpy as np
+    return {"p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99)), "n": len(ms)}
+
+
+def fleet(handle, reqs, key_of, stop, n_clients, records, errors):
+    """``n_clients`` threads, each calling ``handle`` with its next
+    prompt until ``stop`` is set; each answer lands in ``records`` as
+    (end time, seconds, prompt index, generated tokens), each failure in
+    ``errors``. Returns the threads, started."""
+    import threading
+    lock = threading.Lock()
+
+    def client(i):
+        k = 0
+        while not stop.is_set():
+            j = (i + k) % len(reqs)
+            t = time.perf_counter()
+            try:
+                out = handle.call({"ids": reqs[j]}, timeout=120.0,
+                                  key=key_of(j))
+            except BaseException as e:
+                with lock:
+                    errors.append(f"client {i} prompt {j}: "
+                                  f"{type(e).__name__}: {e}")
+                return
+            end = time.perf_counter()
+            with lock:
+                records.append((end, end - t, j, out["generated"]))
+            k += 1
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(n_clients)]
+    for th in threads:
+        th.start()
+    return threads
+
+
+def phase_cluster(dev, seed, new_tokens, direct=None):
+    """BERT-base served over the cluster plane: node agents spawn the
+    replica processes (``RemoteNode.spawn_local``), a ``NodePool`` with a
+    journal and a failure detector watches them, and ``ClusterServe``
+    routes through two router processes. Two decode replicas spread over
+    two of three agents (the third is the spare capacity that
+    re-placements land on): keyed requests answer bit for bit the same
+    backend's in-process ``call``; a closed loop survives the kill of
+    one replica's node with no error reaching a client, while the
+    detector declares it dead and the replica is re-placed under its
+    id; a sequence stepped on one replica finishes on another after
+    ``drain_node`` migrates it; then the sharded replicas (B4 and B1
+    over ``sharding=(1, 2)``) hold their gang's slots and equal their
+    unsharded kernels bit for bit. Returns the kernels' launch counts
+    read inside the replicas."""
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.cluster.node import RemoteNode
+    from tosem_tpu_torch.cluster.rpc import RpcClient
+    from tosem_tpu_torch.cluster.supervisor import HeadJournal, NodePool
+    from tosem_tpu_torch.models.bert import BertConfig
+    from tosem_tpu_torch.serve.backends import (BertDecodeBackend,
+                                                ShardedAttentionBackend,
+                                                ShardedPagedDecodeBackend)
+    from tosem_tpu_torch.serve.cluster_serve import ClusterServe
+    t_phase = time.perf_counter()
+    vocab = BertConfig.base().vocab_size
+    prompts, hit_prompt = decode_prompts(seed, vocab)
+    reqs = prompts + [hit_prompt]
+    # one session a prompt; the prefix-hit prompt shares its donor's, so
+    # affinity sends it where the donor's pages are cached
+    key_of = lambda j: f"s{0 if j == len(prompts) else j}"   # noqa: E731
+    kw = decode_kwargs(dev, seed, new_tokens)
+    out = {"phase": "cluster", "gpu": gpu_line()}
+
+    # the same backend in this process, the same prompts in the same
+    # order: round 1 meets a cold prefix cache (but for the hit prompt),
+    # later rounds find each prompt's own pages
+    torch.cuda.empty_cache()
+    be = BertDecodeBackend(**kw)
+    be.call({"ids": prompts[1][:50], "max_new_tokens": 2})
+    local, local_ms = [], []
+    for _ in range(CLUSTER_ROUNDS):
+        row = []
+        for p in reqs:
+            t = time.perf_counter()
+            row.append(be.call({"ids": p})["generated"])
+            local_ms.append((time.perf_counter() - t) * 1e3)
+        local.append(row)
+    del be
+    torch.cuda.empty_cache()
+    # what an answer may be: a prompt's stream on a cold cache, or on its
+    # own cached pages (a re-placed replica starts cold)
+    allowed = [{tuple(local[0][j]), tuple(local[1][j])}
+               for j in range(len(reqs))]
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_cluster_")
+    journal = os.path.join(tmp.name, "head.jsonl")
+    pool = NodePool(journal_path=journal, heartbeat_interval_s=0.5,
+                    miss_threshold=2, probe_timeout=2.0,
+                    start_detector=True)
+    cs = None
+    counts = {}             # replica address -> its last launch counts
+    pids = set()
+
+    def read(rep):
+        with RpcClient(rep.address, call_timeout=60.0) as cli:
+            st = cli.call("stats")
+        counts[rep.address] = st["launch_counts"]
+        pids.add(st["pid"])
+        return st
+
+    try:
+        t = time.perf_counter()
+        for i in range(3):
+            pool.add_node(RemoteNode.spawn_local(num_workers=2),
+                          name=f"n{i}")
+        cs = ClusterServe(pool, num_routers=2, router_procs=True,
+                          replica_startup_timeout=300.0)
+        out["agents_routers_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        dep = cs.deploy("decode", "chip_smoke:cluster_replica",
+                        num_replicas=2, strategy="spread",
+                        init_kwargs=dict(kw, backend="decode"),
+                        warmup_shapes=SERVE_BUCKETS)
+        out["deploy_s"] = time.perf_counter() - t
+        placed = {r.replica_id: r.node for r in dep.replicas}
+        check(sorted(placed.values()) == ["n0", "n1"],
+              f"spread placed {placed}")
+        h = cs.get_handle("decode")
+
+        # 1. route: the prompts in turn, each under its session key
+        routed, routed_ms = [], []
+        for _ in range(CLUSTER_ROUNDS):
+            row = []
+            for j, p in enumerate(reqs):
+                t = time.perf_counter()
+                row.append(h.call({"ids": p}, timeout=120.0,
+                                  key=key_of(j))["generated"])
+                routed_ms.append((time.perf_counter() - t) * 1e3)
+            routed.append(row)
+        route_stats = [read(r) for r in dep.replicas]
+        out["route"] = {
+            "routed_ms": percentiles(routed_ms),
+            "in_process_ms": percentiles(local_ms),
+            "rounds": CLUSTER_ROUNDS, "requests": len(reqs),
+            "served": {r.replica_id: st["served"] for r, st in
+                       zip(dep.replicas, route_stats)},
+            "prefix_hits": sum(st["prefix_hits"] for st in route_stats),
+            "cold_equals_cached": [local[0][j] == local[1][j]
+                                   for j in range(len(reqs))]}
+        if direct is not None:
+            out["route"]["equal_decode_phase"] = (
+                local[0][:len(prompts)] == direct["streams"]
+                and local[0][-1] == direct["hit_stream"])
+        emit({"phase": "cluster", "route": out["route"]})
+        for r in range(CLUSTER_ROUNDS):
+            for j in range(len(reqs)):
+                check(routed[r][j] == local[r][j],
+                      f"round {r} prompt {j}: routed {routed[r][j]} != "
+                      f"in-process {local[r][j]}")
+
+        # 2. fail over: kill one replica's node under a closed loop
+        victim = dep.replicas[0]
+        records, errors = [], []
+        stop = threading.Event()
+        t0 = time.perf_counter()
+        threads = fleet(h, reqs, key_of, stop, CLUSTER_CLIENTS, records,
+                        errors)
+        time.sleep(CLUSTER_WINDOW_S)
+        read(victim)
+        t_kill = time.perf_counter()
+        pool.live_nodes()[victim.node].kill()
+        t_dead = t_back = None
+        deadline = t_kill + 300.0
+        while time.perf_counter() < deadline and not errors:
+            now = time.perf_counter()
+            if t_dead is None and pool.detector.is_dead(victim.node):
+                t_dead = now
+            back = [r for r in dep.replicas
+                    if r.replica_id == victim.replica_id]
+            if back and back[0].node != victim.node:
+                t_back = now
+                break
+            time.sleep(0.05)
+        if t_back is not None:
+            time.sleep(CLUSTER_WINDOW_S)
+        stop.set()
+        for th in threads:
+            th.join(timeout=180.0)
+        t_end = time.perf_counter()
+        check(not any(th.is_alive() for th in threads),
+              "a client of the closed loop never returned")
+
+        def rate(a, b):
+            n = sum(1 for e, *_ in records if a < e <= b)
+            return n / (b - a) if b > a else None
+        wrong = [(j, s) for _, _, j, s in records
+                 if tuple(s) not in allowed[j]]
+        out["failover"] = {
+            "clients": CLUSTER_CLIENTS, "answered": len(records),
+            "errors": errors[:5], "n_errors": len(errors),
+            "wrong_streams": len(wrong),
+            "victim": {"replica": victim.replica_id, "node": victim.node},
+            "kill_to_dead_s": None if t_dead is None else t_dead - t_kill,
+            "kill_to_replaced_s": None if t_back is None else t_back - t_kill,
+            "replaced_on": {r.replica_id: r.node for r in dep.replicas},
+            "requests_per_s_before": rate(t0, t_kill),
+            "requests_per_s_kill_to_replaced": (
+                None if t_back is None else rate(t_kill, t_back)),
+            "requests_per_s_after": (
+                None if t_back is None else rate(t_back, t_end)),
+            "latency_ms_before": percentiles(
+                [d * 1e3 for e, d, *_ in records if e <= t_kill]),
+            "latency_ms_after": percentiles(
+                [d * 1e3 for e, d, *_ in records if t_back and e > t_back]
+                or [float("nan")]),
+            "routers": [{k: rs.get(k) for k in (
+                "routed", "spilled", "retried", "errors", "prefix_routed",
+                "prefix_transfers", "prefix_transfer_fails")}
+                for rs in cs.stats()["routers"]]}
+        emit({"phase": "cluster", "failover": out["failover"]})
+        check(not errors, f"{len(errors)} errors reached the clients: "
+              f"{errors[:3]}")
+        check(t_back is not None, f"replica {victim.replica_id} was not "
+              "re-placed within 300 s of its node's death")
+        check(not wrong, f"{len(wrong)} answers differ from the in-process "
+              f"streams, first: prompt {wrong[0][0] if wrong else None}")
+        events = [(e["event"], e.get("replica_id"), e.get("reason"))
+                  for e in HeadJournal.load(journal)]
+        check(("replica_removed", victim.replica_id, "node_death") in events,
+              "the journal has no replica_removed for the victim")
+        check(sum(1 for ev, rid, _ in events if ev == "replica_placed"
+                  and rid == victim.replica_id) == 2,
+              "the journal does not show the victim placed twice")
+
+        # 3. drain with live migration
+        src = next(r for r in dep.replicas if r.node == "n1")
+        j = 1
+        with RpcClient(src.address, call_timeout=120.0) as cli:
+            o = cli.call("backend_call", "admit", "drain", {"ids": reqs[j]})
+            for step in range(3):
+                o = cli.call("backend_call", "step_batch", ["drain"],
+                             [step])[0]
+        read(src)
+        t = time.perf_counter()
+        drained = cs.drain_node("n1")
+        out["drain"] = {**drained, "seconds": time.perf_counter() - t}
+        dst = None
+        for r in dep.replicas:
+            with RpcClient(r.address, call_timeout=60.0) as cli:
+                if "drain" in cli.call("backend_call", "list_seqs"):
+                    dst = r
+        check(dst is not None and dst.node != "n1",
+              f"the drained sequence is on no survivor: {drained}")
+        with RpcClient(dst.address, call_timeout=120.0) as cli:
+            step = 3
+            while not o.get("done"):
+                o = cli.call("backend_call", "step_batch", ["drain"],
+                             [step])[0]
+                step += 1
+            res = cli.call("backend_call", "result", "drain")
+        out["drain"]["finished_on"] = dst.node
+        for r in dep.replicas:
+            read(r)
+        emit({"phase": "cluster", "drain": out["drain"]})
+        check(drained["sequences_migrated"] == 1 and
+              drained["replicas_moved"] == 1, f"drain: {drained}")
+        check(tuple(res["generated"]) in allowed[j],
+              f"the drained sequence gave {res['generated']}, not the "
+              f"stream of an undisturbed call {local[0][j]}")
+        check(all(r.node != "n1" for r in dep.replicas),
+              f"a replica stayed on the drained node: "
+              f"{[r.info() for r in dep.replicas]}")
+        cs.delete("decode")
+
+        # 4. the sharded replicas, one gang of 2 slots each
+        out["sharded"] = {}
+        for name, cls, dims, requests in (
+                ("paged", "ShardedPagedDecodeBackend", CLUSTER_PAGED_DIMS,
+                 ({"seed": 1}, {"seed": 2})),
+                ("attention", "ShardedAttentionBackend", CLUSTER_ATTN_DIMS,
+                 ({"seed": 1}, {"seed": 2}))):
+            before = {n: node.stats()["free_slots"]
+                      for n, node in pool.live_nodes().items()}
+            t = time.perf_counter()
+            sdep = cs.deploy(name, "chip_smoke:cluster_replica",
+                             num_replicas=1, sharding=(1, 2),
+                             init_kwargs=dict(dims, backend=cls, device=dev),
+                             warmup_shapes=[1])
+            deploy_s = time.perf_counter() - t
+            rep = sdep.replicas[0]
+            node = pool.live_nodes()[rep.node]
+            held = node.stats()["free_slots"]
+            sh = cs.get_handle(name)
+            ref_cls = {"ShardedPagedDecodeBackend": ShardedPagedDecodeBackend,
+                       "ShardedAttentionBackend": ShardedAttentionBackend}[cls]
+            equal = []
+            for req in requests:
+                got = sh.call(dict(req), timeout=120.0)
+                want = ref_cls.reference(dict(req), device=dev, **dims)
+                equal.append(np.asarray(got["out"]).tobytes()
+                             == want.tobytes())
+                check(got["mesh"] == [1, 2] and got["devices"] == 2,
+                      f"{name}: {got['mesh']} {got['devices']}")
+            st = read(rep)
+            cs.delete(name)
+            freed = node.stats()["free_slots"]
+            out["sharded"][name] = {
+                "node": rep.node, "free_slots_before": before[rep.node],
+                "free_slots_held": held, "free_slots_after": freed,
+                "deploy_s": deploy_s, "bytes_equal": equal,
+                "launches": {k: n for k, n in st["launch_counts"].items()
+                             if n}}
+            check(held == before[rep.node] - 2,
+                  f"{name}: free_slots {before[rep.node]} -> {held} while "
+                  "the gang holds")
+            check(all(equal), f"{name}: a sharded answer differs from the "
+                  "unsharded kernel")
+            check(freed == before[rep.node], f"{name}: free_slots {freed} "
+                  f"after delete, {before[rep.node]} before")
+        emit({"phase": "cluster", "sharded": out["sharded"]})
+    finally:
+        if cs is not None:
+            cs.close()
+        pool.close(close_nodes=True)
+        tmp.cleanup()
+
+    # no replica process may outlive the plane
+    deadline = time.perf_counter() + 30
+    while time.perf_counter() < deadline and any(
+            pid_state(p) == "alive" for p in pids):
+        time.sleep(0.2)
+    out["replica_pids"] = {p: pid_state(p) for p in sorted(pids)}
+    total = {k: sum(c.get(k, 0) for c in counts.values()) for k in KERNELS}
+    out["launches"] = {k: n for k, n in total.items() if n}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "cluster", "gpu": out["gpu"],
+          "routed_ms": out["route"]["routed_ms"],
+          "in_process_ms": out["route"]["in_process_ms"],
+          "requests_per_s_before_kill":
+              out["failover"]["requests_per_s_before"],
+          "requests_per_s_after_replace":
+              out["failover"]["requests_per_s_after"],
+          "kill_to_replaced_s": out["failover"]["kill_to_replaced_s"],
+          "drain_migrated": out["drain"]["sequences_migrated"],
+          "launches": out["launches"], "replica_pids": out["replica_pids"],
+          "seconds": out["seconds"]})
+    for p in pids:
+        check(pid_state(p) != "alive", f"replica {p} outlived the plane")
+    for name in ("flash_fwd", "paged_decode", "paged_decode_multi"):
+        check(total[name] > 0, f"{name} never launched in the cluster's "
+              "replicas")
+    return total
 
 
 def dense_fold_fn(mask):
@@ -4953,7 +5384,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,decode,decode_modes,encode,"
-                            "serve,encode_sparse,cpu,profile,train,"
+                            "serve,cluster,encode_sparse,cpu,profile,train,"
                             "train_dp,parallel,pipeline,mesh_train,suite")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -5014,6 +5445,8 @@ def main(argv=None):
         add(timed("encode", phase_encode, dev, SEED))
     if "serve" in phases:
         add(timed("serve", phase_serve, dev, SEED, NEW_TOKENS, direct))
+    if "cluster" in phases:
+        add(timed("cluster", phase_cluster, dev, SEED, NEW_TOKENS, direct))
     if "encode_sparse" in phases:
         add(timed("encode_sparse", phase_encode_sparse, dev, SEED))
     if "cpu" in phases:

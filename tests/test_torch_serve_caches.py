@@ -116,11 +116,13 @@ def test_shape_keys_match_the_reference(model, shape):
 
 
 def test_step_cache_builds_each_key_once():
-    from tosem_tpu_torch.serve.compile_cache import StepCache, shape_key
-    cache, built = StepCache(), []
+    from tosem_tpu_torch.serve.compile_cache import CompileCache, shape_key
+    cache, built = CompileCache(), []
     keys = [shape_key("m", (1, n), "float32") for n in (16, 32, 16, 16)]
     got = [cache.get_or_build(k, lambda k=k: built.append(k) or k[1])
            for k in keys]
     assert got == [(1, 16), (1, 32), (1, 16), (1, 16)]
     assert built == keys[:2] and len(cache) == 2 and keys[1] in cache
-    assert cache.stats() == {"entries": 2, "hits": 2, "misses": 2}
+    st = cache.stats()
+    assert (st["entries"], st["hits"], st["misses"]) == (2, 2, 2)
+    assert st["evicted_entries"] == st["pinned_models"] == 0

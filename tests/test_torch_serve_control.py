@@ -11,8 +11,8 @@ flight, stats) and of ``tests/test_serve.py``'s ``TestServeCore`` and
 ``Deployment.scale``/``load`` that need no autoscaler. The BERT parity
 test runs the port's tiny backend on ``device="cpu"``. Left out: the
 speech tests (ROADMAP.md A13), the autoscaler tests and the compile-cache
-tests of the JAX package's ``CompileCache`` (A11; the port's ``StepCache``
-has its own tests), and the two flush tests whose pass rests on a
+tests (copied into ``test_torch_control.py`` with the control plane and
+``CompileCache``'s budget and pins), and the two flush tests whose pass rests on a
 wall-clock budget (``test_flush_on_size``,
 ``test_adaptive_idle_dispatches_immediately``; C-ref2). Replicas run in
 spawned processes at ``num_workers=2``, one intra-op thread each.

@@ -5,8 +5,8 @@ The JAX package ``tosem_tpu`` stays the reference; this package is built
 beside it slice by slice, with every Pallas kernel on a slice's path
 rewritten by hand in CUDA C++ for ``sm_90a``. Ported so far (the BERT
 serving and training slices, the BERT kernel suite, block-sparse mask
-programs, the serving control plane, data-parallel training, and the
-device mesh):
+programs, the serving control plane, data-parallel training, the device
+mesh, and cluster serving):
 
 - ``tosem_tpu_torch.ops``     flash attention forward and backward (dense,
                               causal, segment ids, and the schedule mode
@@ -24,7 +24,11 @@ device mesh):
                               plane that serves them from replica
                               processes: ``Serve``, micro-batching and
                               continuous-batching queues, circuit
-                              breaker, HTTP ingress
+                              breaker, HTTP ingress; cluster serving
+                              (``ClusterServe``: replicas on node agents
+                              behind a tier of router processes, failover,
+                              drain with live KV migration, sharded
+                              replicas as gangs)
 - ``tosem_tpu_torch.runtime`` the actor runtime (tasks, actors, spawned
                               workers) over a shared-memory object store
                               (``native/objstore.cpp``, built by g++)
@@ -39,12 +43,18 @@ device mesh):
                               its collectives, the collective sweep,
                               sharding rules, sharded flash and paged
                               attention, ring/Ulysses attention
-- ``tosem_tpu_torch.cluster`` the chunked tensor transport and epoch
-                              fences
+- ``tosem_tpu_torch.cluster`` the RPC plane, node agents, the head's
+                              journal, failure detector and ``NodePool``,
+                              gangs, the chunked tensor transport and
+                              epoch fences
+- ``tosem_tpu_torch.control`` the scaling policy core, SLO admission,
+                              model multiplexing, the closed-loop
+                              ``ControlPlane``
 - ``tosem_tpu_torch.chaos``   seeded fault plans and the injection seam
 - ``tosem_tpu_torch.utils``   result CSVs, device timing, the roofline
 - ``tosem_tpu_torch.cli``     the experiment runner (``bert_kernels``,
-                              ``flash_sparse``)
+                              ``flash_sparse``, ``allreduce``,
+                              ``serve_bench``)
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 ``import tosem_tpu_torch`` loads neither JAX nor Triton, and builds no

@@ -11,13 +11,14 @@ the kernel (tc netem, iptables); this single-host emulation keeps the
 determinism contract of :mod:`tosem_tpu_torch.chaos` instead: fault
 state lives in one process-wide :class:`NetworkState`, mutated ONLY by
 chaos actions fired at deterministic event ordinals (``FaultPlan``), and
-consulted by the enforcement points that model the wire. The port has
-one so far, ``cluster.transport.send_tensors`` (replica→replica and
-rank→rank streams): a partitioned destination drops the stream
-(``TransportError``), and a pending ``dup_stream`` replays the whole
-stream after its COMMIT ack — the lost-ack retry the receiver must
-dedupe. The head's failure detector and the router's dispatch, the
-reference's other two, come with cluster serving (ROADMAP.md A11).
+consulted by the enforcement points that model the wire:
+``cluster.transport.send_tensors`` (replica→replica and rank→rank
+streams: a partitioned destination drops the stream (``TransportError``),
+and a pending ``dup_stream`` replays the whole stream after its COMMIT
+ack — the lost-ack retry the receiver must dedupe), the head's failure
+detector (``cluster.supervisor.FailureDetector``: a partitioned node's
+probe fails, a slow node's is delayed) and the router's dispatch
+(``serve.router.RouterCore``: a slow node's replicas answer late).
 
 Endpoints are plain strings — node NAMES as the pool knows them, with
 :data:`HEAD` naming the head side — so the state needs no knowledge of

@@ -20,6 +20,11 @@ ports it.
 how many positions and cards it ran on, and on one card the "bus" is the
 card's memory.
 
+``--config=serve_bench`` runs the serving data-plane microbench
+(``serve/bench_serve.py``): micro-batched against unbatched replicas of a
+synthetic backend and of tiny BERT encode, and a deployment's first
+request warm against cold.
+
 ``--config=flash_sparse`` runs ``sparse_kernel_suite``: flash forward and
 forward+backward under the block-sparse mask programs causal,
 ``local:1024`` and ``doc:2048+causal`` at [1, 12, 8192, 64] bf16 on the
@@ -49,12 +54,11 @@ NOT_PORTED = {
     "detection_infer": "A13 (models/efficientdet.py)",
     "pointpillars_infer": "A13 (models/pointpillars.py)",
     "speech_train": "A13 (models/speech.py)",
-    "serve_bench": "A11 (serve/bench_serve.py)",
     "decode_bench": "A11 (serve/bench_decode.py)",
     "decode_scenarios": "A11 (serve/bench_decode.py)",
     "cluster_bench": "A11 (serve/bench_cluster.py)",
-    "control_bench": "A11 (cluster serving)",
-    "train_bench": "A11 (train/bench_train.py, after serve/bench_common.py)",
+    "control_bench": "A11 (serve/bench_cluster.py)",
+    "train_bench": "A11 (train/bench_train.py)",
     "kernel_matrix": "A12 (ops/bench_kernels.py)",
     "analysis": "A12 (the CLI)",
     "chaos": "A12 (the CLI's chaos subcommand)",
@@ -136,9 +140,23 @@ def run_allreduce(args, device) -> List[Any]:
     return rows
 
 
+def run_serve_bench(args, device) -> List[Any]:
+    """The serving data-plane microbench (``serve/bench_serve.py``): the
+    closed-loop batched-vs-unbatched A/B on a synthetic backend and on
+    tiny BERT encode (its replicas on ``device``), and the warm-vs-cold
+    first request. The rows are host measurements of the serving path,
+    tagged ``serve_bench``."""
+    from tosem_tpu_torch.serve.bench_serve import run_serve_benchmarks
+    rows = run_serve_benchmarks(trials=2, min_s=0.4, device=device.type)
+    for r in rows:
+        r.config = "serve_bench"
+    return rows
+
+
 RUNNERS = {"bert_kernels": run_bert_kernels,
            "flash_sparse": run_flash_sparse,
-           "allreduce": run_allreduce}
+           "allreduce": run_allreduce,
+           "serve_bench": run_serve_bench}
 
 
 def make_parser() -> argparse.ArgumentParser:

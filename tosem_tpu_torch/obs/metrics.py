@@ -353,8 +353,8 @@ def cluster_serve_metrics(registry: Optional[Registry] = None
                           ) -> Dict[str, Metric]:
     """The cluster serving plane's instruments — the node/replica-
     labelled tier above :func:`serve_metrics`' per-deployment gauges.
-    Fed by the router tier (``RouterCore``, ROADMAP.md A11) (each router
-    feeds its OWN process registry) and rolled up driver-side by
+    Fed by the router tier (``serve/router.py`` ``RouterCore``: each
+    router feeds its OWN process registry) and rolled up driver-side by
     ``ClusterServe.stats()``, which mirrors router-process counters
     into the driver registry for one ``/metrics`` scrape surface:
 
@@ -425,7 +425,7 @@ def cluster_serve_metrics(registry: Optional[Registry] = None
 def control_plane_metrics(registry: Optional[Registry] = None
                           ) -> Dict[str, Metric]:
     """The closed-loop controller's instruments, fed by
-    the control plane (``ControlPlane``, ROADMAP.md A11):
+    the control plane (``control/plane.py`` ``ControlPlane``):
 
     - ``control_demand`` (gauge, labels deployment): the folded demand
       signal (router depth rollup + admission queues) each tick decided

@@ -37,8 +37,7 @@ pages to the peer's receiver and ``adopt_seq`` imports them there
 are one logical replica over a ``dp x tp`` mesh of positions on one
 device (:mod:`tosem_tpu_torch.parallel`), answering seeded workloads
 that their ``reference()`` computes through the unsharded kernels;
-deploying them across nodes (``ClusterServe.deploy(sharding=)``) waits
-for ROADMAP.md A11.
+``ClusterServe.deploy(sharding=)`` places them on node agents.
 """
 from __future__ import annotations
 
@@ -52,7 +51,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from tosem_tpu_torch.serve.compile_cache import StepCache, shape_key
+from tosem_tpu_torch.serve.compile_cache import CompileCache, shape_key
 
 # bucket granularity of padded encode batches (one cached callable per
 # bucket); the flash kernel itself takes any length
@@ -62,7 +61,7 @@ FLASH_ALIGN = 128
 def model_tag(name: str, cfg: Any, seed: int, **extra: Any) -> str:
     """Cache-key fingerprint of a model's step callables (config, seed,
     routing flags), the JAX package's own. Keys stay inside one backend's
-    :class:`StepCache`, so the weights need no name in them."""
+    :class:`CompileCache`, so the weights need no name in them."""
     fields = (dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg)
               else dict(vars(cfg)))
     sig = ",".join(f"{k}={fields[k]}" for k in sorted(fields))
@@ -72,11 +71,11 @@ def model_tag(name: str, cfg: Any, seed: int, **extra: Any) -> str:
 
 class CompiledBackendMixin:
     """Shared step-cache surface: subclasses set ``self._tag`` and their
-    own ``self._steps`` (a :class:`StepCache`), and implement
+    own ``self._steps`` (a :class:`CompileCache`), and implement
     ``_compiled(pad_to)``."""
 
     _tag: str
-    _steps: StepCache
+    _steps: CompileCache
 
     def warmup(self, shapes: Sequence[int]) -> Dict[str, Any]:
         """Build one step callable per declared bucket."""
@@ -132,7 +131,7 @@ class BertEncodeBackend(CompiledBackendMixin):
         self._sparse_fwd: Dict[int, Any] = {}
         self._tag = model_tag("bert_encode", cfg, seed, use_flash=use_flash,
                               local_window=local_window, doc_len=doc_len)
-        self._steps = StepCache()
+        self._steps = CompileCache()
 
     @staticmethod
     def length_of(request: Dict[str, Any]) -> int:
@@ -485,7 +484,7 @@ class BertDecodeBackend(CompiledBackendMixin):
                               page=self.page_size, pages=num_pages,
                               backend=backend or "auto",
                               window=window or 0, spec_k=self.spec_k)
-        self._steps = StepCache()
+        self._steps = CompileCache()
 
     # --------------------------------------------------------- step callables
 

@@ -7,8 +7,8 @@ JSON out; backend errors map to 500, unknown endpoints to 404.
 
 The controller argument duck-types: anything that exposes
 ``get_deployment`` / ``get_handle`` / ``list_deployments`` / ``stats``,
-as :class:`~tosem_tpu_torch.serve.core.Serve` does (the JAX package's
-``ClusterServe`` too; its port waits for ROADMAP.md A11). A handle whose
+as :class:`~tosem_tpu_torch.serve.core.Serve` does, and
+:class:`~tosem_tpu_torch.serve.cluster_serve.ClusterServe`. A handle whose
 ``call()`` takes ``key=`` gets ``POST /<endpoint>?key=<affinity>``.
 
 The port's copy of ``tosem_tpu/serve/http.py``. Like the JAX package's,

@@ -46,8 +46,8 @@ GPU, every rank's kernels go to the device's current stream, the same
 one for all). Gradients cross to the host by an explicit copy, and
 parameter traffic (elastic catch-up, grow bootstrap) rides the same
 transport streams as gradients. The reference's ``backend="nodes"``
-(ranks as replica processes on ``NodePool`` agents) comes with cluster
-serving (ROADMAP.md A11) and raises, naming it.
+(ranks as replica processes on ``NodePool`` agents) waits in ROADMAP.md
+A11 and raises, naming it.
 """
 from __future__ import annotations
 
