@@ -228,6 +228,33 @@ Phases, each printing one JSON line:
               after each step, no device tensor beyond the blocks and
               moments held between steps, B1-B3 12 a position a step,
               step ms and peak memory.
+7e. benches — the benches on the card: (a) ``autotune_decode_pages``
+              (B4) at (8, 12, 512, 64), (8, 12, 2048, 64) and (16, 12,
+              1024, 64) bf16 and ``autotune_spec_q`` (B5) at (8, 12, 512,
+              64) into a temporary cache, ``select_page_size`` and
+              ``select_spec_q`` reading the winners back from it
+              (``last_source == "cache"``) and a BERT-base
+              ``BertDecodeBackend`` built over it decoding at the cached
+              page; (b) every leg of ``run_decode_benchmarks`` once at
+              BERT-base (the JAX package's workload constants, one round
+              of ``BENCH_MIN_S`` windows; the window leg at t8192, w1024,
+              page 128 in fp32): its answer checks raise inside the
+              bench, B1, B4 and B5 launch inside the replicas and in this
+              process, and each ratio prints beside the reference's
+              speed floor; (c) the train_dp phase's BERT-base job with
+              ``DistributedTrainer(backend="nodes")`` at world 4, each
+              rank a replica process on its own node agent building
+              ``"chip_smoke:dp_job"``: losses and all 199 parameters
+              equal to the threads backend's and the local fold's bit for
+              bit, B1-B3 12 launches a shard inside each rank; then one
+              rank's agent SIGKILLed after step 1: the world shrinks to 3
+              (the journal records the loss and the shrink) and the run
+              equals a threads run that loses its last rank at the same
+              step, bit for bit; step ms beside the threads backend's;
+              (d) ``run_cluster_benchmarks`` (the CLI's ``cluster_bench``)
+              once, its model replicas on the card, one round of
+              ``CLUSTER_BENCH_MIN_S`` windows. No replica or rank may
+              outlive its bench.
 8. suite    — north-star config 5 through the port's experiment runner,
               ``tosem_tpu_torch.cli --config=bert_kernels`` (BERT-base:
               8 x 512, 12 heads of 64, hidden 768, bf16) into a
@@ -239,22 +266,24 @@ Phases, each printing one JSON line:
               forward+backward). Every row must read under the card's
               peak (a row above it means a timing window closed early).
 
-``--phases`` picks a subset (default: all sixteen), e.g. ``build,kernels``
+``--phases`` picks a subset (default: all seventeen), e.g. ``build,kernels``
 for a first call after a kernel change, ``build,kernels,train`` for the
 training path, ``build,train_dp`` for data-parallel training,
 ``build,parallel`` for the device mesh, ``build,pipeline,mesh_train``
 for the pipeline and the global-batch mesh steps,
 ``build,kernels,suite`` for the kernel suite,
 ``build,decode,serve`` for the served path, ``build,decode,cluster``
-for cluster serving, or
+for cluster serving, ``build,benches`` for the benches, or
 ``build,kernels,decode,decode_modes,serve`` for the decode modes.
 
 The launch counts of every kernel are set to 0 just before the decode,
 each decode mode, the encode, the sparse encode, the train, each
 data-parallel run, each sharded path, the pipelined forward and
-backward, each mesh train run and the suite paths run and read just
-after (the serve and cluster paths' inside their replicas: set to 0 as
-each replica's warm-up ends, read after its traffic); a kernel of the path
+backward, each mesh train run, each bench and the suite paths run and read just
+after (the serve, cluster and decode-bench paths' inside their
+replicas: set to 0 as each replica's warm-up ends, read after its
+traffic; the data-parallel ranks' inside each rank process, which
+starts at 0); a kernel of the path
 that never launched fails the run. A ``seconds`` line gives each
 phase's time. Before the last line it prints the card's name and
 power limit (``nvidia-smi``) and one ``{"kernels": [...]}`` line; the last
@@ -5286,6 +5315,445 @@ def phase_mesh_train(dev, seed):
     return launches
 
 
+# ------------------------------------------------------------------ benches
+
+# (a) the page sweep's shapes (the JAX package's on-chip defaults of its
+# autotune_decode_pages, tosem_tpu/cli.py:604-610) and the spec leg's
+# shape for the q sweep: 8 sequences of BERT-base's 12 heads of 64
+AUTOTUNE_PAGE_SHAPES = ((8, 12, 512, 64, "bfloat16"),
+                        (8, 12, 2048, 64, "bfloat16"),
+                        (16, 12, 1024, 64, "bfloat16"))
+AUTOTUNE_SPEC_SHAPES = ((8, 12, 512, 64, "bfloat16"),)
+BENCH_MIN_S = 0.2       # (b) the decode bench's closed-loop windows
+CLUSTER_BENCH_MIN_S = 0.1   # (d) run_cluster_benchmarks' windows
+DP_NODES_WORLD = 4      # (c) ranks, one a node agent
+
+
+def dp_job(seed, device="cuda"):
+    """The train_dp phase's BERT-base job, built from JSON kwargs: what
+    a rank replica builds from ``"chip_smoke:dp_job"`` (this module's top
+    level loads the standard library only). The batch is the train_dp
+    phase's, drawn from ``seed + 1`` in the same order."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed + 1)
+    ids = torch.as_tensor(rng.integers(0, 30522, (8, 512)), device=device)
+    masked = torch.as_tensor(rng.random((8, 512)) < 0.15, device=device)
+    return bert_dp_job(device, seed, _mlm_batch(ids, masked))
+
+
+def bench_replica_classes():
+    """The decode bench's two deployed backends, each adding the
+    replica's launch counts and process id to ``stats()`` and setting
+    the counts to 0 as its warm-up ends (the backends' own warm-ups
+    build step callables only). Defined in a function, so cloudpickle
+    ships them by value to the spawned replicas."""
+    from tosem_tpu_torch.serve.backends import BertDecodeBackend
+    from tosem_tpu_torch.serve.bench_decode import NaiveRecodeBackend
+
+    def counted(base):
+        class Counted(base):
+            def warmup(self, shapes):
+                import torch
+                out = super().warmup(shapes)
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                reset_counts()
+                return out
+
+            def stats(self):
+                return replica_stats(super().stats())
+        Counted.__name__ = Counted.__qualname__ = f"Counted{base.__name__}"
+        return Counted
+    return {"decode": counted(BertDecodeBackend),
+            "naive": counted(NaiveRecodeBackend)}
+
+
+def benches_autotune(dev, out):
+    """(a) The decode half of block selection on the card: the page
+    sweep (B4) and the speculative q sweep (B5) into a temporary cache,
+    the selectors reading the winners back from it, and a BERT-base
+    decode backend built over it running at the cached page."""
+    import tempfile
+    import torch
+    from tosem_tpu_torch.ops import flash_blocks as fb
+    from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.serve.backends import BertDecodeBackend
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_autotune_") as tmp:
+        # the backend reads the default cache, relative to the working
+        # directory: run this leg from a temporary one
+        os.chdir(tmp)
+        try:
+            cache = fb.DEFAULT_CACHE_PATH
+            fb.reset_cache()
+            registry.reset_launch_counts()
+            pages = fb.autotune_decode_pages(AUTOTUNE_PAGE_SHAPES, reps=3,
+                                             cache_path=cache, device=dev)
+            qs = fb.autotune_spec_q(AUTOTUNE_SPEC_SHAPES, reps=3,
+                                    cache_path=cache, device=dev)
+            swept = dict(registry.LAUNCH_COUNTS)
+            fb.reset_cache()
+            page = fb.select_page_size(64, "bfloat16", cache_path=cache,
+                                       platform="cuda")
+            page_src = fb.select_page_size.last_source
+            q = fb.select_spec_q(64, "bfloat16", cache_path=cache,
+                                 platform="cuda")
+            q_src = fb.select_spec_q.last_source
+            # a decode backend over that cache, at BERT-base's max_len
+            want_be = fb.select_page_size(64, "bfloat16", max_len=512,
+                                          cache_path=cache, platform="cuda")
+            be = BertDecodeBackend(preset="base", max_batch=8,
+                                   num_pages=64, device=dev)
+            be_src = fb.select_page_size.last_source
+            stream = be.call({"ids": list(range(1, 200)),
+                              "max_new_tokens": 4})["generated"]
+            be_page = (be.page_size, be.cache.page_size)
+            del be
+            torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+            fb.reset_cache()
+    check(swept["paged_decode"] > 0 and swept["paged_decode_multi"] > 0,
+          f"autotune: B4/B5 never launched ({swept})")
+    check(all(r["platform"] == "cuda" and r["backend"] == "cuda"
+              for r in pages + qs), "autotune: a sweep ran off the card")
+    want_page = next(r["page"] for r in pages if r["best"])
+    want_q = next(r["k"] for r in qs if r["best"])
+    check((page, page_src) == (want_page, "cache"),
+          f"autotune: select_page_size read {page} from {page_src}, the "
+          f"sweep's winner is {want_page}")
+    check((q, q_src) == (want_q, "cache"),
+          f"autotune: select_spec_q read {q} from {q_src}, the sweep's "
+          f"winner is {want_q}")
+    check(be_page == (want_be, want_be) and be_src == "cache",
+          f"autotune: the backend runs at page {be_page} ({be_src}), the "
+          f"cache says {want_be}")
+    check(len(stream) == 4, f"autotune: backend stream {stream}")
+    launches = {k: n for k, n in registry.LAUNCH_COUNTS.items() if n}
+    out["autotune"] = {
+        "pages_us": {f"b{r['shape'][0]}_t{r['shape'][2]}_p{r['page']}":
+                     r["time_us"] for r in pages},
+        "page_winners": {f"b{r['shape'][0]}_t{r['shape'][2]}": r["page"]
+                         for r in pages if r["best"]},
+        "spec_q_us": {f"k{r['k']}": r["time_us"] for r in qs},
+        "spec_q_per_token_us": {f"k{r['k']}": r["per_token_us"]
+                                for r in qs},
+        "cached_page": page, "cached_spec_q": q,
+        "backend_page": want_be, "launches": launches}
+    emit({"phase": "benches", "leg": "autotune", "gpu": out["gpu"],
+          **out["autotune"]})
+    return launches
+
+
+def benches_decode(dev, out):
+    """(b) Every leg of the decode bench once at BERT-base: its answer
+    checks raise inside the bench; B1, B4 and B5 must launch, read inside
+    the replicas and in this process (the window and prefix legs run
+    here); no replica may outlive the bench."""
+    import torch
+    from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.serve.bench_decode import run_decode_benchmarks
+    torch.cuda.empty_cache()
+    reset_counts()
+    stats = []
+    t0 = time.perf_counter()
+    rows = run_decode_benchmarks(trials=1, min_s=BENCH_MIN_S, quiet=True,
+                                 preset="base", device=dev,
+                                 backends=bench_replica_classes(),
+                                 replica_stats=stats)
+    secs = time.perf_counter() - t0
+    here = dict(registry.LAUNCH_COUNTS)
+    registry.reset_launch_counts()
+    torch.cuda.empty_cache()
+    by_dep = {s["deployment"]: {k: n for k, n in s["launch_counts"].items()
+                                if n} for s in stats}
+    total = {k: here[k] + sum(s["launch_counts"][k] for s in stats)
+             for k in KERNELS}
+    pids = {s["pid"] for s in stats}
+    deadline = time.perf_counter() + 30
+    while time.perf_counter() < deadline and any(
+            pid_state(p) == "alive" for p in pids):
+        time.sleep(0.2)
+    by_id = {r.bench_id: r for r in rows}
+    out["decode_bench"] = {
+        "seconds": secs, "min_s": BENCH_MIN_S, "trials": 1,
+        "rows": {b: {"value": r.value, "unit": r.unit,
+                     **{k: r.extra[k] for k in
+                        ("reference_floor", "floor_met", "live_pages_per_seq",
+                         "live_pages_bound", "pages_evicted",
+                         "acceptance_rate", "prefix_hit_rate",
+                         "calls_per_round") if k in r.extra}}
+                 for b, r in by_id.items()},
+        "launches_in_process": {k: n for k, n in here.items() if n},
+        "launches_by_replica": by_dep,
+        "replica_pids": {p: pid_state(p) for p in sorted(pids)}}
+    emit({"phase": "benches", "leg": "decode_bench", "gpu": out["gpu"],
+          **out["decode_bench"]})
+    check(len(stats) == 6, f"decode bench: {len(stats)} replicas reported")
+    for p in pids:
+        check(pid_state(p) != "alive", f"decode bench replica {p} outlived "
+              "the bench")
+    check(here["paged_decode"] > 0 and here["paged_decode_multi"] > 0,
+          f"decode bench: the window leg's B4/B5 never launched ({here})")
+    for dep, names in (("bench-decode", ("flash_fwd", "paged_decode")),
+                       ("bench-recode", ("flash_fwd",)),
+                       ("bench-spec", ("flash_fwd", "paged_decode_multi")),
+                       ("bench-prefix-sess", ("paged_decode_multi",))):
+        for k in names:
+            check(by_dep.get(dep, {}).get(k, 0) > 0,
+                  f"decode bench: {k} never launched in {dep}")
+    return total
+
+
+def benches_dp_nodes(dev, seed, out):
+    """(c) The train_dp phase's BERT-base job over node agents: ranks as
+    replica processes (``DistributedTrainer(backend="nodes")``), each
+    building ``"chip_smoke:dp_job"`` on the card, against the threads
+    backend and the local fold bit for bit, then again with one rank's
+    agent SIGKILLed after step 1, against a threads run that loses its
+    last rank at the same step. B1-B3 launch 12 a shard computed inside
+    each rank."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.cluster.node import RemoteNode
+    from tosem_tpu_torch.cluster.rpc import RpcClient
+    from tosem_tpu_torch.cluster.supervisor import HeadJournal, NodePool
+    from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.train.distributed import (DataParallelConfig,
+                                                   DistributedTrainer,
+                                                   make_dp_train_step)
+    flash = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+    torch.cuda.empty_cache()
+    job = dp_job(seed, dev)
+    state = job.init_state()
+    step_fn = make_dp_train_step(job)
+    ref_losses = []
+    for _ in range(DP_STEPS):
+        state, m = step_fn(state)
+        ref_losses.append(m["loss"])
+    ref_params = [p.detach().clone() for p in state.leaves()]
+    del state, step_fn
+    registry.reset_launch_counts()
+    rec = {"world": DP_NODES_WORLD, "steps": DP_STEPS,
+           "local_fold_losses": ref_losses, "runs": {}}
+    counts = {k: 0 for k in KERNELS}
+    pids = set()
+
+    def same(tr):
+        got = tr.fetch_state().leaves()
+        return len(got) == len(ref_params) and all(
+            torch.equal(a, b) for a, b in zip(got, ref_params))
+
+    def timed_fit(tr, kill_after=None):
+        marks = []
+
+        def on_step(done, _):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if done == kill_after:
+                victim = tr._workers[-1]
+                if tr.backend == "nodes":
+                    victim.node.kill()
+                else:
+                    victim.dead = True
+        t0 = time.perf_counter()
+        losses = tr.fit(DP_STEPS, on_step=on_step)
+        return losses, [(b - a) * 1e3 for a, b in
+                        zip([t0] + marks[:-1], marks)]
+
+    def threads_run(what, kill_after=None):
+        cfg = DataParallelConfig(job=f"bench-{what}", **DP_CFG)
+        torch.cuda.synchronize()
+        with DistributedTrainer(job=job, cfg=cfg,
+                                world=DP_NODES_WORLD) as tr:
+            losses, ms = timed_fit(tr, kill_after)
+            params = [p.detach().clone()
+                      for p in tr.fetch_state().leaves()]
+            world = tr.world
+        registry.reset_launch_counts()
+        rec["runs"][what] = {"losses": losses, "step_ms": ms,
+                             "world_after": world}
+        return losses, params
+
+    def nodes_trainer(what, pool):
+        """(trainer, seconds to start it): the ranks build the job from
+        its ref; the trainer's own copy (templates only) is this
+        process's job."""
+        t0 = time.perf_counter()
+        tr = DistributedTrainer(
+            "chip_smoke:dp_job", {"seed": seed, "device": str(dev)},
+            DataParallelConfig(job=f"bench-{what}", **DP_CFG),
+            backend="nodes", world=DP_NODES_WORLD, pool=pool, job=job)
+        return tr, time.perf_counter() - t0
+
+    def nodes_run(what, started, journal, kill_after=None):
+        tr, spawn_s = started
+        cfg = tr.cfg
+        with tr:
+            for h in tr._workers:
+                with RpcClient(h.address, call_timeout=30.0) as cli:
+                    pids.add(cli.call("health")["pid"])
+            losses, ms = timed_fit(tr, kill_after)
+            t1 = time.perf_counter()
+            params = [p.detach().clone()
+                      for p in tr.fetch_state().leaves()]
+            fetch_s = time.perf_counter() - t1
+            ranks = [h.call("stats") for h in tr._workers]
+            stats = tr.stats()
+            t1 = time.perf_counter()
+        close_s = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        for r in ranks:
+            for k in flash:
+                check(r["launch_counts"][k] == 12 * r["shard_grads"],
+                      f"dp nodes {what}: rank {r['rank']} launched {k} "
+                      f"{r['launch_counts'][k]} times for "
+                      f"{r['shard_grads']} shards")
+            for k in counts:
+                counts[k] += r["launch_counts"][k]
+        events = [e["event"] for e in HeadJournal.load(journal)
+                  if e.get("job") == cfg.job]
+        rec["runs"][what] = {
+            "losses": losses, "step_ms": ms, "spawn_s": spawn_s,
+            "startup_s": stats["startup_s"], "fetch_s": fetch_s,
+            "close_s": close_s,
+            "world_after": stats["world"], "shrinks": stats["shrinks"],
+            "rank_shards": [r["shard_grads"] for r in ranks],
+            "rank_launches": [{k: r["launch_counts"][k] for k in flash}
+                              for r in ranks],
+            "journal": events}
+        return losses, params, stats, events
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_dp_nodes_")
+    journal = os.path.join(tmp.name, "head.jsonl")
+    pool = NodePool(journal_path=journal, miss_threshold=1,
+                    probe_timeout=3.0)
+    try:
+        with ThreadPoolExecutor(DP_NODES_WORLD) as ex:
+            agents = list(ex.map(lambda _: RemoteNode.spawn_local(
+                num_workers=1), range(DP_NODES_WORLD)))
+        for i, node in enumerate(agents):
+            pool.add_node(node, name=f"t{i}")
+        n_losses, n_params, n_stats, n_events = nodes_run(
+            "nodes", nodes_trainer("nodes", pool), journal)
+        t_losses, t_params = threads_run("threads")
+        check(n_losses == t_losses == ref_losses,
+              f"dp nodes: losses {n_losses}, threads {t_losses}, local "
+              f"fold {ref_losses}")
+        check(all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in
+                  zip(n_params, t_params, ref_params))
+              and len(n_params) == len(t_params) == len(ref_params),
+              "dp nodes: final parameters differ from the threads "
+              "backend's or the local fold's")
+        check(n_events.count("train_worker_placed") == DP_NODES_WORLD
+              and "train_started" in n_events,
+              f"dp nodes: journal {n_events}")
+        # the second gang starts while the shrunk threads run (whose
+        # time is not reported) steps
+        with ThreadPoolExecutor(1) as ex:
+            starting = ex.submit(nodes_trainer, "nodes_killed", pool)
+            s_losses, s_params = threads_run("threads_shrunk",
+                                             kill_after=1)
+            started = starting.result()
+        k_losses, k_params, k_stats, k_events = nodes_run(
+            "nodes_killed", started, journal, kill_after=1)
+        check(k_stats["world"] == DP_NODES_WORLD - 1
+              and k_stats["shrinks"] == 1,
+              f"dp nodes killed: no shrink to {DP_NODES_WORLD - 1}: "
+              f"{k_stats}")
+        check("train_worker_lost" in k_events
+              and "train_shrunk" in k_events,
+              f"dp nodes killed: journal {k_events}")
+        check(k_losses == s_losses == ref_losses,
+              f"dp nodes killed: losses {k_losses}, threads shrunk "
+              f"{s_losses}, local fold {ref_losses}")
+        check(all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in
+                  zip(k_params, s_params, ref_params))
+              and len(k_params) == len(s_params) == len(ref_params),
+              "dp nodes killed: final parameters differ from the shrunk "
+              "threads run's or the local fold's")
+    finally:
+        pool.close(close_nodes=True)
+        tmp.cleanup()
+    del job
+    torch.cuda.empty_cache()
+    deadline = time.perf_counter() + 30
+    while time.perf_counter() < deadline and any(
+            pid_state(p) == "alive" for p in pids):
+        time.sleep(0.2)
+    rec["rank_pids"] = {p: pid_state(p) for p in sorted(pids)}
+    rec["step_ms_nodes"] = float(np.mean(rec["runs"]["nodes"]["step_ms"][1:]))
+    rec["step_ms_threads"] = float(np.mean(
+        rec["runs"]["threads"]["step_ms"][1:]))
+    rec["launches"] = {k: n for k, n in counts.items() if n}
+    rec["bit_exact"] = True
+    out["dp_nodes"] = rec
+    emit({"phase": "benches", "leg": "dp_nodes", "gpu": out["gpu"], **rec})
+    for p in pids:
+        check(pid_state(p) != "alive", f"dp rank {p} outlived its trainer")
+    for k in flash:
+        check(counts[k] > 0, f"dp nodes: {k} never launched in a rank")
+    return counts
+
+
+def benches_cluster(dev, out):
+    """(d) The cluster bench (``run_cluster_benchmarks``, the CLI's
+    ``cluster_bench``) once at the JAX package's sizes, its model
+    replicas on the card: one round of ``CLUSTER_BENCH_MIN_S`` windows
+    (the CLI runs 2 of 0.4 s). Its answer checks raise inside."""
+    import torch
+    from tosem_tpu_torch.serve.bench_cluster import run_cluster_benchmarks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows = run_cluster_benchmarks(trials=1, min_s=CLUSTER_BENCH_MIN_S,
+                                  quiet=True, device=dev)
+    out["cluster_bench"] = {
+        "seconds": time.perf_counter() - t0, "trials": 1,
+        "min_s": CLUSTER_BENCH_MIN_S,
+        "rows": {r.bench_id: {"value": r.value, "unit": r.unit,
+                              **{k: r.extra[k] for k in
+                                 ("reference_floor", "reference_ceiling_ms",
+                                  "floor_met", "kv_migrations",
+                                  "hedges_fired", "raw_recovery")
+                                 if k in r.extra}} for r in rows}}
+    emit({"phase": "benches", "leg": "cluster_bench", "gpu": out["gpu"],
+          **out["cluster_bench"]})
+    want = {"cluster_failover_errors", "cluster_sharded_parity",
+            "cluster_paged_parity", "router_hedged_p99",
+            "cluster_decode_disagg_c16", "cluster_drain_migrate_vs_readmit"}
+    missing = want - set(out["cluster_bench"]["rows"])
+    check(not missing, f"cluster bench: rows missing {sorted(missing)}")
+
+
+def phase_benches(dev, seed):
+    """The benches phase: (a) the decode autotune round trip, (b) the
+    decode bench at BERT-base, (c) data-parallel BERT-base over node
+    agents, (d) the cluster bench. Returns the kernels' launch counts of
+    (a)-(c) (the cluster bench's replicas are the cluster phase's
+    backends, whose launches that phase reads)."""
+    t_phase = time.perf_counter()
+    out = {"phase": "benches", "gpu": gpu_line()}
+    secs = {}
+    counts = {k: 0 for k in KERNELS}
+    for name, fn, args in (("autotune", benches_autotune, (dev, out)),
+                           ("decode_bench", benches_decode, (dev, out)),
+                           ("dp_nodes", benches_dp_nodes, (dev, seed, out)),
+                           ("cluster_bench", benches_cluster, (dev, out))):
+        t = time.perf_counter()
+        got = fn(*args) or {}
+        secs[name] = time.perf_counter() - t
+        emit({"phase": "benches", "leg": name, "seconds": secs[name]})
+        for k, n in got.items():
+            counts[k] += n
+    emit({"phase": "benches", "gpu": out["gpu"], "seconds": secs,
+          "total_s": time.perf_counter() - t_phase,
+          "launches": {k: n for k, n in counts.items() if n}})
+    return counts
+
+
 def phase_suite():
     """North-star config 5 through the port's experiment runner at its
     default BERT-base shapes. Returns the suite's launch counts."""
@@ -5385,7 +5853,8 @@ def main(argv=None):
     ap.add_argument("--phases",
                     default="build,kernels,decode,decode_modes,encode,"
                             "serve,cluster,encode_sparse,cpu,profile,train,"
-                            "train_dp,parallel,pipeline,mesh_train,suite")
+                            "train_dp,parallel,pipeline,mesh_train,benches,"
+                            "suite")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(ROOT, "tosem_tpu_torch")):
@@ -5466,6 +5935,8 @@ def main(argv=None):
         add(timed("pipeline", phase_pipeline, dev, SEED))
     if "mesh_train" in phases:
         add(timed("mesh_train", phase_mesh_train, dev, SEED))
+    if "benches" in phases:
+        add(timed("benches", phase_benches, dev, SEED))
     if "suite" in phases:
         add(timed("suite", phase_suite))
     emit({"phase": "seconds", **secs,

@@ -2,51 +2,11 @@
 
 Kept apart from the test files because each replica is a fresh
 interpreter that imports its backend by name: these import neither JAX
-nor the JAX package (the reference's ``ControlLoadBackend`` lives in
-``serve/bench_cluster.py``, which the port has not got yet, and its
-``_WarmupBoom`` in a test module that imports JAX). No tests here.
+nor the JAX package (the reference's ``_WarmupBoom`` lives in a test
+module that imports JAX; ``ControlLoadBackend`` is the port's
+``serve/bench_cluster.py``'s). No tests here.
 """
 from __future__ import annotations
-
-import threading
-import time
-
-
-class ControlLoadBackend:
-    """Fixed-service-time backend with warm/cold accounting, a copy of
-    the JAX package's ``serve/bench_cluster.py:ControlLoadBackend``.
-    ``warmup()`` simulates the executable build (``compile_s``); a call
-    served BEFORE warmup counts a ``cold_serve`` and pays the build
-    inline. ``stats()`` rides the replica's stats RPC."""
-
-    def __init__(self, delay_s: float = 0.02, compile_s: float = 0.25):
-        self._delay_s = float(delay_s)
-        self._compile_s = float(compile_s)
-        self._warmed = False
-        self._cold_serves = 0
-        self._lock = threading.Lock()
-
-    def warmup(self, shapes):
-        time.sleep(self._compile_s)
-        with self._lock:
-            self._warmed = True
-        return {"warmed": len(shapes)}
-
-    def call(self, request):
-        with self._lock:
-            cold = not self._warmed
-            if cold:
-                self._cold_serves += 1
-                self._warmed = True
-        if cold:
-            time.sleep(self._compile_s)
-        time.sleep(self._delay_s)
-        return {"x": request.get("x", 0)}
-
-    def stats(self):
-        with self._lock:
-            return {"cold_serves": self._cold_serves,
-                    "warmed": self._warmed}
 
 
 class WarmupBoom:

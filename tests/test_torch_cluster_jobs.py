@@ -96,3 +96,34 @@ def train_job(workdir: str, steps: int = 5, crash_rank: int = 1,
             open(sentinel, "w").close()
             os._exit(17)
     return {"start_step": start, "final_w": w.tolist()}
+
+
+# ------------------------------------- DistributedTrainer(backend="nodes")
+
+
+def cpu_demo_job(**kw):
+    """The port's ``demo_job`` on the CPU with one intra-op thread: a
+    rank replica process computes its shards' gradients exactly as a
+    rank thread of the test process (``torch.set_num_threads(1)``)."""
+    from tosem_tpu_torch.train.distributed import demo_job
+    torch.set_num_threads(1)
+    return demo_job(**kw, device="cpu")
+
+
+def npz_demo_job(npz: str, **kw):
+    """:func:`cpu_demo_job` with the JAX package's ``demo_job`` weights
+    and batches, read from ``npz`` (``p/<stage>/<leaf>`` initial
+    parameters, ``b<step>/<key>`` batches): a JSON job ref carries a
+    path, never the arrays."""
+    from tosem_tpu_torch.train.distributed import dp_params_from_numpy
+    job = cpu_demo_job(**kw)
+    data = dict(np.load(npz))
+    tree = {}
+    for key, arr in data.items():
+        if key.startswith("p/"):
+            stage, leaf = key[2:].split("/")
+            tree.setdefault(stage, {})[leaf] = arr
+    job.init_params = lambda: dp_params_from_numpy(tree, device="cpu")
+    job.batch_fn = lambda step: {
+        k: torch.from_numpy(data[f"b{step}/{k}"].copy()) for k in ("x", "y")}
+    return job

@@ -652,7 +652,7 @@ class TestClusterScaleIntegration:
             cs = ClusterServe(pool, num_routers=1, router_procs=False)
             dep = cs.deploy(
                 "ctl-it",
-                "tests.test_torch_cluster_backends:ControlLoadBackend",
+                "tosem_tpu_torch.serve.bench_cluster:ControlLoadBackend",
                 num_replicas=1, strategy="pack",
                 init_kwargs={"delay_s": 0.15, "compile_s": 0.1},
                 warmup_shapes=[1],

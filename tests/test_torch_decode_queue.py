@@ -580,3 +580,44 @@ def test_served_streams_with_reference_weights_equal_direct_decode(
         row = direct._prefill_into_cache("x", p)
         direct.cache.free("x")
         assert row[first] >= row.max() - tol
+
+
+def test_step_loop_stands_aside_for_a_waiting_drain():
+    """The step loop takes the migration lock again right after each
+    iteration; a drain waiting for it must get it before the next step
+    (C-ref14: on the card the drained replica's sequences finished while
+    the drain waited). Driven on the queue's own locking, with the step
+    and drain bodies recorded instead of run."""
+    import time
+
+    from tosem_tpu_torch.serve.batching import DecodeQueue
+    q = DecodeQueue.__new__(DecodeQueue)
+    q._lock = threading.Lock()
+    q._mig_lock = threading.RLock()
+    q._drains_waiting = 0
+    events = []
+    q._step_replicas_locked = lambda: events.append("step")
+    q._drain_locked = lambda replica, migrate: events.append("drain") or \
+        {"migrated": 0}
+    # a drain is waiting: no step enters the lock until it has run
+    q._drains_waiting = 1
+    stepper = threading.Thread(target=q._step_replicas)
+    stepper.start()
+    time.sleep(0.05)
+    assert events == []
+    q._drains_waiting = 0
+    stepper.join(timeout=10)
+    assert not stepper.is_alive() and events == ["step"]
+    # the drain counts itself waiting while the lock is held elsewhere,
+    # and no longer once it has the lock
+    q._mig_lock.acquire()
+    drainer = threading.Thread(target=q.drain_replica, args=(None,))
+    drainer.start()
+    deadline = time.time() + 10
+    while q._drains_waiting != 1 and time.time() < deadline:
+        time.sleep(0.001)
+    assert q._drains_waiting == 1
+    q._mig_lock.release()
+    drainer.join(timeout=10)
+    assert not drainer.is_alive()
+    assert q._drains_waiting == 0 and events == ["step", "drain"]

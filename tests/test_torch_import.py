@@ -63,7 +63,13 @@ COPIED_MODULES = [
     "tosem_tpu_torch.serve.core", "tosem_tpu_torch.serve.http",
     "tosem_tpu_torch.chaos.network", "tosem_tpu_torch.cluster",
     "tosem_tpu_torch.cluster.fencing", "tosem_tpu_torch.cluster.transport",
-    "tosem_tpu_torch.train.distributed"]
+    "tosem_tpu_torch.train.distributed",
+    "tosem_tpu_torch.cluster.kv", "tosem_tpu_torch.cluster.discovery",
+    "tosem_tpu_torch.cluster.param", "tosem_tpu_torch.cluster.replay",
+    "tosem_tpu_torch.cluster.channel", "tosem_tpu_torch.cluster.xlang",
+    "tosem_tpu_torch.cluster.stubgen", "tosem_tpu_torch.cluster.bootstrap",
+    "tosem_tpu_torch.runtime.bench_runtime",
+    "tosem_tpu_torch.serve.bench_cluster"]
 # the control plane: a replica of a plain backend imports these only
 CONTROL_MODULES = [m for m in COPIED_MODULES
                    if m.split(".")[1] in ("native", "runtime", "obs",
@@ -104,6 +110,25 @@ def test_mesh_and_handoff_modules_import_alone(module):
     JAX package, nor does resolving the parallel package's exports."""
     code = (f"import sys, {module}; import tosem_tpu_torch.parallel as p; "
             "[getattr(p, n) for n in p.__all__]; "
+            "print(sorted(m for m in ('jax', 'triton', 'tosem_tpu') "
+            "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.stdout.strip() == "[]"
+
+
+# the benches and the decode half of block selection (they load torch)
+BENCH_MODULES = ["tosem_tpu_torch.serve.bench_decode",
+                 "tosem_tpu_torch.train.bench_train",
+                 "tosem_tpu_torch.ops.flash_blocks"]
+
+
+@pytest.mark.parametrize("module", BENCH_MODULES)
+def test_bench_modules_import_alone(module):
+    """The decode and train benches and the decode autotune load neither
+    JAX, Triton nor the JAX package."""
+    code = (f"import sys, {module}; "
             "print(sorted(m for m in ('jax', 'triton', 'tosem_tpu') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -267,8 +267,10 @@ def test_parameters_are_trainable_and_serving_builds_no_graph(ref):
 
 def test_unported_training_paths_raise_naming_the_roadmap():
     """The mesh train steps are ported (A10, ``test_torch_mesh_train.py``)
-    and build; what is left of training, ranks as replica processes,
-    names its item, and the classification loss waits for ResNet."""
+    and build; ranks as replica processes are ported too (A11,
+    ``test_torch_train_nodes.py``) and refuse to start without the
+    ``NodePool`` they are placed on; the classification loss waits for
+    ResNet (A12)."""
     from tosem_tpu_torch.parallel.mesh import default_mesh
     from tosem_tpu_torch.train import trainer
     from tosem_tpu_torch.train.distributed import (DataParallelConfig,
@@ -279,7 +281,7 @@ def test_unported_training_paths_raise_naming_the_roadmap():
     assert callable(trainer.make_train_step(model, opt, None, mesh=mesh))
     assert callable(trainer.make_partitioned_train_step(
         model, opt, None, mesh=mesh, rules=[], batch_rules=[]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
+    with pytest.raises(ValueError, match="NodePool"):
         DistributedTrainer("tosem_tpu_torch.train.distributed:demo_job",
                            {}, DataParallelConfig(job="nodes"),
                            backend="nodes", world=1)

@@ -388,7 +388,9 @@ class TestReductionArms:
             make_dp_train_step(demo_job(**JOB_KW), reduce="nccl")
 
     def test_nodes_backend_names_its_roadmap_item(self):
-        with pytest.raises(NotImplementedError, match="A11"):
+        # the nodes backend is ported (tests/test_torch_train_nodes.py);
+        # without the NodePool its ranks are placed on it refuses
+        with pytest.raises(ValueError, match="NodePool"):
             DistributedTrainer(JOB_REF, dict(JOB_KW),
                                DataParallelConfig(job="nodes"),
                                backend="nodes", world=2)

@@ -25,6 +25,26 @@ card's memory.
 synthetic backend and of tiny BERT encode, and a deployment's first
 request warm against cold.
 
+``--config=decode_bench`` runs the decode microbench
+(``serve/bench_decode.py``): continuous batching over the paged cache
+against the re-encode baseline at 1 and 16 sequences, then the window,
+speculative, beam and prefix/session scenario legs;
+``--config=decode_scenarios`` the scenario legs only. The model is the
+JAX package's tiny decoder (``--preset=base`` for BERT-base), its
+replicas on ``--device``. ``--config=autotune_decode_pages`` times B4 at
+each candidate page size (``ops/flash_blocks.py``) and writes the
+winners to the port's autotune cache, ``results/flash_blocks_torch.json``,
+where ``BertDecodeBackend`` reads its page.
+
+``--config=cluster_bench`` runs the cluster serving microbench
+(``serve/bench_cluster.py``: router tier vs in-process, a node kill under
+load, sharded parity, hedging, disaggregated vs colocated decode, drain
+with migration) and ``--config=control_bench`` its control-plane
+scenario (the diurnal ramp under the closed autoscaling loop);
+``--config=train_bench`` the distributed-training microbench
+(``train/bench_train.py``). Their ratio rows carry the JAX package's
+speed floors beside them; no run raises on a speed floor.
+
 ``--config=flash_sparse`` runs ``sparse_kernel_suite``: flash forward and
 forward+backward under the block-sparse mask programs causal,
 ``local:1024`` and ``doc:2048+causal`` at [1, 12, 8192, 64] bf16 on the
@@ -48,21 +68,16 @@ NOT_PORTED = {
     "conv_sweep": "A12 (ops/conv.py)",
     "resnet_train": "A12 (models/resnet.py)",
     "bert_train": "A12 (the CLI's bert_train leg)",
-    "flash_autotune": "A4 (block selection and its cache)",
-    "autotune_decode_pages": "A4 (block selection and its cache)",
+    "flash_autotune": "A4 (the flash half of block selection)",
     "detection_train": "A13 (models/efficientdet.py)",
     "detection_infer": "A13 (models/efficientdet.py)",
     "pointpillars_infer": "A13 (models/pointpillars.py)",
     "speech_train": "A13 (models/speech.py)",
-    "decode_bench": "A11 (serve/bench_decode.py)",
-    "decode_scenarios": "A11 (serve/bench_decode.py)",
-    "cluster_bench": "A11 (serve/bench_cluster.py)",
-    "control_bench": "A11 (serve/bench_cluster.py)",
-    "train_bench": "A11 (train/bench_train.py)",
     "kernel_matrix": "A12 (ops/bench_kernels.py)",
     "analysis": "A12 (the CLI)",
     "chaos": "A12 (the CLI's chaos subcommand)",
-    "microbench": "A12 (ops/bench_kernels.py, serve benches)",
+    "microbench": "A12 (the CLI subcommand; its suites run as python -m "
+                  "tosem_tpu_torch.runtime.bench_runtime)",
 }
 
 
@@ -153,10 +168,102 @@ def run_serve_bench(args, device) -> List[Any]:
     return rows
 
 
+def run_autotune_decode_pages(args, device) -> List[Any]:
+    """The decode page-size sweep (``ops/flash_blocks.py``): B4 timed at
+    each candidate page by graph replay on the card (the plain version
+    on the host clock with ``--device=cpu``), winners to the port's
+    autotune cache. On the card: the decode shape first, then the long
+    contexts the decode benches run (``--seq`` takes one T instead)."""
+    from tosem_tpu_torch.ops.flash_blocks import (DEFAULT_CACHE_PATH,
+                                                  autotune_decode_pages)
+    from tosem_tpu_torch.utils.results import ResultRow
+    if device.type == "cpu":
+        shapes = [(2, 2, 128, 32, "float32")]
+    elif args.seq:
+        shapes = [(8, 12, args.seq, 64, "bfloat16")]
+    else:
+        shapes = [(8, 12, 512, 64, "bfloat16"),
+                  (8, 12, 2048, 64, "bfloat16"),
+                  (16, 12, 1024, 64, "bfloat16")]
+    rows = []
+    for r in autotune_decode_pages(shapes, reps=3, device=device):
+        B, H, T, D, dtype = r["shape"]
+        row = ResultRow(
+            project="ops", config="autotune_decode_pages",
+            bench_id=f"decode_pages_b{B}_t{T}_{dtype}_p{r['page']}",
+            metric="time_us", value=r["time_us"], unit="us",
+            device=device.type, n_devices=1,
+            extra={"shape": [B, H, T, D], "dtype": dtype,
+                   "page": r["page"], "best": r["best"],
+                   "backend": r["backend"], "cache": DEFAULT_CACHE_PATH})
+        rows.append(row)
+        star = " *" if r["best"] else ""
+        print(f"  {row.bench_id}: {row.value:.1f} {row.unit}{star}")
+    print(f"  page winners -> {DEFAULT_CACHE_PATH}")
+    return rows
+
+
+def _tagged(rows, config):
+    for r in rows:
+        r.config = config
+    return rows
+
+
+def run_decode_bench(args, device) -> List[Any]:
+    """The decode microbench, every leg (``serve/bench_decode.py``)."""
+    from tosem_tpu_torch.serve.bench_decode import run_decode_benchmarks
+    return _tagged(run_decode_benchmarks(trials=2, min_s=0.4,
+                                         preset=args.preset,
+                                         device=device.type),
+                   "decode_bench")
+
+
+def run_decode_scenarios(args, device) -> List[Any]:
+    """The decode bench's window, spec, beam and prefix legs."""
+    from tosem_tpu_torch.serve.bench_decode import (SCENARIO_BENCHES,
+                                                    run_decode_benchmarks)
+    only = {b for ids in SCENARIO_BENCHES.values() for b in ids}
+    return _tagged(run_decode_benchmarks(trials=2, min_s=0.4, only=only,
+                                         preset=args.preset,
+                                         device=device.type),
+                   "decode_scenarios")
+
+
+def run_cluster_bench(args, device) -> List[Any]:
+    """The cluster serving microbench (``serve/bench_cluster.py``)."""
+    from tosem_tpu_torch.serve.bench_cluster import run_cluster_benchmarks
+    return _tagged(run_cluster_benchmarks(trials=2, min_s=0.4,
+                                          device=device.type),
+                   "cluster_bench")
+
+
+def run_control_bench(args, device) -> List[Any]:
+    """The control-plane scenario (``bench_cluster.run_control_benchmarks``):
+    a synthetic fixed-service-time backend, so ``--device`` changes
+    nothing it measures."""
+    from tosem_tpu_torch.serve.bench_cluster import run_control_benchmarks
+    return _tagged(run_control_benchmarks(trials=1, min_s=0.4),
+                   "control_bench")
+
+
+def run_train_bench(args, device) -> List[Any]:
+    """The distributed-training microbench (``train/bench_train.py``)."""
+    from tosem_tpu_torch.train.bench_train import run_train_benchmarks
+    return _tagged(run_train_benchmarks(trials=2, min_s=0.4,
+                                        device=device.type),
+                   "train_bench")
+
+
 RUNNERS = {"bert_kernels": run_bert_kernels,
            "flash_sparse": run_flash_sparse,
            "allreduce": run_allreduce,
-           "serve_bench": run_serve_bench}
+           "serve_bench": run_serve_bench,
+           "autotune_decode_pages": run_autotune_decode_pages,
+           "decode_bench": run_decode_bench,
+           "decode_scenarios": run_decode_scenarios,
+           "cluster_bench": run_cluster_bench,
+           "control_bench": run_control_bench,
+           "train_bench": run_train_bench}
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -174,6 +281,10 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max_bytes", type=int, default=0,
                     help="allreduce: largest buffer a position (0 = the "
                          "device's default)")
+    ap.add_argument("--preset", choices=("tiny", "base"), default="tiny",
+                    help="decode_bench/decode_scenarios: the decoder the "
+                         "legs serve (the JAX package's tiny one, or "
+                         "BERT-base)")
     return ap
 
 

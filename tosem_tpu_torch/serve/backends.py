@@ -407,8 +407,11 @@ class BertDecodeBackend(CompiledBackendMixin):
         self.spec_k = 0 if spec_k <= 1 else int(spec_k)
         self.K = max(self.spec_k, 1)
         head_dim = cfg.dim // cfg.heads
+        # the page autotune cache's winner for the device it runs on
+        # (ops/flash_blocks), else the JAX package's table
         self.page_size = page_size or select_page_size(
-            head_dim, cfg.dtype, max_len=cfg.max_len)
+            head_dim, cfg.dtype, max_len=cfg.max_len,
+            platform=torch.device(device).type, backend=backend)
         self.max_pages = -(-cfg.max_len // self.page_size)
         if window is not None and self.spec_k and window < self.spec_k:
             raise ValueError(f"window={window} < spec_k={spec_k}")

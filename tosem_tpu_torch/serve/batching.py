@@ -799,6 +799,11 @@ class DecodeQueue:
         # the source copy was released (RLock — the chaos hook drains
         # from the scheduler thread itself)
         self._mig_lock = threading.RLock()
+        # drains waiting for _mig_lock: the step loop stands aside for
+        # them, since it takes the lock again at once after each
+        # iteration and a waiting drain could otherwise be held off
+        # until its replica's sequences had finished (C-ref14)
+        self._drains_waiting = 0
         self._metrics = serve_metrics()
         self._last_scrape = 0.0
         self._thread = threading.Thread(
@@ -1266,31 +1271,44 @@ class DecodeQueue:
         behavior — step-0 re-admission — kept as the measured baseline
         arm. Neither path trips the breaker or spends retry budget:
         a drained sequence did nothing wrong."""
-        with self._mig_lock:
+        with self._lock:
+            self._drains_waiting += 1
+        try:
+            self._mig_lock.acquire()
+        finally:
             with self._lock:
-                items = [it for it in self._active + self._waiting
-                         if it.replica is replica]
-            out = {"migrated": 0, "readmitted": 0}
-            for item in items:
-                dst = (self._pick_replica(item.slots, exclude=replica)
-                       if migrate and self._can_migrate else None)
-                if dst is None:
-                    with self._lock:
-                        if item in self._active:
-                            self._active.remove(item)
-                        if item in self._waiting:
-                            self._waiting.remove(item)
-                    self._requeue_for_readmission(
-                        [item], RuntimeError(
-                            f"replica drained ({self._dep.name})"),
-                        charge=False)
-                    out["readmitted"] += 1
-                elif self._move_item(item, dst):
-                    out["migrated"] += 1
-                else:
-                    out["readmitted"] += 1
-            out["sessions"] = self._move_sessions(replica)
-            return out
+                self._drains_waiting -= 1
+        try:
+            return self._drain_locked(replica, migrate)
+        finally:
+            self._mig_lock.release()
+
+    def _drain_locked(self, replica, migrate: bool) -> Dict[str, int]:
+        """:meth:`drain_replica`'s body; the caller holds ``_mig_lock``."""
+        with self._lock:
+            items = [it for it in self._active + self._waiting
+                     if it.replica is replica]
+        out = {"migrated": 0, "readmitted": 0}
+        for item in items:
+            dst = (self._pick_replica(item.slots, exclude=replica)
+                   if migrate and self._can_migrate else None)
+            if dst is None:
+                with self._lock:
+                    if item in self._active:
+                        self._active.remove(item)
+                    if item in self._waiting:
+                        self._waiting.remove(item)
+                self._requeue_for_readmission(
+                    [item], RuntimeError(
+                        f"replica drained ({self._dep.name})"),
+                    charge=False)
+                out["readmitted"] += 1
+            elif self._move_item(item, dst):
+                out["migrated"] += 1
+            else:
+                out["readmitted"] += 1
+        out["sessions"] = self._move_sessions(replica)
+        return out
 
     def _move_sessions(self, replica) -> int:
         """Relocate the draining replica's resident session stashes so
@@ -1743,6 +1761,8 @@ class DecodeQueue:
         active sequences. Holds ``_mig_lock`` end to end so a drain
         can never export a sequence between this iteration's dispatch
         and its commit."""
+        while self._drains_waiting:
+            time.sleep(0.0005)
         with self._mig_lock:
             self._step_replicas_locked()
 

@@ -180,6 +180,18 @@ class SuiteEmitter:
             row.extra["lower_is_better"] = True
         return row
 
+    def emit_floored(self, bench_id: str, name: str, vals: List[float],
+                     floor: float, unit: str = "x") -> Optional[ResultRow]:
+        """:meth:`emit` for a ratio the JAX package holds to a speed
+        floor set on its own hosts: the row carries ``reference_floor``
+        and ``floor_met`` (the best round against it), and nothing
+        raises — no speed target carries over to the port."""
+        row = self.emit(bench_id, name, vals, unit=unit)
+        if row is not None:
+            row.extra["reference_floor"] = floor
+            row.extra["floor_met"] = max(vals) >= floor
+        return row
+
     def flush(self, quiet: bool) -> List[ResultRow]:
         if not quiet:
             for ln in self.lines:

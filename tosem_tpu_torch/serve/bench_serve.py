@@ -22,6 +22,13 @@ from typing import List, Optional
 from tosem_tpu_torch.serve.bench_common import SuiteEmitter, closed_loop
 from tosem_tpu_torch.utils.results import ResultRow
 
+# the JAX package's perf-gated rows of this suite (the port keeps the
+# tuple for ``runtime/bench_runtime.py``'s ``--serve --check``)
+GATED_SERVE_BENCHES = (
+    "serve_single_closed_loop", "serve_unbatched_c16", "serve_batched_c16",
+    "serve_batch_speedup",
+)
+
 
 class VectorWorkBackend:
     """Synthetic inference backend: a few chained matvecs per request,

@@ -39,15 +39,23 @@ everything else falls out of it:
   hide behind the remaining backward compute; ``overlap=False`` keeps
   the serialized-comms mode as the measured baseline arm.
 
-The worker (:class:`TrainWorkerBackend`) runs in-process here
-(``backend="threads"``): each rank is a thread of the trainer's process,
-launching its shards' work on the job's device from that thread (on a
+The worker (:class:`TrainWorkerBackend`) runs in-process
+(``backend="threads"``: each rank is a thread of the trainer's process,
+launching its shards' work on the job's device from that thread; on a
 GPU, every rank's kernels go to the device's current stream, the same
-one for all). Gradients cross to the host by an explicit copy, and
-parameter traffic (elastic catch-up, grow bootstrap) rides the same
-transport streams as gradients. The reference's ``backend="nodes"``
-(ranks as replica processes on ``NodePool`` agents) waits in ROADMAP.md
-A11 and raises, naming it.
+one for all) or as a replica process on a node agent
+(``backend="nodes"``: ranks gang-reserved over a
+:class:`~tosem_tpu_torch.cluster.supervisor.NodePool`'s agents, strategy
+``"spread"``, each spawned through
+:func:`~tosem_tpu_torch.serve.replica_worker.resolve_backend` and steered
+over the RPC plane's ``backend_call``; each builds its own job from the
+job ref, on its own device, and the head's journal records
+``train_started``, ``train_worker_placed``, ``train_worker_lost``,
+``train_shrunk`` and ``train_grown``). A node's death shrinks the world
+exactly as a lost thread does. Gradients cross to the host by an
+explicit copy, and parameter traffic (elastic catch-up, grow bootstrap,
+:meth:`DistributedTrainer.fetch_state`) rides the same transport streams
+as gradients.
 """
 from __future__ import annotations
 
@@ -65,6 +73,7 @@ import numpy as np
 import torch
 
 from tosem_tpu_torch.chaos import hooks as _chaos
+from tosem_tpu_torch.cluster.fencing import StaleEpochError
 from tosem_tpu_torch.cluster.transport import (TensorReceiver,
                                                TransportError, send_tensors)
 from tosem_tpu_torch.obs import metrics as _metrics
@@ -78,10 +87,6 @@ __all__ = [
 ]
 
 _LOSS_KEY = "___loss"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 class TrainWorkerLost(RuntimeError):
@@ -638,6 +643,9 @@ class TrainWorkerBackend:
         # deterministic gray-slow simulation (chaos slow_node / tests):
         # slept and reported on top of the measured compute of each step
         self._debug_slow_s = 0.0
+        # (stage, shard) gradients this rank computed, aborted steps
+        # included: what its kernels' launch counts are read against
+        self._shard_grads = 0
         # the clock that measures the compute region (the watchdog's
         # evidence); tests freeze it so eviction rests on reports alone
         self.clock: Callable[[], float] = time.perf_counter
@@ -771,6 +779,7 @@ class TrainWorkerBackend:
                 loss, grads = fn(self._state.params,
                                  job.batch_shard(step, shard),
                                  job.shard_rng(step, shard))
+                self._shard_grads += 1
                 leaves = [g.to("cpu") for g in grads]   # explicit copy
                 n_leaves = len(leaves)
                 l32 = np.float32(loss.item())
@@ -887,9 +896,16 @@ class TrainWorkerBackend:
             self._saver.flush()
 
     def stats(self) -> Dict[str, Any]:
+        """The rank's place, and what it computed: ``shard_grads`` and
+        the kernels' launch counts of its process (one process a rank on
+        the nodes backend; on the threads backend every rank reports
+        the trainer process's counts)."""
+        from tosem_tpu_torch.ops import registry
         return {"rank": self._rank, "world": self._world,
                 "shards": list(self._shards), "step": self.last_step(),
-                "buckets": len(self._buckets), "gen": self._gen}
+                "buckets": len(self._buckets), "gen": self._gen,
+                "shard_grads": self._shard_grads,
+                "launch_counts": dict(registry.LAUNCH_COUNTS)}
 
     def close(self) -> None:
         self.flush_checkpoints()
@@ -1064,6 +1080,59 @@ class _LocalHandle:
             pass
 
 
+class _ReplicaHandle:
+    """Nodes-backend worker: a replica process reached over the RPC
+    plane (``backend_call`` forwarding). A fresh client per call keeps
+    concurrent step dispatch / control calls trivially safe. Every
+    control call carries the spawning head's fencing ``epoch`` — a
+    worker re-fenced by a recovered head rejects this handle's calls
+    typed (:class:`~tosem_tpu_torch.cluster.fencing.StaleEpochError`),
+    so a superseded driver cannot keep steering a rank it no longer
+    owns."""
+
+    def __init__(self, node_name: str, node: Any, replica_id: str,
+                 address: str, call_timeout: float = 300.0,
+                 epoch: Optional[int] = None):
+        self.node_name = node_name
+        self.node = node
+        self.replica_id = replica_id
+        self.address = address
+        self._call_timeout = call_timeout
+        self._epoch = epoch
+
+    def call(self, method: str, *args, **kwargs):
+        from tosem_tpu_torch.cluster.rpc import RpcClient, RpcError
+        if self._epoch is not None:
+            kwargs.setdefault("_epoch", self._epoch)
+        cli = RpcClient(self.address, call_timeout=self._call_timeout)
+        try:
+            return cli.call("backend_call", method, *args, **kwargs)
+        except RpcError as e:
+            if str(e).startswith("StaleEpochError("):
+                raise StaleEpochError(str(e))
+            # app-level failure: the worker is alive, the step is not
+            raise RuntimeError(f"train worker {self.replica_id}: {e}")
+        finally:
+            cli.close()
+
+    def alive(self) -> bool:
+        from tosem_tpu_torch.cluster.rpc import RpcClient
+        try:
+            cli = RpcClient(self.address, timeout=2.0, call_timeout=5.0)
+            try:
+                return bool(cli.call("health").get("ok"))
+            finally:
+                cli.close()
+        except Exception:
+            return False
+
+    def close(self) -> None:
+        try:
+            self.node.stop_replica(self.replica_id, epoch=self._epoch)
+        except Exception:
+            pass
+
+
 def _assign_shards(grain: int, world: int) -> List[List[int]]:
     """Contiguous ascending shard runs per rank — contiguity is load-
     bearing: it keeps the chain's fold order equal to shard order."""
@@ -1080,16 +1149,19 @@ class DistributedTrainer:
     """Data-parallel ``fit()`` over the tensor transport.
 
     ``backend="threads"`` runs the ranks in-process over real transport
-    sockets. A lost worker shrinks the dp worker set and the run
-    continues from the last committed step with a BIT-identical loss
-    trajectory; :meth:`add_worker` grows it back. The reference's
-    ``backend="nodes"`` (ranks as replica processes gang-reserved on a
-    ``NodePool``) raises, naming ROADMAP.md A11."""
+    sockets; ``backend="nodes"`` gang-reserves slots across ``pool``'s
+    agents (journaled via the pool) and spawns each rank as a replica
+    process building its own job from ``job_ref`` (so a nodes job needs
+    a ref and JSON-safe ``job_kwargs``). A lost worker — a dead thread or
+    a dead node — shrinks the dp worker set and the run continues from
+    the last committed step with a BIT-identical loss trajectory;
+    :meth:`add_worker` grows it back."""
 
     def __init__(self, job_ref: str = "",
                  job_kwargs: Optional[Dict[str, Any]] = None,
                  cfg: Optional[DataParallelConfig] = None, *,
                  backend: str = "threads", world: int = 2,
+                 pool: Any = None,
                  job: Optional[DPJob] = None,
                  ckpt_dir: Optional[str] = None,
                  checkpoint_every: int = 0, keep: int = 3,
@@ -1099,15 +1171,19 @@ class DistributedTrainer:
         if not 1 <= world <= self.cfg.grain:
             raise ValueError(f"world {world} must satisfy 1 <= world <= "
                              f"grain {self.cfg.grain}")
-        if backend == "nodes":
-            raise _not_ported("DistributedTrainer(backend='nodes'): ranks "
-                              "as replica processes on a NodePool", "A11")
-        if backend != "threads":
+        if backend not in ("threads", "nodes"):
             raise ValueError(f"unknown backend {backend!r}")
+        if backend == "nodes" and pool is None:
+            raise ValueError("backend='nodes' needs a NodePool")
+        if backend == "nodes" and not job_ref:
+            raise ValueError("backend='nodes' builds each rank's job from "
+                             "a job ref: pass job_ref, not job")
         self.backend = backend
+        self.pool = pool
         self.job_ref, self.job_kwargs = job_ref, dict(job_kwargs or {})
-        # the trainer's own job copy: batch metadata for throughput
-        # accounting (never steps)
+        # the trainer's own job copy: templates for the state fetch and
+        # batch metadata for throughput accounting (never steps)
+        t0 = time.perf_counter()
         self.job = job if job is not None else resolve_job(job_ref,
                                                            self.job_kwargs)
         self.ckpt_dir = ckpt_dir
@@ -1116,7 +1192,9 @@ class DistributedTrainer:
         self.overlap: Optional[bool] = None     # per-run override (bench)
         self.history: List[float] = []
         self._gen = 0
-        self._workers: List[_LocalHandle] = []
+        self._workers: List[Any] = []
+        self._gang = None
+        self._rx: Optional[TensorReceiver] = None
         self._shrinks = 0
         self._grows = 0
         self._straggler_evictions = 0
@@ -1133,11 +1211,22 @@ class DistributedTrainer:
         self._pool_exec = ThreadPoolExecutor(
             max_workers=self.cfg.grain,
             thread_name_prefix=f"tosem-dp-{self.cfg.job}")
-        for _ in range(world):
-            self._workers.append(self._spawn_local())
+        t1 = time.perf_counter()
+        if backend == "threads":
+            for _ in range(world):
+                self._workers.append(self._spawn_local())
+        else:
+            self._spawn_gang(world)
+        t2 = time.perf_counter()
         self._configure_all()
+        # where the start-up went: the trainer's own job, the ranks'
+        # spawn (each building its job), their first configure (state)
+        self._startup_s = {"job": t1 - t0, "spawn": t2 - t1,
+                           "configure": time.perf_counter() - t2}
         with _JOBS_LOCK:
             _JOBS[self.cfg.job] = self
+        self._record("train_started", world=world, grain=self.cfg.grain,
+                     backend=backend)
 
     # -- worker lifecycle ----------------------------------------------
 
@@ -1152,6 +1241,68 @@ class DistributedTrainer:
             job=(None if self.job_ref else self.job))
         return _LocalHandle(backend, self._spawn_seq)
 
+    def _spawn_gang(self, world: int) -> None:
+        """Reserve ``world`` slots spread over the pool's live agents
+        (all or nothing) and start one rank in each, ranks ordered by
+        agent address."""
+        from tosem_tpu_torch.cluster.gang import reserve_gang
+        live = self.pool.live_nodes()
+        self._gang = reserve_gang(list(live.values()), world,
+                                  strategy="spread", timeout=60.0)
+        addr_to_name = {n.address: name for name, n in live.items()}
+        ranks: List[Tuple[str, Any]] = []
+        for addr in sorted(self._gang.counts):
+            for _ in range(self._gang.counts[addr]):
+                ranks.append((addr_to_name[addr], live[addr_to_name[addr]]))
+        # the ranks start at once (each builds its job before it
+        # answers); the handles keep the ranks' order
+        from concurrent.futures import ThreadPoolExecutor
+        seqs = [self._next_seq() for _ in ranks]
+        with ThreadPoolExecutor(max_workers=len(ranks)) as ex:
+            futs = [ex.submit(self._spawn_replica, name, node, seq)
+                    for (name, node), seq in zip(ranks, seqs)]
+        started = [f.result() for f in futs if f.exception() is None]
+        failed = [f.exception() for f in futs if f.exception() is not None]
+        if failed:
+            for h in started:
+                h.close()
+            self._gang.release()
+            self._gang = None
+            raise failed[0]
+        self._workers.extend(started)
+
+    def _next_seq(self) -> int:
+        self._spawn_seq += 1
+        return self._spawn_seq
+
+    def _spawn_replica(self, node_name: str, node: Any,
+                       seq: Optional[int] = None) -> _ReplicaHandle:
+        seq = self._next_seq() if seq is None else seq
+        rid = f"train-{self.cfg.job}-{seq}"
+        init = {"job_ref": self.job_ref, "job_kwargs": self.job_kwargs,
+                "cfg": self.cfg.to_dict()}
+        epoch = int(getattr(self.pool, "epoch", 0) or 0) or None
+        address = node.start_replica(
+            rid, "tosem_tpu_torch.train.distributed:TrainWorkerBackend",
+            init_kwargs=init, epoch=epoch)
+        self._record("train_worker_placed", replica_id=rid,
+                     node=node_name)
+        return _ReplicaHandle(node_name, node, rid, address, epoch=epoch)
+
+    def _record(self, event: str, **fields: Any) -> None:
+        if self.pool is not None:
+            try:
+                self.pool.record_event(event, job=self.cfg.job, **fields)
+            except Exception:
+                pass
+
+    def _declare_dead(self, h: Any) -> None:
+        if self.backend == "nodes" and self.pool is not None:
+            try:
+                self.pool.detector.declare_dead(h.node_name)
+            except Exception:
+                pass
+
     # -- wiring --------------------------------------------------------
 
     @property
@@ -1159,14 +1310,19 @@ class DistributedTrainer:
         return len(self._workers)
 
     def _configure_all(self, start_hint: int = 0) -> int:
+        """Wire every rank into the chain (at once: a first configure
+        builds the rank's state). Every rank's answer is read; the first
+        failure raises."""
+        from concurrent.futures import wait as cf_wait
         self._gen += 1
         addrs = [h.call("transport_address") for h in self._workers]
         assign = _assign_shards(self.cfg.grain, self.world)
-        step = start_hint
-        for r, h in enumerate(self._workers):
-            out = h.call("configure", r, self.world, addrs, assign[r],
-                         self._gen, self.ckpt_dir, self.resume)
-            step = max(step, int(out["step"]))
+        futs = [self._pool_exec.submit(h.call, "configure", r, self.world,
+                                       addrs, assign[r], self._gen,
+                                       self.ckpt_dir, self.resume)
+                for r, h in enumerate(self._workers)]
+        cf_wait(futs)
+        step = max([start_hint] + [int(f.result()["step"]) for f in futs])
         self._metrics["dp_size"].set(self.world, (self.cfg.job,))
         return step
 
@@ -1184,6 +1340,9 @@ class DistributedTrainer:
                     survivors.append(h)
                 else:
                     dropped += 1
+                    self._record("train_worker_lost",
+                                 node=getattr(h, "node_name", "?"))
+                    self._declare_dead(h)
                     h.close()
             if not survivors:
                 raise TrainWorkerLost(
@@ -1210,15 +1369,25 @@ class DistributedTrainer:
                 # an app-level step failure with every worker alive is
                 # a resync, not a shrink — the dp axis didn't move
                 self._shrinks += 1
+                self._record("train_shrunk", step=mx, world=self.world)
             return mx
 
-    def add_worker(self) -> int:
+    def add_worker(self, node_name: Optional[str] = None) -> int:
         """Grow the dp worker set by one: the new rank bootstraps its
         state from rank 0 over the transport, shards rebalance, and the
-        trajectory continues bit-identically."""
+        trajectory continues bit-identically. On the nodes backend the
+        rank starts on ``node_name`` (default: the first live agent by
+        name)."""
         if self.world >= self.cfg.grain:
             raise ValueError("world already equals grain")
-        h = self._spawn_local()
+        if self.backend == "threads":
+            h = self._spawn_local()
+        else:
+            live = self.pool.live_nodes()
+            if not live:
+                raise TrainWorkerLost("no live node to grow onto")
+            name = node_name or sorted(live)[0]
+            h = self._spawn_replica(name, live[name])
         # bootstrap BEFORE joining the chain: configure (init state),
         # then adopt rank 0's replicated state byte-for-byte
         h.call("configure", 0, 1, [h.call("transport_address")], [0],
@@ -1231,20 +1400,37 @@ class DistributedTrainer:
         self._workers.append(h)
         step = self._configure_all()
         self._grows += 1
+        self._record("train_grown", step=step, world=self.world)
         return step
 
     # -- the loop ------------------------------------------------------
 
     def _kill_victim(self) -> None:
         """Chaos ``train.dist_step``/``kill_node``: lose the highest rank
-        (deterministic victim)."""
-        self._workers[-1].dead = True
+        (deterministic victim); on the nodes backend, SIGKILL the agent
+        hosting it."""
+        h = self._workers[-1]
+        if isinstance(h, _LocalHandle):
+            h.dead = True
+            return
+        try:
+            h.node.kill()
+        except Exception:
+            pass
+        self._declare_dead(h)
 
     def _slow_victim(self, delay_s: float) -> None:
         """Chaos ``train.dist_step``/``slow_node``: make the highest
         rank gray-slow — alive to every probe, ``delay_s`` slower per
         backward. The straggler watchdog is what must catch it."""
-        self._workers[-1].backend.set_debug_slow(delay_s)
+        h = self._workers[-1]
+        if isinstance(h, _LocalHandle):
+            h.backend.set_debug_slow(delay_s)
+            return
+        try:
+            h.call("set_debug_slow", delay_s)
+        except Exception:
+            pass
 
     # -- straggler watchdog --------------------------------------------
 
@@ -1291,7 +1477,13 @@ class DistributedTrainer:
         death instead of a ``reduce_timeout`` stall every step."""
         self._straggler_evictions += 1
         self._compute_hist.pop(id(h), None)
-        h.dead = True
+        self._record("train_straggler_evicted",
+                     node=getattr(h, "node_name", "?"))
+        if isinstance(h, _LocalHandle):
+            h.dead = True
+        else:
+            h.close()               # a stopped replica fails alive()
+            self._declare_dead(h)
 
     def fit(self, num_steps: int,
             on_step: Optional[Callable[[int, Dict[str, float]], None]]
@@ -1396,9 +1588,24 @@ class DistributedTrainer:
     # -- state / stats -------------------------------------------------
 
     def fetch_state(self) -> DPState:
-        """Rank 0's replicated state (the live object: the ranks are
-        threads of this process)."""
-        return self._workers[0].backend._state
+        """Rank 0's replicated state: the live object when the ranks are
+        threads of this process; on the nodes backend, streamed over the
+        transport and loaded into the trainer's own job template (on
+        the job's device)."""
+        h = self._workers[0]
+        if isinstance(h, _LocalHandle):
+            return h.backend._state
+        if self._rx is None:
+            self._rx = TensorReceiver(
+                store_capacity=self.cfg.transport_capacity)
+        key = f"fetch:{self._gen}:{time.monotonic_ns() & 0xffffff}"
+        h.call("send_params", self._rx.address, key)
+        rx = self._rx.pop(key, timeout=60.0)
+        try:
+            return TrainWorkerBackend.state_from_stream(
+                rx, self.job.init_state())
+        finally:
+            rx.release()
 
     def stats(self) -> Dict[str, Any]:
         return {"job": self.cfg.job, "backend": self.backend,
@@ -1407,6 +1614,8 @@ class DistributedTrainer:
                 "examples_per_s": round(self._examples_per_s, 2),
                 "shrinks": self._shrinks, "grows": self._grows,
                 "straggler_evictions": self._straggler_evictions,
+                "startup_s": {k: round(v, 3)
+                              for k, v in self._startup_s.items()},
                 "workers": [getattr(h, "node_name", "?")
                             for h in self._workers]}
 
@@ -1418,6 +1627,12 @@ class DistributedTrainer:
         for h in self._workers:
             h.close()
         self._workers = []
+        if self._gang is not None:
+            self._gang.release()
+            self._gang = None
+        if self._rx is not None:
+            self._rx.shutdown()
+            self._rx = None
 
     def __enter__(self) -> "DistributedTrainer":
         return self
@@ -1430,14 +1645,16 @@ def fit_distributed(job_ref: str, num_steps: int, *,
                     job_kwargs: Optional[Dict[str, Any]] = None,
                     cfg: Optional[DataParallelConfig] = None,
                     backend: str = "threads", world: int = 2,
+                    pool: Any = None,
                     ckpt_dir: Optional[str] = None,
                     checkpoint_every: int = 0, keep: int = 3,
                     async_save: bool = True, resume: bool = True,
                     on_step: Optional[Callable] = None) -> List[float]:
     """One-shot convenience: build a :class:`DistributedTrainer`, fit,
-    close. Returns the loss history."""
+    close. Returns the loss history. ``backend="nodes"`` needs
+    ``pool``."""
     tr = DistributedTrainer(job_ref, job_kwargs, cfg, backend=backend,
-                            world=world, ckpt_dir=ckpt_dir,
+                            world=world, pool=pool, ckpt_dir=ckpt_dir,
                             checkpoint_every=checkpoint_every, keep=keep,
                             async_save=async_save, resume=resume)
     try:
