@@ -162,16 +162,20 @@ Phases, each printing one JSON line:
               on the host clock without the profiler and then traced
               under torch.profiler: the device time the trace sees over
               the unprofiled wall time is the device's busy share.
-7. train    — the BERT-base masked-LM train step of the JAX package's
-              ``bert_train`` leg (8 x 512, bf16, dropout 0.1, adamw(1e-4))
-              through ``make_train_step``: 10 timed steps with flash
-              attention (B1 forward, B2 and B3 backward) whose loss must
-              fall, the same steps with dense attention, a padded batch
-              (the kernels' segment mode), fp32 gradients checked flash
-              against dense and card against CPU (with a wrong-model
-              yardstick), remat full/dots against none bit for bit,
-              ``fit`` resumed after a preemption bit for bit, and a
-              profile of the flash and of the dense step.
+7. train    — the JAX package's ``bert_train`` leg through the port's
+              experiment runner, ``tosem_tpu_torch.cli --config=bert_train
+              --steps=10 --profile`` (BERT-base 8 x 512, bf16, dropout
+              0.1, adamw(1e-4)): 10 timed steps with flash attention (B1
+              forward, B2 and B3 backward) whose loss must fall, the same
+              steps with dense attention, the flash and dense rows, B1-B3
+              launched 12 a step, and the nvprof-style kernel summary of
+              3 traced flash steps (``profiler/trace.py``), which must
+              list B1, B2 and B3 at 12 calls a traced step each; then a
+              padded batch (the kernels' segment mode), fp32 gradients
+              checked flash against dense and card against CPU (with a
+              wrong-model yardstick), remat full/dots against none bit
+              for bit, and ``fit`` resumed after a preemption bit for
+              bit.
 7a. train_dp — data-parallel BERT-base training through
               ``DistributedTrainer`` (threads backend, the chain all-reduce
               over the tensor transport): the train batch as 4 logical
@@ -202,13 +206,10 @@ Phases, each printing one JSON line:
               launches equal positions x calls. Then the device ms of the
               sharded calls beside the unsharded kernels (one card: no
               speedup is read), and ``--config=allreduce`` at its
-              default of 4 positions a card (64 KB to 64 MB a position,
-              each timing calibrated to 20 ms windows; the buffers
-              under 64 KB, whose windows capture thousands of calls,
-              took 141.9 of the whole sweep's 291.2 s on an NVIDIA H100
-              80GB HBM3 at 700 W),
-              each row beside the card's name and power limit; on one
-              card the "bus" is its memory.
+              default of 4 positions a card (1 KB to 64 MB a position,
+              each timing one graph of 256 calls), each row beside the
+              card's name and power limit; on one card the "bus" is its
+              memory.
 7c. pipeline — BERT-base as a GPipe pipeline over pp = 4 positions on
               the card (3 layers a stage, 8 x 512 in 4 microbatches,
               flash attention): the encodings equal the layers applied
@@ -255,6 +256,34 @@ Phases, each printing one JSON line:
               once, its model replicas on the card, one round of
               ``CLUSTER_BENCH_MIN_S`` windows. No replica or rank may
               outlive its bench.
+7f. configs — north-star configs 1, 2 and 4 through the port's
+              experiment runner on the card (``--config=gemm,
+              timing_check,conv_sweep,resnet_train`` into a temporary
+              CSV): the GEMM sweep on cuBLAS (fp32 with TF32 off, bf16,
+              int8), graph replay against the differential batch method
+              (their 8192^3 bf16 agreement within 0.9-1.1), the ResNet-50
+              conv sweeps on cuDNN (fp32 and bf16, batch 32), and 20
+              ResNet-50 training steps at batch 256 (finite loss), then
+              3 more traced by the config's ``--profile`` and read back
+              from its kernel summary (device ms and busy share a step). Every
+              GFLOPS row must read under the card's peak for its dtype
+              (an fp32 row above 67 TFLOP/s means TF32 leaked in). The
+              space-to-depth stem equals the 7x7 stride-2 conv within
+              1e-5 of the largest output in fp32 (TF32 must break it);
+              one SGD step of ``resnet18_ish`` fp32 on the card and on
+              the CPU from the same weights and batch gives logits, loss
+              and BatchNorm moving stats within 1e-3 of the largest value,
+              and each parameter's update within 1e-2 (relative L2 norm:
+              the backward); a model with a wrong weight must break both.
+7g. kernel_matrix — the kernel parity harness (``ops/parity.py``) on the
+              card: every scenario of the flash, paged and schedule
+              matrices with the ``cuda`` arm against the ``torch`` arm
+              on CPU copies within the JAX package's ``TOLERANCES`` (B1
+              with its mask dropped must break it); then
+              ``--config=kernel_matrix`` (the cross-backend bench: the
+              ``cuda`` arms by graph replay, the ``torch`` arms at host
+              rates) and the block-sparse bench (``ops/bench_sparse.py``:
+              ``LocalMask(1024)`` against causal at t8192, bf16).
 8. suite    — north-star config 5 through the port's experiment runner,
               ``tosem_tpu_torch.cli --config=bert_kernels`` (BERT-base:
               8 x 512, 12 heads of 64, hidden 768, bf16) into a
@@ -266,13 +295,15 @@ Phases, each printing one JSON line:
               forward+backward). Every row must read under the card's
               peak (a row above it means a timing window closed early).
 
-``--phases`` picks a subset (default: all seventeen), e.g. ``build,kernels``
+``--phases`` picks a subset (default: all nineteen), e.g. ``build,kernels``
 for a first call after a kernel change, ``build,kernels,train`` for the
 training path, ``build,train_dp`` for data-parallel training,
 ``build,parallel`` for the device mesh, ``build,pipeline,mesh_train``
 for the pipeline and the global-batch mesh steps,
 ``build,kernels,suite`` for the kernel suite,
-``build,decode,serve`` for the served path, ``build,decode,cluster``
+``build,configs,kernel_matrix`` for configs 1, 2 and 4 and the
+kernel matrix, ``build,decode,serve`` for the served path,
+``build,decode,cluster``
 for cluster serving, ``build,benches`` for the benches, or
 ``build,kernels,decode,decode_modes,serve`` for the decode modes.
 
@@ -358,7 +389,8 @@ SCHED_MASKS = ("local:256", "local:128:127", "doc:256", "doc:256+causal",
                "prefix:200", "mh", "doc:256+segments")
 
 # how the profiler names the kernels of tosem_tpu_torch/ops/csrc
-PORT_KERNEL_NAMES = tuple(f"void (anonymous namespace)::{k}_"
+PORT_PREFIX = "void (anonymous namespace)::"   # csrc kernels' names
+PORT_KERNEL_NAMES = tuple(f"{PORT_PREFIX}{k}_"
                           for k in ("flash", "paged", "ln", "sm"))
 SEED = 0            # weights, prompts and kernel inputs
 NEW_TOKENS = 32     # generated per decode prompt
@@ -2942,16 +2974,31 @@ def replica_classes():
     return ServedDecode, ServedEncode
 
 
-def stream_post(url, payload, t_start):
+def open_connection(url):
+    """An HTTP connection to ``url``'s host, connected now."""
+    import http.client
+    import urllib.parse
+    u = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=120)
+    conn.connect()
+    return conn
+
+
+def stream_post(url, payload, t_start, conn=None):
     """POST one streamed decode and read its chunks as they arrive:
     (seconds from ``t_start`` to the first chunk and to the end, the
-    streamed tokens, the final result)."""
-    import urllib.request
-    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
-                                 headers={"Content-Type":
-                                          "application/json"})
+    streamed tokens, the final result). ``conn`` is a connection opened
+    beforehand (:func:`open_connection`); None opens one now."""
+    import urllib.parse
+    u = urllib.parse.urlsplit(url)
+    if conn is None:
+        conn = open_connection(url)
     first, tokens, result = None, [], None
-    with urllib.request.urlopen(req, timeout=120) as r:
+    try:
+        conn.request("POST", u.path + (f"?{u.query}" if u.query else ""),
+                     body=json.dumps(payload).encode(),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
         check(r.status == 200, f"POST {url}: {r.status}")
         for line in r:
             if first is None:
@@ -2962,15 +3009,33 @@ def stream_post(url, payload, t_start):
                 result = msg["result"]
             else:
                 tokens.extend(msg["tokens"])
+    finally:
+        conn.close()
     check(result is not None, f"POST {url}: the stream ended without a "
           "result")
     return first, time.perf_counter() - t_start, tokens, result
 
 
+# between two connections opened ahead of a release: the ingress'
+# accept loop (a selector) takes each off its listen queue long before
+# the next arrives
+CONNECT_GAP_S = 0.02
+
+
 def post_at_once(url, prompts):
     """Stream one decode of each prompt, all released together from one
-    client thread each; returns each one's :func:`stream_post` result."""
+    client thread each; returns each one's :func:`stream_post` result.
+    The connections are opened one at a time before the release: the
+    ingress listens with the reference's backlog of 5 (C-ref6), and 8
+    connections made at once can leave two waiting out TCP's 1 s
+    retransmit, so the requests would not reach the replicas together.
+    An accepted connection is off the listen queue, so the 8 requests
+    released at once arrive at once. Times run from the release."""
     import threading
+    conns = []
+    for _ in prompts:
+        conns.append(open_connection(url))
+        time.sleep(CONNECT_GAP_S)
     got = [None] * len(prompts)
     errors = []
     gate = threading.Barrier(len(prompts) + 1)
@@ -2979,7 +3044,8 @@ def post_at_once(url, prompts):
     def client(i):
         try:
             gate.wait()
-            got[i] = stream_post(url, {"ids": prompts[i]}, t_send[0])
+            got[i] = stream_post(url, {"ids": prompts[i]}, t_send[0],
+                                 conns[i])
         except BaseException as e:
             errors.append(f"prompt {i}: {type(e).__name__}: {e}")
 
@@ -4123,90 +4189,143 @@ def _rel_gaps(got, want):
             for n in GRAD_NAMES}
 
 
-def phase_train(dev, seed, steps=10, warmup=2):
+TRAIN_STEPS = 10       # timed bert_train steps an arm
+TRAIN_WARMUP = 2       # the CLI leg's warm-up steps
+TRAIN_TRACED = 3       # flash steps its --profile traces (one untraced first)
+
+
+def summary_calls(summary, name):
+    """Calls of the port's kernel ``name`` (``flash_fwd``, ...) in a
+    kernel-summary CSV's rows, whatever its template arguments."""
+    return sum(int(r["calls"]) for r in summary
+               if r["name"].startswith(f"{PORT_PREFIX}{name}_"))
+
+
+def phase_train(dev, seed, steps=TRAIN_STEPS):
     """The JAX package's ``bert_train`` leg (``tosem_tpu/cli.py``) on the
-    port: BERT-base, bf16, dropout 0.1, weights from ``seed``, adamw(1e-4),
-    an 8 x 512 batch of random ids from ``seed + 1`` with labels = ids and
-    15% of positions masked. Flash attention (B1, B2, B3) against dense
-    attention on the same weights and batch; the train FLOPs are the
-    reference's count, 6*N*B*T + 3*12*L*B*T^2*dim."""
+    port, through its experiment runner: ``cli.main(["--config=
+    bert_train", "--steps=10", "--profile"])``. BERT-base, bf16, dropout
+    0.1, weights from seed 0, adamw(1e-4), an 8 x 512 batch of random
+    ids from numpy seed 1 with labels = ids and 15% of positions masked;
+    flash attention (B1, B2, B3) against dense attention on the same
+    weights and batch; the train FLOPs are the reference's count,
+    6*N*B*T + 3*12*L*B*T^2*dim. Then one step on a padded batch (the
+    kernels' segment mode)."""
+    import csv
+    import functools
+    import tempfile
+
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from tosem_tpu_torch import cli
     from tosem_tpu_torch.models.bert import Bert, BertConfig
     from tosem_tpu_torch.nn.attention import flash_attn_fn
     from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.train import (adamw, create_train_state,
+                                       make_train_step, mlm_loss)
     from tosem_tpu_torch.train.trainer import step_generator
+    from tosem_tpu_torch.utils.results import read_results
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="torch_bert_train_") as d:
+        path = os.path.join(d, "bert_train.csv")
+        check(cli.main(["--config=bert_train", f"--steps={steps}",
+                        "--profile", f"--results_csv={path}"]) == 0,
+              "the bert_train config failed")
+        # the runner set the counts to 0 as the config began
+        counts = {k: registry.LAUNCH_COUNTS[k] for k in KERNELS}
+        rows = {(r["bench_id"], r["metric"]): r for r in read_results(path)}
+        with open(os.path.join(d, "profile", "bert_train_gpu",
+                               "kernel_summary.csv")) as f:
+            summary = list(csv.DictReader(f))
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    flash = rows[("bert_base_b8_t512_flash", "step_time_ms")]
+    dense = rows[("bert_base_b8_t512_xla", "step_time_ms")]
+    losses = flash["extra"]["losses"]
+    dense_losses = dense["extra"]["losses"]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"train losses {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    check(all(np.isfinite(dense_losses)), f"dense loss {dense_losses}")
+    for key in (("bert_base_b8_t512_flash", "train_gflops"),
+                ("bert_base_b8_t512_xla", "train_gflops"),
+                ("bert_b8_t512_flash_vs_xla", "speedup")):
+        check(key in rows, f"bert_train row {key} missing")
+    want = 12 * (TRAIN_WARMUP + steps) + 12 * (1 + TRAIN_TRACED)
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        check(counts[name] == want,
+              f"{name}: {counts[name]} launches in the bert_train leg, "
+              f"not {want}")
+        calls = summary_calls(summary, name)
+        check(calls == 12 * TRAIN_TRACED,
+              f"kernel summary: {name} {calls} calls in {TRAIN_TRACED} "
+              f"traced steps, not 12 a step")
+    device_us = sum(float(r["total_us"]) for r in summary)
+    step_ms = flash["value"]
+    device_ms = device_us / TRAIN_TRACED / 1e3
+
+    # one step on a padded batch: key padding rides B1-B3 as segment ids
     cfg = BertConfig.base()
     B, T = 8, 512
     rng = np.random.default_rng(seed + 1)
     ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, T)),
                           device=dev)
     masked = torch.as_tensor(rng.random((B, T)) < 0.15, device=dev)
-    batch = _mlm_batch(ids, masked)
-    model = Bert(cfg, device=dev, seed=seed)
-    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    n_params = sum(p.numel() for p in model.parameters())
-    flops = 6 * n_params * B * T + 3 * 12 * cfg.layers * B * T * T * cfg.dim
-
-    st, step, losses, flash_ms, counts = train_steps(
-        model, init, batch, flash_attn_fn(), seed, warmup, steps)
-    check(all(np.isfinite(losses)), f"non-finite train loss {losses}")
-    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
-    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
-        check(counts[name] == 12 * steps,
-              f"{name}: {counts[name]} launches in {steps} train steps")
-
-    # one step on a padded batch: key padding rides B1-B3 as segment ids
     lens = [int(n) for n in rng.integers(30, 501, size=B)]
     pmask = torch.zeros(B, T, dtype=torch.int32)
     for b, n in enumerate(lens):
         pmask[b, :n] = 1
     pmask = pmask.to(dev)
     pbatch = _mlm_batch(ids * pmask, masked & pmask.bool(), pmask)
+    model = Bert(cfg, device=dev, seed=seed)
+    st = create_train_state(model, adamw(1e-4))
+    step = make_train_step(model, st.optimizer, functools.partial(
+        mlm_loss, attn_fn=flash_attn_fn()))
     registry.reset_launch_counts()
-    st, met = step(st, pbatch, step_generator(seed, warmup + steps, dev))
+    st, met = step(st, pbatch, step_generator(seed, 0, dev))
     padded_loss = float(met["loss"])
     pcounts = dict(registry.LAUNCH_COUNTS)
     check(np.isfinite(padded_loss), f"padded batch loss {padded_loss}")
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         check(pcounts[name] == 12, f"{name}: {pcounts[name]} launches on "
                                    "the padded batch")
-    launches = {k: counts[k] + pcounts[k] for k in KERNELS}
-
-    # where the time goes: one step without the profiler, one under it
-    wall = _timed(lambda: step(st, batch, step_generator(seed, 90, dev)))
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    traced = _timed(lambda: step(st, batch, step_generator(seed, 91, dev)),
-                    prof)
-    breakdown = _device_breakdown(prof, wall, traced, 1, top=12)
-    del st, step, prof
+    del st, step, model
     torch.cuda.empty_cache()
-
-    st, step, dense_losses, dense_ms, _ = train_steps(
-        model, init, batch, None, seed, warmup, steps)
-    check(all(np.isfinite(dense_losses)), f"dense loss {dense_losses}")
-    mem = torch.cuda.max_memory_allocated() / 2**30
-    wall = _timed(lambda: step(st, batch, step_generator(seed, 92, dev)))
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    traced = _timed(lambda: step(st, batch, step_generator(seed, 93, dev)),
-                    prof)
-    dense_breakdown = _device_breakdown(prof, wall, traced, 1, top=12)
-    del st, step, model, init, prof
-    torch.cuda.empty_cache()
+    flops = rows[("bert_base_b8_t512_flash", "train_gflops")][
+        "extra"]["flops_per_step"]
     emit({"phase": "train", "config": "BERT-base bf16 dropout 0.1",
-          "batch": [B, T], "params": n_params, "flops_per_step": flops,
-          "warmup": warmup, "steps": steps, "losses": losses,
-          "step_ms": flash_ms, "tokens_per_s": B * T / flash_ms * 1e3,
-          "share_of_989_tflops": flops / (flash_ms * 1e-3) / 989e12,
-          "dense_losses": dense_losses, "dense_step_ms": dense_ms,
-          "dense_tokens_per_s": B * T / dense_ms * 1e3,
-          "flash_vs_dense_speedup": dense_ms / flash_ms,
+          "via": "tosem_tpu_torch.cli --config=bert_train --profile",
+          "batch": [B, T], "params": flash["extra"]["params"],
+          "flops_per_step": flops, "warmup": TRAIN_WARMUP, "steps": steps,
+          "losses": losses, "step_ms": step_ms,
+          "tokens_per_s": B * T / step_ms * 1e3,
+          "train_gflops": rows[("bert_base_b8_t512_flash",
+                                "train_gflops")]["value"],
+          "share_of_989_tflops": flops / (step_ms * 1e-3) / 989e12,
+          "dense_losses": dense_losses, "dense_step_ms": dense["value"],
+          "dense_tokens_per_s": B * T / dense["value"] * 1e3,
+          "flash_vs_dense_speedup": rows[("bert_b8_t512_flash_vs_xla",
+                                          "speedup")]["value"],
           "padded_lens": lens, "padded_loss": padded_loss,
-          "launches_timed_steps": counts, "launches_padded_step": pcounts,
-          "max_memory_gib": mem, "profile": breakdown,
-          "dense_profile": dense_breakdown})
-    return launches
+          "launches_cli_leg": counts, "launches_padded_step": pcounts,
+          "max_memory_gib": mem,
+          "kernel_summary": {
+              "traced_steps": TRAIN_TRACED,
+              "device_ms_per_step": device_ms,
+              "device_busy_share": device_ms / step_ms,
+              "top": [[r["name"][:80], int(r["calls"]) // TRAIN_TRACED,
+                       float(r["total_us"]) / TRAIN_TRACED / 1e3,
+                       float(r["pct"])] for r in summary[:12]],
+              "port_kernels": {
+                  name: {"calls_per_step": summary_calls(summary, name)
+                         / TRAIN_TRACED,
+                         "ms_per_step": sum(
+                             float(r["total_us"]) for r in summary
+                             if r["name"].startswith(
+                                 f"{PORT_PREFIX}{name}_"))
+                         / TRAIN_TRACED / 1e3}
+                  for name in ("flash_fwd", "flash_bwd_dkv",
+                               "flash_bwd_dq")}}})
+    return {k: counts[k] + pcounts[k] for k in KERNELS}
 
 
 def phase_train_grads(dev, seed):
@@ -5754,6 +5873,263 @@ def phase_benches(dev, seed):
     return counts
 
 
+CONFIG_CHECK_BATCH = 32    # the ResNet card-vs-CPU step's batch
+S2D_REL = 1e-5             # s2d stem vs conv1, of the largest output
+RESNET_REL = 1e-3          # card vs CPU ResNet step, of the largest value
+# card vs CPU, each parameter's update (the step's gradient) in relative
+# L2 norm. An fp32 step on the CPU against the same step in fp64 reads
+# 1.5e-3 at most; a weight before a BatchNorm scaled by 1.1 (the
+# yardstick) reads 0.091 on that weight. Element-wise maxima are no
+# measure here: BatchNorm's backward subtracts a mean, and on a conv
+# weight fp32 against fp64 already read 1.0e-2.
+RESNET_UPDATE_REL = 1e-2
+RESNET_TRACED = 3          # ResNet-50 steps resnet_train --profile traces
+
+
+def resnet_step(where, init, batch, wrong=False):
+    """One SGD step (lr 0.1, momentum 0.9) of fp32 ``resnet18_ish``
+    (TF32 off) from ``init`` on ``batch``: (eval logits before the step,
+    the step's loss, the BatchNorm moving stats after it, each
+    parameter's update, all on the CPU). ``wrong`` scales block 0's 3x3
+    kernel by 1.1 first: the yardstick. A BatchNorm follows that conv,
+    so in training the loss and every other gradient are unchanged and
+    that weight's gradient shrinks by 1/1.1."""
+    import torch
+    from tosem_tpu_torch.models.resnet import resnet18_ish
+    from tosem_tpu_torch.ops.common import precision
+    from tosem_tpu_torch.train import (classification_loss,
+                                       create_train_state, make_train_step)
+    m = resnet18_ish(num_classes=10, dtype=torch.float32,
+                     precision="float32", device=where)
+    m.load_state_dict(init)
+    if wrong:
+        with torch.no_grad():
+            m.blocks[0].conv2.w.mul_(1.1)
+    start = {k: v.detach().clone() for k, v in m.named_parameters()}
+    st = create_train_state(m, lambda p: torch.optim.SGD(p, lr=0.1,
+                                                         momentum=0.9))
+    step = make_train_step(m, st.optimizer, classification_loss)
+    b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+    with precision("float32"):
+        with torch.no_grad():
+            logits = m(b["image"]).cpu()
+        st, met = step(st, b)
+    return (logits, float(met["loss"]),
+            {k: v.detach().cpu() for k, v in m.named_buffers()},
+            {k: (v.detach() - start[k]).cpu()
+             for k, v in m.named_parameters()})
+
+
+def _rel(g, w):
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def resnet_gaps(got, want):
+    """The logits' and every BatchNorm moving stat's max |got - want|
+    over max |want| (the largest stat), the loss's relative gap, and
+    each parameter's update's ||got - want|| / ||want|| (the largest,
+    and the parameter that has it)."""
+    ups = {k: float((got[3][k] - w).norm() / w.norm().clamp_min(1e-30))
+           for k, w in want[3].items()}
+    worst = max(ups, key=ups.get)
+    return {"logits": _rel(got[0], want[0]),
+            "loss": abs(got[1] - want[1]) / abs(want[1]),
+            "bn_stats": max(_rel(got[2][k], w) for k, w in want[2].items()),
+            "updates": ups[worst], "updates_worst": worst}
+
+
+def resnet_held(g):
+    """Whether a gap set is within the limits: the forward quantities
+    within RESNET_REL, the updates within RESNET_UPDATE_REL."""
+    return (max(g["logits"], g["loss"], g["bn_stats"]) <= RESNET_REL,
+            g["updates"] <= RESNET_UPDATE_REL)
+
+
+def phase_configs(dev, seed):
+    """North-star configs 1, 2 and 4 on the card through the port's
+    experiment runner, then the space-to-depth stem and the ResNet step
+    against the CPU (see the module docstring)."""
+    import csv
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tosem_tpu_torch import cli
+    from tosem_tpu_torch.data.synthetic import cifar_like_batches
+    from tosem_tpu_torch.models.resnet import resnet18_ish
+    from tosem_tpu_torch.ops import conv
+    from tosem_tpu_torch.utils.results import read_results
+    from tosem_tpu_torch.utils.roofline import peak_gflops
+    gpu = gpu_line()
+    out = {"gpu": gpu}
+    with tempfile.TemporaryDirectory(prefix="torch_configs_") as d:
+        path = os.path.join(d, "configs.csv")
+        for config in ("gemm", "timing_check", "conv_sweep",
+                       "resnet_train"):
+            t = time.perf_counter()
+            extra = ["--profile"] if config == "resnet_train" else []
+            check(cli.main([f"--config={config}", *extra,
+                            f"--results_csv={path}"]) == 0,
+                  f"the {config} config failed")
+            out[f"{config}_s"] = time.perf_counter() - t
+        rows = read_results(path)
+        with open(os.path.join(d, "profile", "resnet_train_gpu",
+                               "kernel_summary.csv")) as f:
+            summary = list(csv.DictReader(f))
+    over = [(r["bench_id"], r["value"]) for r in rows
+            if r["unit"] == "GFLOPS"
+            and r["value"] >= peak_gflops(str(r["extra"].get("dtype", "")))]
+    check(not over, f"rows at or above the card's peak: {over}")
+    by_id = {(r["bench_id"], r["metric"]): r for r in rows}
+    agree = by_id[("gemm_8192x8192x8192_bfloat16_default_agreement",
+                   "ratio")]["value"]
+    check(0.9 <= agree <= 1.1,
+          f"timing_check at 8192^3 bf16: graph replay / batch = {agree}")
+    loss = by_id[("resnet50_cifar_b256", "step_time_ms")]["extra"][
+        "final_loss"]
+    check(np.isfinite(loss), f"resnet_train loss {loss}")
+
+    def brief(r):
+        e = r["extra"]
+        return {"id": r["bench_id"], "value": r["value"], "unit": r["unit"],
+                **{k: e[k] for k in ("mean_ms", "min_ms", "mfu", "mbu",
+                                     "chain_overhead_us",
+                                     "gflops_nooverhead", "final_loss")
+                   if k in e}}
+    for config in ("gemm", "timing_check", "conv_sweep", "resnet_train"):
+        out[config] = [brief(r) for r in rows if r["config"] == config]
+
+    # where a ResNet-50 training step spends the card's time
+    check(summary and summary[0]["plane"].startswith("/device:GPU"),
+          "the ResNet trace holds no device events")
+    wall_ms = by_id[("resnet50_cifar_b256", "step_time_ms")]["value"]
+    device_ms = sum(float(r["total_us"]) for r in summary) \
+        / RESNET_TRACED / 1e3
+    out["resnet_step_profile"] = {
+        "batch": 256, "wall_ms": wall_ms, "device_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "kernels_per_step": sum(int(r["calls"]) for r in summary)
+        / RESNET_TRACED,
+        "top": [[r["name"][:80], int(r["calls"]) // RESNET_TRACED,
+                 float(r["total_us"]) / RESNET_TRACED / 1e3]
+                for r in summary[:10]]}
+
+    # the space-to-depth stem against the 7x7 stride-2 conv, fp32
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(2, 224, 224, 3, generator=gen).to(dev)
+    w = torch.randn(7, 7, 3, 64, generator=gen).to(dev)
+    xs, ws = conv.space_to_depth_inputs(x), \
+        conv.space_to_depth_conv1_weights(w)
+    ref = conv.conv2d(x, w, 2, "float32")
+    scale = float(ref.abs().max())
+    s2d = float((conv.conv2d(xs, ws, 1, "float32") - ref).abs().max())
+    tf32 = float((conv.conv2d(xs, ws, 1, "tensorfloat32") - ref).abs().max())
+    check(s2d <= S2D_REL * scale, f"conv1_s2d vs conv1: {s2d} of {scale}")
+    check(tf32 > S2D_REL * scale, f"TF32 s2d within the fp32 limit: {tf32}")
+    out["conv1_s2d"] = {"max_abs_err": s2d, "largest": scale,
+                        "tf32_yardstick": tf32, "limit_rel": S2D_REL}
+
+    # one ResNet training step on the card and on the CPU
+    init = {k: v.clone() for k, v in resnet18_ish(
+        num_classes=10, dtype=torch.float32, device="cpu",
+        seed=seed).state_dict().items()}
+    batch = next(cifar_like_batches(CONFIG_CHECK_BATCH, seed=seed, steps=1))
+    want = resnet_step("cpu", init, batch)
+    got = resnet_step(dev, init, batch)
+    wrong = resnet_step(dev, init, batch, wrong=True)
+    out["resnet_cuda_vs_cpu"] = {"batch": CONFIG_CHECK_BATCH,
+                                 "gaps": resnet_gaps(got, want),
+                                 "wrong_weight_gaps": resnet_gaps(wrong,
+                                                                  want),
+                                 "loss": [got[1], want[1]],
+                                 "limit_rel": RESNET_REL,
+                                 "update_limit_rel": RESNET_UPDATE_REL}
+    fwd, bwd = resnet_held(out["resnet_cuda_vs_cpu"]["gaps"])
+    check(fwd and bwd, f"ResNet step card vs CPU: {out}")
+    fwd, bwd = resnet_held(out["resnet_cuda_vs_cpu"]["wrong_weight_gaps"])
+    check(not fwd and not bwd,
+          f"wrong-weight ResNet within a limit: {out}")
+    emit({"phase": "configs", **out})
+
+
+def phase_kernel_matrix(dev, seed):
+    """The parity harness's matrices on the card, its yardstick, the
+    kernel_matrix config and the sparse bench (see the module
+    docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tosem_tpu_torch import cli
+    from tosem_tpu_torch.ops import parity
+    from tosem_tpu_torch.ops.bench_sparse import run_sparse_benchmarks
+    from tosem_tpu_torch.utils.results import read_results
+    out = {"gpu": gpu_line()}
+    t = time.perf_counter()
+    recs = parity.run_matrix(platform="cuda")
+    n_cells = sum(len(parity.scenarios(f)) for f in parity.FAMILIES)
+    check(len(recs) == n_cells and all(
+        r["pair"] == ("cuda", "torch") for r in recs),
+        f"{len(recs)} parity cells, not {n_cells} cuda/torch pairs")
+    worst = {}
+    for r in recs:
+        key = f"{r['family']}:{r['dtype']}"
+        worst[key] = max(worst.get(key, 0.0), r["max_abs_diff"])
+    out["matrix"] = {"cells": len(recs), "worst": worst,
+                     "tolerances": parity.TOLERANCES,
+                     "s": time.perf_counter() - t}
+    # the yardstick: B1 on the local-mask cell with its mask dropped
+    sc = next(s for s in parity.scenarios("flash") if s.name == "local_mask")
+    args, kwargs = parity.build_case(sc, device=dev)
+    with torch.no_grad():
+        bad = parity._np(parity.run_arm(
+            "flash", "cuda", args,
+            {k: v for k, v in kwargs.items() if k != "mask"}))
+    want = parity._run_cell("flash", "torch", sc, 0)
+    broke = False
+    try:
+        parity._assert_close(bad, want, parity.TOLERANCES["flash"][sc.dtype],
+                             "flash", sc, "cuda without its mask vs torch",
+                             *parity.build_case(sc))
+    except AssertionError:
+        broke = True
+    check(broke, "B1 with its mask dropped passed the parity check")
+    out["dropped_mask_gap"] = float(np.abs(bad - want).max())
+    with tempfile.TemporaryDirectory(prefix="torch_kernel_matrix_") as d:
+        path = os.path.join(d, "kernel_matrix.csv")
+        t = time.perf_counter()
+        check(cli.main(["--config=kernel_matrix",
+                        f"--results_csv={path}"]) == 0,
+              "the kernel_matrix config failed")
+        rows = read_results(path)
+        out["kernel_matrix_s"] = time.perf_counter() - t
+    ids = {r["bench_id"]: r for r in rows}
+    for fam in parity.FAMILIES:
+        card = ids.get(f"kernels_{fam}_cuda")
+        host = ids.get(f"kernels_{fam}_torch")
+        check(card is not None and card["extra"]["timing"] == "graph_replay"
+              and card["extra"]["on_chip"] and card["value"] > 0,
+              f"kernel_matrix {fam}: cuda row {card}")
+        check(host is not None and host["extra"]["timing"] == "host",
+              f"kernel_matrix {fam}: torch row {host}")
+    out["kernel_matrix"] = [{"id": r["bench_id"], "it_s": r["value"],
+                             "rounds": r["extra"].get("rounds"),
+                             "timing": r["extra"]["timing"]} for r in rows]
+    t = time.perf_counter()
+    sparse = run_sparse_benchmarks(trials=2, min_s=0.2, quiet=True,
+                                   device=dev)
+    out["sparse_s"] = time.perf_counter() - t
+    check(len(sparse) == 3 and all(np.isfinite(r.value) and r.value > 0
+                                   for r in sparse),
+          f"sparse bench rows {[(r.bench_id, r.value) for r in sparse]}")
+    out["sparse"] = [{"id": r.bench_id, "value": r.value, "unit": r.unit,
+                      "rounds": r.extra.get("rounds"),
+                      "executed_block_fraction":
+                          r.extra.get("executed_block_fraction")}
+                     for r in sparse]
+    emit({"phase": "kernel_matrix", **out})
+
+
 def phase_suite():
     """North-star config 5 through the port's experiment runner at its
     default BERT-base shapes. Returns the suite's launch counts."""
@@ -5854,7 +6230,7 @@ def main(argv=None):
                     default="build,kernels,decode,decode_modes,encode,"
                             "serve,cluster,encode_sparse,cpu,profile,train,"
                             "train_dp,parallel,pipeline,mesh_train,benches,"
-                            "suite")
+                            "configs,kernel_matrix,suite")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(ROOT, "tosem_tpu_torch")):
@@ -5937,6 +6313,10 @@ def main(argv=None):
         add(timed("mesh_train", phase_mesh_train, dev, SEED))
     if "benches" in phases:
         add(timed("benches", phase_benches, dev, SEED))
+    if "configs" in phases:
+        timed("configs", phase_configs, dev, SEED)
+    if "kernel_matrix" in phases:
+        timed("kernel_matrix", phase_kernel_matrix, dev, SEED)
     if "suite" in phases:
         add(timed("suite", phase_suite))
     emit({"phase": "seconds", **secs,

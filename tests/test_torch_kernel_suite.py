@@ -224,10 +224,10 @@ def test_cli_writes_the_suite_csv_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--device=cpu", "--config=gemm"], "A12"),
-    (["--device=cpu", "--config=bert_train"], "A12"),
+    (["--device=cpu", "--config=detection_train"], "A13"),
+    (["--device=cpu", "--config=speech_train"], "A13"),
     (["--device=cpu", "--config=flash_autotune"], "A4"),
-    (["microbench"], "A12")])
+    (["--device=cpu", "--config=analysis"], "A12")])
 def test_cli_names_the_roadmap_item_of_an_unported_config(argv, item):
     out = _cli(*argv)
     assert out.returncode == 2

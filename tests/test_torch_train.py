@@ -269,8 +269,9 @@ def test_unported_training_paths_raise_naming_the_roadmap():
     """The mesh train steps are ported (A10, ``test_torch_mesh_train.py``)
     and build; ranks as replica processes are ported too (A11,
     ``test_torch_train_nodes.py``) and refuse to start without the
-    ``NodePool`` they are placed on; the classification loss waits for
-    ResNet (A12)."""
+    ``NodePool`` they are placed on; the classification loss came with
+    ResNet (A12; ``test_torch_resnet.py``) and takes the mesh steps'
+    ``reduce="sum"``."""
     from tosem_tpu_torch.parallel.mesh import default_mesh
     from tosem_tpu_torch.train import trainer
     from tosem_tpu_torch.train.distributed import (DataParallelConfig,
@@ -285,7 +286,8 @@ def test_unported_training_paths_raise_naming_the_roadmap():
         DistributedTrainer("tosem_tpu_torch.train.distributed:demo_job",
                            {}, DataParallelConfig(job="nodes"),
                            backend="nodes", world=1)
-    assert not hasattr(trainer, "classification_loss")      # A12
+    assert "reduce" in __import__("inspect").signature(
+        trainer.classification_loss).parameters              # A12
 
 
 def test_unreached_parameter_keeps_optax_momentum():

@@ -15,7 +15,7 @@ pytest cases.
     with ChaosController(plan) as chaos:
         ...  # run the workload; chaos.log records every injection
 
-The survival runner and its ``chaos`` CLI wait for ROADMAP.md A12/A14.
+The survival runner and its ``chaos`` CLI wait for ROADMAP.md A14.
 """
 from tosem_tpu_torch.chaos.hooks import fire, get_controller, install, uninstall
 from tosem_tpu_torch.chaos.injector import ChaosController

@@ -3,7 +3,29 @@
 Counterpart of ``tosem_tpu/cli.py`` (``python -m tosem_tpu.cli``): each
 config writes its measurements as rows of the study's CSV schema
 (:mod:`tosem_tpu_torch.utils.results`), so both packages' files join on
-``bench_id``. Ported so far: ``bert_kernels``, north-star config 5::
+``bench_id``. Every north-star config runs:
+
+``--config=gemm`` (config 1, ``ops/gemm.py`` on cuBLAS: the JAX
+package's sweep on the card, 256^3 fp32 on the CPU) and
+``--config=timing_check`` (graph replay against the differential batch
+method on the same GEMMs: 8192^3 and 1024^3 bf16, 1024^3 fp32 on the
+card). ``--config=conv_sweep`` (config 2, ``ops/conv.py`` on cuDNN: the
+ResNet-50 layer shapes at batch 32, fp32 and bf16, ``--dtype`` picks one;
+one 3x3 shape on the CPU). ``--config=resnet_train`` (config 4:
+ResNet-50 on CIFAR-shaped synthetic data, batch 256 on the card and 16
+on the CPU, SGD with momentum 0.9, ``--steps`` timed steps after 3
+warm-up steps, ``--converge_steps``/``--target_acc`` the convergence
+gate). ``--config=bert_train``: BERT masked-LM steps with flash
+attention against dense attention on one set of weights and one batch
+(BERT-base 8 x 512 on the card, tiny 2 x 64 on the CPU; ``--remat``).
+With ``--profile`` either train config writes the kernel summary of 3
+traced steps (``profiler/trace.py``).
+``--config=kernel_matrix`` runs the cross-backend kernel bench
+(``ops/bench_kernels.py``), and the ``microbench`` subcommand
+``runtime/bench_runtime.py``'s suites (``--kernels``, ``--sparse`` and
+the rest).
+
+``bert_kernels`` is north-star config 5::
 
     python -m tosem_tpu_torch.cli --config=bert_kernels \\
         --results_csv=results/torch_kernels.csv
@@ -63,22 +85,335 @@ from typing import Any, List
 # the JAX package's configs and subcommands that the port does not run
 # yet -> the ROADMAP.md item that ports each
 NOT_PORTED = {
-    "gemm": "A12 (ops/gemm.py)",
-    "timing_check": "A12 (utils/timing.py harness checks)",
-    "conv_sweep": "A12 (ops/conv.py)",
-    "resnet_train": "A12 (models/resnet.py)",
-    "bert_train": "A12 (the CLI's bert_train leg)",
     "flash_autotune": "A4 (the flash half of block selection)",
     "detection_train": "A13 (models/efficientdet.py)",
     "detection_infer": "A13 (models/efficientdet.py)",
     "pointpillars_infer": "A13 (models/pointpillars.py)",
     "speech_train": "A13 (models/speech.py)",
-    "kernel_matrix": "A12 (ops/bench_kernels.py)",
-    "analysis": "A12 (the CLI)",
-    "chaos": "A12 (the CLI's chaos subcommand)",
-    "microbench": "A12 (the CLI subcommand; its suites run as python -m "
-                  "tosem_tpu_torch.runtime.bench_runtime)",
+    "analysis": "A12 (the analysis config, analysis/)",
+    "chaos": "A14 (chaos/runner.py and chaos/cli.py)",
 }
+
+
+def _row_device(device) -> str:
+    return "gpu" if device.type == "cuda" else "cpu"
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        import torch
+        torch.cuda.synchronize(device)
+
+
+def run_gemm(args, device) -> List[Any]:
+    from tosem_tpu_torch.ops.gemm import (DEFAULT_GEMM_SWEEP, GemmSpec,
+                                          gemm_bench)
+    sweep = DEFAULT_GEMM_SWEEP
+    if device.type == "cpu":      # the north-star shape only, small
+        sweep = [GemmSpec(256, 256, 256, "float32", "float32")]
+    rows = []
+    for spec in sweep:
+        _, row = gemm_bench(spec, device=device)
+        rows.append(row)
+        print(f"  {row.bench_id}: {row.value:.1f} {row.unit}")
+    return rows
+
+
+def run_timing_check(args, device) -> List[Any]:
+    """The two timing harnesses against each other on the same GEMM
+    operands: graph replay (``DeviceLoopBench``, one replay of N
+    captured calls) and the differential batch method (``time_fn``: N
+    calls launched from Python, one sync). They share no mechanism, so a
+    reading that is a timing artifact makes them disagree. Where one
+    call's host launch outlasts its kernel (1024^3 bf16 on the card),
+    the batch method times the launch rate and the ratio says so. One
+    row a (shape, method) and an agreement row (loop / batch)."""
+    from tosem_tpu_torch.ops.gemm import (GemmSpec, gemm, gemm_bench,
+                                          gemm_operands, timing_kind)
+    from tosem_tpu_torch.utils.results import ResultRow
+    from tosem_tpu_torch.utils.timing import gflops, time_fn
+    shapes = ([GemmSpec(8192, 8192, 8192, "bfloat16", "default"),
+               GemmSpec(1024, 1024, 1024, "bfloat16", "default"),
+               GemmSpec(1024, 1024, 1024, "float32", "float32")]
+              if device.type == "cuda" else
+              [GemmSpec(256, 256, 256, "float32", "float32")])
+    dev = _row_device(device)
+    rows = []
+    for spec in shapes:
+        _, loop = gemm_bench(spec, device=device)
+        loop_row = ResultRow(project="ops", config="timing_check",
+                             bench_id=f"{spec.bench_id}_deviceloop",
+                             metric="gflops", value=loop.value,
+                             unit="GFLOPS", device=dev, n_devices=1,
+                             extra=dict(loop.extra))
+        a, b = gemm_operands(spec, device=device)
+        prec = spec.precision
+        stats = time_fn(lambda: gemm(a, b, prec), iters=8, name="batch")
+        batch_gf = gflops(spec.flops, stats.min_s)
+        rows.append(loop_row)
+        rows.append(ResultRow(
+            project="ops", config="timing_check",
+            bench_id=f"{spec.bench_id}_batch", metric="gflops",
+            value=batch_gf, unit="GFLOPS", device=dev, n_devices=1,
+            extra={"m": spec.m, "n": spec.n, "k": spec.k,
+                   "dtype": spec.dtype, "precision": spec.precision,
+                   "mean_ms": stats.mean_ms, "min_ms": stats.min_s * 1e3,
+                   "timing": "host_batch"}))
+        rows.append(ResultRow(
+            project="ops", config="timing_check",
+            bench_id=f"{spec.bench_id}_agreement", metric="ratio",
+            value=loop_row.value / batch_gf if batch_gf else -1.0,
+            unit="x", device=dev, n_devices=1,
+            extra={"loop_gflops": round(loop_row.value, 1),
+                   "batch_gflops": round(batch_gf, 1),
+                   "loop_timing": timing_kind(device)}))
+    for r in rows:
+        print(f"  {r.bench_id}: {r.value:.1f} {r.unit}")
+    return rows
+
+
+def run_conv_sweep(args, device) -> List[Any]:
+    """Config 2: both ResNet-50 sweeps on the card (``--dtype`` keeps
+    one), one 3x3 shape on the CPU. The JAX package's CPU shape builds
+    its ``ConvSpec`` without a name and raises (ROADMAP.md C-ref15);
+    the port names it ``cpu_3x3``."""
+    from tosem_tpu_torch.ops.conv import (RESNET50_CONV_SWEEP,
+                                          RESNET50_CONV_SWEEP_BF16,
+                                          ConvSpec, conv_bench)
+    if device.type == "cpu":
+        sweep = [ConvSpec("cpu_3x3", batch=2, h=28, w=28, c_in=32,
+                          c_out=32, kh=3, kw=3, stride=1, dtype="float32",
+                          precision="float32")]
+    elif args.dtype == "float32":
+        sweep = list(RESNET50_CONV_SWEEP)
+    elif args.dtype == "bfloat16":
+        sweep = list(RESNET50_CONV_SWEEP_BF16)
+    else:
+        sweep = list(RESNET50_CONV_SWEEP) + list(RESNET50_CONV_SWEEP_BF16)
+    rows = []
+    for spec in sweep:
+        _, row = conv_bench(spec, device=device)
+        rows.append(row)
+        print(f"  {row.bench_id}: {row.value:.1f} {row.unit}")
+    return rows
+
+
+def _resnet_batch(b, device):
+    import torch
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def _profile_steps(args, name, device, run_steps) -> None:
+    """Trace ``run_steps()`` (3 train steps) and write their kernel
+    summary to ``<results dir>/profile/<name>/kernel_summary.csv``."""
+    import os
+
+    from tosem_tpu_torch.profiler.trace import (capture_trace,
+                                                kernel_summary_csv)
+    prof_dir = os.path.join(os.path.dirname(args.results_csv) or ".",
+                            "profile", name)
+    with capture_trace(prof_dir):
+        run_steps()
+        _sync(device)
+    csv_path = os.path.join(prof_dir, "kernel_summary.csv")
+    stats = kernel_summary_csv(prof_dir, csv_path)
+    print(f"  profile: {len(stats)} kernels -> {csv_path}")
+
+
+def run_resnet_train(args, device) -> List[Any]:
+    """Config 4: ResNet-50 (bf16, CIFAR's 3x3 stem, 10 classes, weights
+    from seed 0) trained by SGD with momentum 0.9 on
+    ``cifar_like_batches``: 3 warm-up steps, then ``--steps`` steps
+    timed as one block (one sync at its end). Rows ``step_time_ms`` and
+    ``images_per_sec``; ``--profile`` traces 3 more steps (the last
+    3 batches again) and writes their kernel summary under
+    ``<results dir>/profile/``; with ``--converge_steps`` more steps
+    and the held-out accuracy gate."""
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.data.synthetic import cifar_like_batches
+    from tosem_tpu_torch.models.resnet import resnet50
+    from tosem_tpu_torch.train.trainer import (classification_loss,
+                                               create_train_state,
+                                               make_train_step)
+    from tosem_tpu_torch.utils.results import ResultRow
+    batch = args.batch or (256 if device.type == "cuda" else 16)
+    steps = max(args.steps, 1)
+    model = resnet50(num_classes=10, small_inputs=True, device=device)
+    st = create_train_state(model, lambda p: torch.optim.SGD(
+        p, lr=args.lr, momentum=0.9))
+    step = make_train_step(model, st.optimizer, classification_loss)
+    batches = [_resnet_batch(b, device)
+               for b in cifar_like_batches(batch, steps=steps + 3)]
+    warmup = 3
+    for b in batches[:warmup]:
+        st, metrics = step(st, b)
+    _sync(device)
+    t0 = time.perf_counter()
+    for b in batches[warmup:]:
+        st, metrics = step(st, b)
+    loss = float(metrics["loss"])          # the block's one sync
+    step_s = (time.perf_counter() - t0) / steps
+    dev = _row_device(device)
+    rows = [
+        ResultRow(project="train", config="resnet_train",
+                  bench_id=f"resnet50_cifar_b{batch}", metric="step_time_ms",
+                  value=step_s * 1e3, unit="ms", device=dev, n_devices=1,
+                  extra={"batch": batch, "steps": steps,
+                         "final_loss": loss, "dtype": "bfloat16"}),
+        ResultRow(project="train", config="resnet_train",
+                  bench_id=f"resnet50_cifar_b{batch}",
+                  metric="images_per_sec", value=batch / step_s,
+                  unit="img/s", device=dev, n_devices=1,
+                  extra={"batch": batch}),
+    ]
+    if args.profile:
+        def traced():
+            nonlocal st
+            for b in batches[-3:]:
+                st, _ = step(st, b)
+        _profile_steps(args, f"resnet_train_{_row_device(device)}",
+                       device, traced)
+    if args.converge_steps > 0:
+        from tosem_tpu_torch.data.synthetic import SyntheticImageDataset
+        for b in cifar_like_batches(batch, steps=args.converge_steps):
+            st, metrics = step(st, _resnet_batch(b, device))
+        final_loss = float(metrics["loss"])
+        xv, yv = SyntheticImageDataset().materialize_val(256)
+        with torch.no_grad():
+            logits = model(torch.from_numpy(xv).to(device), train=False)
+        acc = float(np.mean(logits.argmax(-1).cpu().numpy() == yv))
+        passed = acc >= args.target_acc and final_loss < 1.0
+        rows.append(ResultRow(
+            project="train", config="resnet_train",
+            bench_id=f"resnet50_convergence_b{batch}", metric="val_acc",
+            value=acc, unit="ratio", device=dev, n_devices=1,
+            extra={"converge_steps": args.converge_steps,
+                   "final_loss": final_loss,
+                   "target_acc": args.target_acc, "passed": bool(passed)}))
+        print(f"  convergence gate: val_acc={acc:.3f} loss={final_loss:.3f}"
+              f" -> {'PASS' if passed else 'FAIL'}")
+    for r in rows:
+        print(f"  {r.bench_id}: {r.value:.2f} {r.unit}")
+    return rows
+
+
+def run_bert_train(args, device) -> List[Any]:
+    """BERT masked-LM train steps, flash attention against dense
+    attention on the same weights (seed 0) and batch (random ids from
+    numpy seed 1, labels = ids, 15% masked), each from a fresh
+    ``adamw(1e-4)``: 2 warm-up steps, then ``--steps`` steps timed as
+    one block; step ``i`` draws dropout from ``step_generator(2, i)``.
+    Rows ``step_time_ms`` and ``train_gflops`` an arm (the JAX package's
+    FLOP count, 6 N B T + 3 * 12 L B T^2 dim) and the ``flash_vs_xla``
+    speedup; the dense arm keeps the JAX package's name ``xla`` so both
+    packages' rows join. ``extra["losses"]`` holds every timed step's
+    loss. ``--profile`` traces 3 more flash steps (one untraced first)
+    and writes their kernel summary under ``<results dir>/profile/``."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.models.bert import Bert, BertConfig
+    from tosem_tpu_torch.nn.attention import flash_attn_fn
+    from tosem_tpu_torch.train.trainer import (adamw, create_train_state,
+                                               make_train_step, mlm_loss,
+                                               step_generator)
+    from tosem_tpu_torch.utils.results import ResultRow
+    on_card = device.type == "cuda"
+    cfg = BertConfig.base() if on_card else BertConfig.tiny()
+    if args.remat not in ("none", "full", "dots"):
+        raise ValueError(f"--remat must be none|full|dots, got "
+                         f"{args.remat!r}")
+    if args.remat != "none":
+        cfg = dataclasses.replace(cfg, remat=args.remat)
+    B = args.batch or (8 if on_card else 2)
+    T = min(args.seq or (512 if on_card else 64), cfg.max_len)
+    steps = max(args.steps, 1)
+    model = Bert(cfg, device=device, seed=0)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(1)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, T)),
+                          device=device)
+    masked = torch.as_tensor(rng.random((B, T)) < 0.15, device=device)
+    batch = {"ids": ids, "labels": ids, "masked": masked}
+    n_params = sum(p.numel() for p in model.parameters())
+    attn_flops = 12 * cfg.layers * B * T * T * cfg.dim
+    flops_per_step = 6 * n_params * B * T + 3 * attn_flops
+
+    def fresh(attn_fn):
+        model.load_state_dict(init)
+        st = create_train_state(model, adamw(1e-4))
+        return st, make_train_step(model, st.optimizer, functools.partial(
+            mlm_loss, attn_fn=attn_fn))
+
+    size = "base" if on_card else "tiny"
+    tag = "" if cfg.remat == "none" else f"_remat-{cfg.remat}"
+    dev = _row_device(device)
+    rows, times = [], {}
+    for name, afn in (("xla", None), ("flash", flash_attn_fn())):
+        st, step = fresh(afn)
+        for i in range(2):
+            st, met = step(st, batch, step_generator(2, i, device))
+        _sync(device)
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(2, 2 + steps):
+            st, met = step(st, batch, step_generator(2, i, device))
+            losses.append(met["loss"])
+        losses = [float(x) for x in losses]      # the block's one sync
+        step_s = (time.perf_counter() - t0) / steps
+        times[name] = step_s
+        bench_id = f"bert_{size}_b{B}_t{T}_{name}{tag}"
+        rows.append(ResultRow(
+            project="train", config="bert_train", bench_id=bench_id,
+            metric="step_time_ms", value=step_s * 1e3, unit="ms",
+            device=dev, n_devices=1,
+            extra={"batch": B, "seq": T, "attn": name,
+                   "final_loss": losses[-1], "losses": losses,
+                   "params": n_params, "dtype": cfg.dtype,
+                   "remat": cfg.remat}))
+        rows.append(ResultRow(
+            project="train", config="bert_train", bench_id=bench_id,
+            metric="train_gflops", value=flops_per_step / step_s / 1e9,
+            unit="GFLOPS", device=dev, n_devices=1,
+            extra={"batch": B, "seq": T, "attn": name, "dtype": cfg.dtype,
+                   "remat": cfg.remat, "flops_per_step": flops_per_step}))
+        del st, step
+    rows.append(ResultRow(
+        project="train", config="bert_train",
+        bench_id=f"bert_b{B}_t{T}_flash_vs_xla{tag}", metric="speedup",
+        value=times["xla"] / times["flash"], unit="x", device=dev,
+        n_devices=1, extra={"xla_ms": times["xla"] * 1e3,
+                            "flash_ms": times["flash"] * 1e3}))
+    if args.profile:
+        st, step = fresh(flash_attn_fn())
+        st, _ = step(st, batch, step_generator(3, 0, device))
+        _sync(device)
+
+        def traced():
+            nonlocal st
+            for i in range(1, 4):
+                st, _ = step(st, batch, step_generator(3, i, device))
+        _profile_steps(args, f"bert_train_{_row_device(device)}{tag}",
+                       device, traced)
+        del st, step
+    for r in rows:
+        print(f"  {r.bench_id} {r.metric}: {r.value:.2f} {r.unit}")
+    return rows
+
+
+def run_kernel_matrix(args, device) -> List[Any]:
+    """The cross-backend kernel bench (``ops/bench_kernels.py``) as a
+    config: on the card the ``cuda`` arm (graph replay) and the
+    ``torch`` arm on CPU copies (host rate), pinned against each other
+    first; on the CPU the ``torch`` arm, pinned to the oracles. Rows
+    carry ``extra.platform``, ``extra.timing`` and ``extra.on_chip``."""
+    from tosem_tpu_torch.ops.bench_kernels import run_kernel_benchmarks
+    return _tagged(run_kernel_benchmarks(trials=2, min_s=0.4,
+                                         platform=device.type),
+                   "kernel_matrix")
 
 
 def run_bert_kernels(args, device) -> List[Any]:
@@ -120,13 +455,22 @@ def run_flash_sparse(args, device) -> List[Any]:
     return rows
 
 
+# calls in one timing of a collective on the card. Capturing a shard_map
+# call costs the host about 4 ms (its position threads meet), so windows
+# calibrated to 20 ms (up to 4096 calls of a 5 us collective) captured
+# 70735 calls over the sweep, about 290 s; 256 calls of the shortest
+# row still last over a millisecond of device time against a graph
+# launch of about 10 us.
+ALLREDUCE_CALLS = 256
+
+
 def run_allreduce(args, device) -> List[Any]:
     """North-star config 3: the six collectives over a 1-D mesh of
     positions (8 on the CPU, as the JAX package's tests have 8 virtual
     devices; 4 a card on cuda, spread over the cards in turn), 1 KB to
     256 MB a position (``--max_bytes`` caps it; 4 MB on the CPU). On
-    cuda each timing is calibrated to 20 ms windows; the CPU takes one
-    call a timing."""
+    cuda each timing is one graph of :data:`ALLREDUCE_CALLS` calls; the
+    CPU takes one call a timing."""
     import torch
     from tosem_tpu_torch.parallel.collectives import (
         DEFAULT_COLLECTIVE_SWEEP, collective_bench)
@@ -147,7 +491,8 @@ def run_allreduce(args, device) -> List[Any]:
         if cap and spec.bytes_per_device > cap:
             continue
         row = collective_bench(
-            spec, mesh, n_iter=int(device.type == "cpu"),
+            spec, mesh,
+            n_iter=1 if device.type == "cpu" else ALLREDUCE_CALLS,
             reps=1 if device.type == "cpu" else 3)
         rows.append(row)
         print(f"  {row.bench_id} x{row.n_devices}: "
@@ -254,7 +599,13 @@ def run_train_bench(args, device) -> List[Any]:
                    "train_bench")
 
 
-RUNNERS = {"bert_kernels": run_bert_kernels,
+RUNNERS = {"gemm": run_gemm,
+           "timing_check": run_timing_check,
+           "conv_sweep": run_conv_sweep,
+           "resnet_train": run_resnet_train,
+           "bert_train": run_bert_train,
+           "kernel_matrix": run_kernel_matrix,
+           "bert_kernels": run_bert_kernels,
            "flash_sparse": run_flash_sparse,
            "allreduce": run_allreduce,
            "serve_bench": run_serve_bench,
@@ -285,11 +636,32 @@ def make_parser() -> argparse.ArgumentParser:
                     help="decode_bench/decode_scenarios: the decoder the "
                          "legs serve (the JAX package's tiny one, or "
                          "BERT-base)")
+    ap.add_argument("--steps", type=int, default=20,
+                    help="resnet_train/bert_train: timed steps")
+    ap.add_argument("--converge_steps", type=int, default=0,
+                    help="resnet_train: extra steps for the convergence "
+                         "gate (0 = throughput only)")
+    ap.add_argument("--target_acc", type=float, default=0.6,
+                    help="resnet_train: the gate's held-out accuracy")
+    ap.add_argument("--lr", type=float, default=0.1,
+                    help="resnet_train: SGD learning rate")
+    ap.add_argument("--dtype", default="",
+                    help="conv_sweep: float32 or bfloat16 alone")
+    ap.add_argument("--profile", action="store_true",
+                    help="bert_train, resnet_train: trace 3 steps and "
+                         "write the kernel summary CSV")
+    ap.add_argument("--remat", default="none",
+                    help="bert_train activation remat: none|full|dots")
     return ap
 
 
 def main(argv: List[str] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "microbench":
+        # the ray-microbenchmark analog over the task and object planes,
+        # and the kernel and sparse suites (--kernels, --sparse)
+        from tosem_tpu_torch.runtime.bench_runtime import main as micro_main
+        return micro_main(argv[1:])
     if argv and argv[0] in NOT_PORTED:
         print(f"{argv[0]} is not ported yet: ROADMAP.md {NOT_PORTED[argv[0]]}",
               file=sys.stderr)

@@ -9,12 +9,12 @@ Also funnels rows through the study-schema CSV writer.
 
 A copy of the JAX package's ``runtime/bench_runtime.py`` over the port's
 runtime and cluster planes. ``python -m tosem_tpu_torch.runtime.bench_runtime``
-runs :func:`main` (the reference's ``cli microbench``; the port's CLI
-leaves that subcommand to ROADMAP.md A12). ``--save`` and ``--check``
-take the baseline's path and have no default: the port never reads or
-writes the JAX package's ``results/bench_*.json``. The suites the port
-lacks (``--sparse``, ``--kernels``: ROADMAP.md A12) raise
-``NotImplementedError`` naming that item.
+runs :func:`main`, as does ``python -m tosem_tpu_torch.cli microbench``.
+``--save`` and ``--check`` take the baseline's path and have no default:
+the port never reads or writes the JAX package's ``results/bench_*.json``.
+``--kernels`` and ``--sparse`` run ``ops/bench_kernels.py`` and
+``ops/bench_sparse.py`` on ``--device``; the sparse suite runs at
+t8192 on the card and t256 on the CPU.
 """
 from __future__ import annotations
 
@@ -532,15 +532,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the serve, decode and cluster suites' "
-                        "model replicas and the train suite's ranks run")
+                        "model replicas, the train suite's ranks and the "
+                        "kernel and sparse suites' kernels run")
     args = p.parse_args(argv)
 
-    if args.sparse or args.kernels:
-        raise NotImplementedError(
-            f"--{'sparse' if args.sparse else 'kernels'}: "
-            f"ops/bench_{'sparse' if args.sparse else 'kernels'}.py is not "
-            "ported yet (ROADMAP.md A12)")
-    if args.serve:
+    if args.sparse:
+        from tosem_tpu_torch.ops.bench_sparse import GATED_SPARSE_BENCHES
+        gated = GATED_SPARSE_BENCHES
+    elif args.kernels:
+        from tosem_tpu_torch.ops.bench_kernels import GATED_KERNEL_BENCHES
+        gated = GATED_KERNEL_BENCHES
+    elif args.serve:
         from tosem_tpu_torch.serve.bench_serve import GATED_SERVE_BENCHES
         gated = GATED_SERVE_BENCHES
     elif args.decode:
@@ -578,7 +580,21 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             p.error("--scenario requires --decode or --cluster")
         only = scen if only is None else (only & scen)
-    if args.serve:
+    if args.sparse:
+        from tosem_tpu_torch.ops.bench_sparse import run_sparse_benchmarks
+        from tosem_tpu_torch.ops.common import resolve_device
+        card = resolve_device(args.device).type == "cuda"
+        rows = run_sparse_benchmarks(trials=args.trials, min_s=args.min_s,
+                                     quiet=args.quiet, only=only,
+                                     seq=8192 if card else 256,
+                                     device=args.device)
+    elif args.kernels:
+        from tosem_tpu_torch.ops.bench_kernels import run_kernel_benchmarks
+        from tosem_tpu_torch.ops.common import resolve_device
+        rows = run_kernel_benchmarks(
+            trials=args.trials, min_s=args.min_s, quiet=args.quiet,
+            only=only, platform=resolve_device(args.device).type)
+    elif args.serve:
         from tosem_tpu_torch.serve.bench_serve import run_serve_benchmarks
         rows = run_serve_benchmarks(trials=args.trials, min_s=args.min_s,
                                     quiet=args.quiet, only=only,

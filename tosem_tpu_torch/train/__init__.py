@@ -1,4 +1,5 @@
-"""Training: the train state, AdamW with optax's defaults, the MLM loss,
+"""Training: the train state, AdamW with optax's defaults, the MLM and
+classification losses,
 the train step, the global-batch steps over a device mesh
 (``make_train_step(mesh=)``, ``make_partitioned_train_step``), the
 preemption-safe ``fit`` and atomic checkpoints, and data-parallel
@@ -6,6 +7,7 @@ training over the tensor transport (``DistributedTrainer``,
 bit-identical to the single-process fold at any world size)."""
 from tosem_tpu_torch.train.trainer import (MeshTrainState, TrainState,
                                            TrainingPreempted, adamw,
+                                           classification_loss,
                                            create_train_state,
                                            cross_entropy_loss, fit,
                                            make_partitioned_train_step,
@@ -28,6 +30,7 @@ from tosem_tpu_torch.train.distributed import (Bucket, DataParallelConfig,
                                                partition_buckets)
 
 __all__ = ["AsyncCheckpointer", "Bucket", "CheckpointCorruptError",
+           "classification_loss",
            "DPJob", "DPState", "DataParallelConfig", "DistributedTrainer",
            "MeshTrainState", "TrainState", "TrainWorkerLost", "TrainingPreempted", "adamw",
            "create_train_state", "cross_entropy_loss", "demo_job",

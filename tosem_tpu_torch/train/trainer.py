@@ -19,8 +19,12 @@ parameters, computes the loss numerator and weight count of its rows
 (``loss_fn(..., reduce="sum")``), meets the others on the counts, takes
 its gradients of ``numerator / global count`` inside the position, and
 meets them on the gradients, so the masked mean is over the whole batch
-(a mean of the positions' means is another loss). ``classification_loss``
-waits for ResNet (ROADMAP.md A12).
+(a mean of the positions' means is another loss). BatchNorm in training
+is not row-separable: inside a position of ``make_train_step(mesh=)`` it
+takes the global batch's moments (``nn.layers.batch_moments_over``, one
+meeting in its forward and one in its backward), and the model's
+buffers (BatchNorm's moving stats) go into the step and come back out of
+it, position 0's copy written to the model.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ import copy
 import functools
 import hashlib
 import inspect
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -133,6 +137,27 @@ def mlm_loss(model, batch: Dict[str, torch.Tensor],
                               batch.get("masked"), reduce=reduce), {}
 
 
+def classification_loss(model, batch: Dict[str, torch.Tensor],
+                        generator: Optional[torch.Generator] = None, *,
+                        reduce: str = "mean"):
+    """Image-classification loss for (image, label) batches, with the
+    batch's accuracy in the aux. ``reduce="sum"`` returns ``(numerator,
+    {"count": rows, "accuracy": correct rows})``: every aux value but
+    ``count`` is then a numerator over the count, as the loss is."""
+    logits = model(batch["image"], train=True)
+    label = batch["label"].long()
+    correct = (logits.argmax(-1) == label).float()
+    num, count = cross_entropy_loss(logits, label, reduce="sum")
+    if reduce == "sum":
+        return num, {"count": count, "accuracy": correct.sum()}
+    if reduce != "mean":
+        raise ValueError(f"reduce must be 'mean' or 'sum', got {reduce!r}")
+    # the quotient the mesh step forms, so a one-position mesh step is
+    # this step bit for bit
+    count = torch.clamp(count, min=1.0)
+    return num / count, {"accuracy": correct.sum() / count}
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     loss_fn: Callable[..., Tuple[torch.Tensor,
                                                  Dict[str, Any]]],
@@ -147,8 +172,14 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     batch is cut over ``dp_axis`` by its leading dim (:func:`shard_batch`,
     or plain tensors the step cuts): the global step over the mesh's
     positions (see the module docstring), its gradient applied to the
-    model by ``optimizer`` on the caller's thread. ``loss_fn`` must take
-    ``reduce="sum"`` (as :func:`mlm_loss` does)."""
+    model by ``optimizer`` on the caller's thread, and the model's
+    buffers set to position 0's after the step (all positions agree).
+    ``loss_fn`` must take ``reduce="sum"`` (as :func:`mlm_loss` and
+    :func:`classification_loss` do); its aux numerators come back as
+    means over the global batch. A model with BatchNorm takes CPU
+    positions or one position a card: the moments' backward meets inside
+    each position's backward, which on a card runs on the card's one
+    autograd thread."""
     if mesh is not None:
         return _replicated_mesh_step(model, optimizer, loss_fn, mesh,
                                      dp_axis)
@@ -195,15 +226,17 @@ class MeshTrainState:
     its rule's spec (``specs``), each position owning its blocks
     (``blocks[name].pieces[i]``, an ``nn.Parameter`` on the position's
     device) and an optimizer of its own over them, whose moments are
-    blocks of the same cut. ``model`` is the module the blocks came
-    from; a step does not touch it (:meth:`gather` gives the full
-    tensors)."""
+    blocks of the same cut. ``buffers`` are copies of the model's
+    buffers (BatchNorm's moving stats), replicated, which a step
+    updates. ``model`` is the module the blocks came from; a step does
+    not touch it (:meth:`gather` gives the full tensors)."""
     model: nn.Module
     mesh: Any
     specs: Dict[str, Any]
     blocks: Dict[str, Any]
     optimizers: Any
     step: int = 0
+    buffers: Dict[str, torch.Tensor] = field(default_factory=dict)
 
     def gather(self) -> Dict[str, torch.Tensor]:
         """The full parameters, by name (detached)."""
@@ -255,7 +288,9 @@ def shard_train_state(state: TrainState, mesh, rules) -> MeshTrainState:
     return MeshTrainState(model=state.model, mesh=mesh, specs=specs,
                           blocks=blocks, optimizers=Sharded(mesh, P(),
                                                             optimizers),
-                          step=state.step)
+                          step=state.step,
+                          buffers={n: _own(b) for n, b
+                                   in state.model.named_buffers()})
 
 
 def _own(x: torch.Tensor) -> torch.Tensor:
@@ -319,23 +354,30 @@ def _batch_rows(batch: Dict[str, torch.Tensor], specs: Dict[str, Any],
 
 
 def _global_grads(skel, loss_fn, params, batch, row_axes, start, total,
-                  gen_state, device):
+                  gen_state, device, buffers=None):
     """Inside a position: (global loss, gradients of the global loss by
-    name, the generator's state after the step). ``params`` are full
-    tensors (no grad)."""
+    name, the generator's state after the step, the buffers after the
+    step, the aux numerators' global means). ``params`` are full tensors
+    (no grad); ``buffers`` (the model's, e.g. BatchNorm's moving stats)
+    are copied, and the copies updated."""
     from torch.func import functional_call
-    from tosem_tpu_torch.nn.layers import RowSlice
-    from tosem_tpu_torch.parallel.spmd import psum
+    from tosem_tpu_torch.nn.layers import RowSlice, batch_moments_over
+    from tosem_tpu_torch.parallel.spmd import axis_size, psum
     gen = None
     if gen_state is not None:
         gen = torch.Generator(device=device)
         gen.set_state(torch.frombuffer(bytearray(gen_state),
                                        dtype=torch.uint8))
     leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
-    with torch.enable_grad():
-        num, aux = functional_call(
-            skel, {f"model.{n}": p for n, p in leaves.items()},
-            (batch, RowSlice(gen, start, total)))
+    bufs = {n: b.detach().clone() for n, b in (buffers or {}).items()}
+    tensors = {f"model.{n}": p for n, p in leaves.items()}
+    tensors.update({f"model.{n}": b for n, b in bufs.items()})
+    # a one-member axis leaves the moments the position's own, so a
+    # one-position mesh step is the plain step bit for bit
+    moment_axes = row_axes if row_axes and axis_size(row_axes) > 1 else ()
+    with torch.enable_grad(), batch_moments_over(moment_axes):
+        num, aux = functional_call(skel, tensors,
+                                   (batch, RowSlice(gen, start, total)))
         if "count" not in aux:
             raise ValueError("a mesh step's loss_fn(..., reduce='sum') "
                              "returns (numerator, {'count': ...})")
@@ -349,11 +391,13 @@ def _global_grads(skel, loss_fn, params, batch, row_axes, start, total,
     grads = {n: torch.zeros_like(leaves[n]) if g is None else g
              for n, g in zip(names, grads)}
     num = num.detach()
+    sums = {k: v.detach() for k, v in aux.items() if k != "count"}
     if row_axes:
-        num, grads = psum((num, grads), row_axes)
+        num, grads, sums = psum((num, grads, sums), row_axes)
     loss = num / torch.clamp(count, min=1.0)
+    means = {k: v / torch.clamp(count, min=1.0) for k, v in sums.items()}
     return loss, grads, (None if gen is None
-                         else bytes(gen.get_state().numpy()))
+                         else bytes(gen.get_state().numpy())), bufs, means
 
 
 def _skeletons(model: nn.Module, loss_fn, n: int) -> list:
@@ -374,16 +418,32 @@ def _gen_state(generator, mesh):
     return bytes(generator.get_state().numpy())
 
 
+def _check_batchnorm_positions(model, mesh) -> None:
+    from tosem_tpu_torch.nn.layers import BatchNorm
+    if not any(isinstance(m, BatchNorm) for m in model.modules()):
+        return
+    cards = [mesh.device_of(i) for i in mesh.local_positions()
+             if mesh.device_of(i).type == "cuda"]
+    if len(set(cards)) < len(cards):
+        raise ValueError(
+            "a mesh step over a model with BatchNorm takes one position a "
+            "card: the global moments' backward meets inside each "
+            "position's backward, and positions sharing a card share its "
+            "one autograd thread")
+
+
 def _replicated_mesh_step(model, optimizer, loss_fn, mesh, dp_axis):
     from tosem_tpu_torch.parallel.spmd import P, Sharded, shard_map
+    _check_batchnorm_positions(model, mesh)
     names = [n for n, _ in model.named_parameters()]
+    bnames = [n for n, _ in model.named_buffers()]
     skels = Sharded(mesh, P(), _skeletons(model, loss_fn, mesh.size))
 
-    def body(params, batch, skel, gen_state):
+    def body(params, buffers, batch, skel, gen_state):
         rows, axes, start, total = _batch_rows(batch, specs_of(batch),
                                                mesh)
         return _global_grads(skel, loss_fn, params, rows, axes, start,
-                             total, gen_state, _device_of(params))
+                             total, gen_state, _device_of(params), buffers)
 
     def specs_of(batch):
         return {k: (P(dp_axis) if getattr(v, "ndim", 0) >= 1 else P())
@@ -395,14 +455,19 @@ def _replicated_mesh_step(model, optimizer, loss_fn, mesh, dp_axis):
                              "than this step was built for")
         bspecs = specs_of({k: _global_like(v) for k, v in batch.items()})
         run = shard_map(body, mesh,
-                        in_specs=({n: P() for n in names}, bspecs, P(),
+                        in_specs=({n: P() for n in names},
+                                  {n: P() for n in bnames}, bspecs, P(),
                                   P()),
                         out_specs=P())
         params = dict(model.named_parameters())
+        buffers = dict(model.named_buffers())
         with torch.no_grad():
-            loss, grads, gen_after = run(
-                {n: params[n].detach() for n in names}, batch, skels,
+            loss, grads, gen_after, bufs, means = run(
+                {n: params[n].detach() for n in names},
+                {n: buffers[n] for n in bnames}, batch, skels,
                 _gen_state(generator, mesh))
+            for n in bnames:
+                buffers[n].copy_(bufs[n])
         optimizer.zero_grad(set_to_none=True)
         for n in names:
             params[n].grad = grads[n].to(params[n].device)
@@ -411,7 +476,7 @@ def _replicated_mesh_step(model, optimizer, loss_fn, mesh, dp_axis):
             generator.set_state(torch.frombuffer(bytearray(gen_after),
                                                  dtype=torch.uint8))
         state.step += 1
-        return state, {"loss": loss}
+        return state, {"loss": loss, **means}
     return step
 
 
@@ -447,14 +512,17 @@ def make_partitioned_train_step(model: nn.Module, optimizer,
     positions sharing its rows' axes on them, and updates its own blocks
     with its own optimizer. The blocks' layout is the rules' after every
     step, and between steps a position holds only its blocks.
+    BatchNorm takes the moments of the rows' axes (the global batch),
+    and the state's ``buffers`` go in and come back updated.
     ``optimizer`` names the optimizer type the state was cut with; the
     state carries the positions' optimizers."""
     from tosem_tpu_torch.parallel.sharding import spec_for_path, _clip_spec
     from tosem_tpu_torch.parallel.spmd import (P, Sharded, all_gather,
                                                axis_index, shard_map)
+    _check_batchnorm_positions(model, mesh)
     skels = Sharded(mesh, P(), _skeletons(model, loss_fn, mesh.size))
 
-    def body(specs, bspecs, blocks, batch, opt, skel, gen_state):
+    def body(specs, bspecs, blocks, buffers, batch, opt, skel, gen_state):
         full = {}
         for n, b in blocks.items():
             t = b.detach()
@@ -463,9 +531,9 @@ def make_partitioned_train_step(model: nn.Module, optimizer,
                     t = all_gather(t, e, axis=d, tiled=True)
             full[n] = t
         rows, axes, start, total = _batch_rows(batch, bspecs, mesh)
-        loss, grads, gen_after = _global_grads(
+        loss, grads, gen_after, bufs, _ = _global_grads(
             skel, loss_fn, full, rows, axes, start, total, gen_state,
-            _device_of(blocks))
+            _device_of(blocks), buffers)
         opt.zero_grad(set_to_none=True)
         with torch.no_grad():
             for n, b in blocks.items():
@@ -479,7 +547,7 @@ def make_partitioned_train_step(model: nn.Module, optimizer,
         # a block's gradient may view the full one: drop them, so that
         # between steps a position holds its blocks and moments only
         opt.zero_grad(set_to_none=True)
-        return loss, gen_after
+        return loss, gen_after, bufs
 
     def step(state: MeshTrainState, batch, generator=None):
         if state.mesh is not mesh:
@@ -488,11 +556,16 @@ def make_partitioned_train_step(model: nn.Module, optimizer,
                                 getattr(_global_like(v), "ndim", 0))
                   for k, v in batch.items()}
         run = shard_map(functools.partial(body, state.specs, bspecs), mesh,
-                        in_specs=(state.specs, bspecs, P(), P(), P()),
+                        in_specs=(state.specs,
+                                  {n: P() for n in state.buffers}, bspecs,
+                                  P(), P(), P()),
                         out_specs=P())
         with torch.no_grad():
-            loss, gen_after = run(state.blocks, batch, state.optimizers,
-                                  skels, _gen_state(generator, mesh))
+            loss, gen_after, bufs = run(state.blocks, state.buffers, batch,
+                                        state.optimizers, skels,
+                                        _gen_state(generator, mesh))
+            for n, b in state.buffers.items():
+                b.copy_(bufs[n])
         if gen_after is not None:
             generator.set_state(torch.frombuffer(bytearray(gen_after),
                                                  dtype=torch.uint8))
