@@ -284,6 +284,35 @@ Phases, each printing one JSON line:
               ``cuda`` arms by graph replay, the ``torch`` arms at host
               rates) and the block-sparse bench (``ops/bench_sparse.py``:
               ``LocalMask(1024)`` against causal at t8192, bf16).
+7h. moe     — MoE-BERT at BERT-base widths (``BertConfig.base()`` with
+              ``moe_experts=4``: every second layer routed, k 2, capacity
+              1.25, bf16, dropout 0.1), weights from seed 0: an 8 x 512
+              encode through ``encode_fn(attn_fn=flash_attn_fn())`` (B1
+              12 launches), 10 MLM steps (adamw(1e-4), loss + 0.01 aux;
+              B1-B3 12 launches a step each) whose loss must fall, 2 more
+              traced for the device breakdown, the capacity drops before
+              and after; ``bert_tiny_moe(4)`` fp32 card vs CPU
+              (encodings, aux, MLM logits within 1e-3 of the largest
+              value; a model with one routed layer's experts off by 10%
+              must break it); the MoE layer at BERT-base widths over ep =
+              4 positions (``ExpertParallelMoE``) against the unsharded
+              layer (y within rtol/atol 2e-5, aux rel 1e-5, fp32
+              gradients 1e-3 a tensor).
+7i. speech  — the DeepSpeech family at ``SpeechConfig()``'s full width
+              (fp32), weights from seed 0: MFCC of the synthetic corpus'
+              16 WAVs card vs CPU; ``SpeechBatchBackend`` on 8
+              utterances of 150-500 frames in buckets 256 and 512
+              (batched == sequential by text and rows, rows within 1e-4
+              of each full pass); ``SpeechDecodeBackend`` (8 rows, chunk
+              8) in this process (ms a step, traced busy share) and in a
+              replica behind ``DecodeQueue`` (texts == the full pass's,
+              rows within 1e-4); one stream through the native speech C
+              ABI in uneven chunks (text == the full pass's); CTC loss
+              and gradient at [8, 500, 29] card vs CPU (1e-4) beside
+              ``F.ctc_loss`` (timed only), the beam decoder with a scorer;
+              3 Adam steps of full-width CTC training; ``cli
+              --config=speech_train`` (four rows, device gpu, the loss
+              below its first). No kernel of ``csrc/`` is on this path.
 8. suite    — north-star config 5 through the port's experiment runner,
               ``tosem_tpu_torch.cli --config=bert_kernels`` (BERT-base:
               8 x 512, 12 heads of 64, hidden 768, bf16) into a
@@ -295,7 +324,8 @@ Phases, each printing one JSON line:
               forward+backward). Every row must read under the card's
               peak (a row above it means a timing window closed early).
 
-``--phases`` picks a subset (default: all nineteen), e.g. ``build,kernels``
+``--phases`` picks a subset (default: all twenty-one), e.g.
+``build,kernels``
 for a first call after a kernel change, ``build,kernels,train`` for the
 training path, ``build,train_dp`` for data-parallel training,
 ``build,parallel`` for the device mesh, ``build,pipeline,mesh_train``
@@ -304,13 +334,15 @@ for the pipeline and the global-batch mesh steps,
 ``build,configs,kernel_matrix`` for configs 1, 2 and 4 and the
 kernel matrix, ``build,decode,serve`` for the served path,
 ``build,decode,cluster``
-for cluster serving, ``build,benches`` for the benches, or
+for cluster serving, ``build,benches`` for the benches,
+``build,moe,speech`` for MoE-BERT and the speech family, or
 ``build,kernels,decode,decode_modes,serve`` for the decode modes.
 
 The launch counts of every kernel are set to 0 just before the decode,
 each decode mode, the encode, the sparse encode, the train, each
 data-parallel run, each sharded path, the pipelined forward and
-backward, each mesh train run, each bench and the suite paths run and read just
+backward, each mesh train run, each bench, the MoE encode, the MoE train
+steps and the suite paths run and read just
 after (the serve, cluster and decode-bench paths' inside their
 replicas: set to 0 as each replica's warm-up ends, read after its
 traffic; the data-parallel ranks' inside each rank process, which
@@ -6130,6 +6162,697 @@ def phase_kernel_matrix(dev, seed):
     emit({"phase": "kernel_matrix", **out})
 
 
+MOE_EXPERTS = 4        # bert_tiny_moe's expert count; moe_every 2, k 2
+MOE_STEPS = 10         # timed MoE-BERT MLM steps
+MOE_TRACED = 2         # of them traced for the device breakdown
+MOE_AUX_WEIGHT = 0.01  # the aux loss' weight in the task loss
+MOE_EP_TOKENS = 2048   # tokens through the ep-sharded layer
+MOE_TOL = 1e-3         # card vs CPU fp32, of the largest value
+EP_TOL = 2e-5          # ep vs unsharded y (rtol and atol, the reference's)
+EP_GRAD_TOL = 1e-3     # ep vs unsharded fp32 gradients, per tensor
+
+
+def moe_mlm_loss(model, batch, generator=None, *, attn_fn=None):
+    """``mlm_loss`` plus ``MOE_AUX_WEIGHT`` times the routed layers' aux
+    loss (``tests/test_moe_bert.py``'s objective); the aux rides the
+    metrics."""
+    from tosem_tpu_torch.train.trainer import cross_entropy_loss
+    enc, state = model.apply(batch["ids"], mask=batch.get("mask"),
+                             train=True, attn_fn=attn_fn,
+                             generator=generator, return_state=True)
+    task = cross_entropy_loss(model.mlm_logits(enc), batch["labels"],
+                              batch.get("masked"))
+    aux = state["moe_aux"]
+    return task + MOE_AUX_WEIGHT * aux, {"moe_aux": aux.detach(),
+                                         "task": task.detach()}
+
+
+def moe_dropped(model, ids):
+    """(token, choice) rows each routed layer drops for capacity on
+    ``ids`` (eval, no dropout): its MoE inputs caught by a forward
+    pre-hook and routed again."""
+    import torch
+    from tosem_tpu_torch.nn.moe import MoELayer, route
+    out, hooks = [], []
+
+    def pre(mod, args):
+        out.append(int(route(args[0], mod.gate, mod.k,
+                             mod.capacity_factor)[3]))
+    for m in model.modules():
+        if isinstance(m, MoELayer):
+            hooks.append(m.register_forward_pre_hook(pre))
+    try:
+        with torch.no_grad():
+            model.apply(ids)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out
+
+
+def moe_parity(dev, seed):
+    """``bert_tiny_moe(4)`` in fp32 (TF32 off, dense attention) on the
+    card and on the CPU from one set of weights: encodings, aux and MLM
+    logits, each within MOE_TOL of the largest value; the CPU model with
+    layer 1's experts' ``w2`` scaled by 1.1 must break the check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.models.bert import Bert, BertConfig
+    from tosem_tpu_torch.ops.common import precision
+    cfg = dataclasses.replace(BertConfig.tiny(), moe_experts=MOE_EXPERTS,
+                              dtype="float32")
+    cpu = Bert(cfg, device="cpu", seed=seed)
+    card = Bert(cfg, device=dev, seed=seed)
+    wrong = Bert(cfg, device="cpu", seed=seed)
+    with torch.no_grad():
+        wrong.layers[1].moe.w2.mul_(1.1)
+    ids = torch.as_tensor(np.random.default_rng(seed + 3).integers(
+        0, cfg.vocab_size, (4, 64)))
+
+    def run(m):
+        with torch.no_grad(), precision("float32"):
+            h, st = m.apply(ids.to(m.device), return_state=True)
+            return [t.float().cpu() for t in (h, st["moe_aux"],
+                                              m.mlm_logits(h))]
+
+    want, got, bad = run(cpu), run(card), run(wrong)
+
+    def gaps(a):
+        return [float((x - w).abs().max() / w.abs().max())
+                for x, w in zip(a, want)]
+    g, y = gaps(got), gaps(bad)
+    names = ("encodings", "aux", "mlm_logits")
+    check(all(v <= MOE_TOL for v in g),
+          f"MoE-BERT card vs CPU: {dict(zip(names, g))} > {MOE_TOL}")
+    check(max(y) > MOE_TOL, f"a wrong MoE expert passed: {y}")
+    return {"config": "bert_tiny_moe(4) fp32", "tol": MOE_TOL,
+            "rel_gaps": dict(zip(names, g)),
+            "wrong_expert_rel_gaps": dict(zip(names, y))}
+
+
+def moe_ep(dev, seed):
+    """The MoE layer at BERT-base widths (768 -> 3072, 4 experts, k 2,
+    capacity 1.25) in fp32 over ep = 4 positions on the card
+    (``ExpertParallelMoE``) against the unsharded layer: y within EP_TOL,
+    aux within rel 1e-5, the input's and every parameter's gradient
+    within EP_GRAD_TOL of its largest value; the ms of a forward and
+    backward of each."""
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.nn.moe import EXPERT_PARAMS, ExpertParallelMoE, \
+        MoELayer
+    from tosem_tpu_torch.parallel.mesh import default_mesh
+    layer = MoELayer(768, MOE_EXPERTS, hidden=3072, k=2,
+                     capacity_factor=1.25,
+                     generator=torch.Generator().manual_seed(seed)).to(dev)
+    mesh = default_mesh("ep", [torch.device(dev, 0)] * 4)
+    ep = ExpertParallelMoE(layer, mesh)
+    rng = np.random.default_rng(seed + 4)
+    x = torch.as_tensor(rng.normal(size=(MOE_EP_TOKENS, 768)),
+                        dtype=torch.float32, device=dev).requires_grad_(True)
+    yt = torch.as_tensor(0.3 * rng.normal(size=(MOE_EP_TOKENS, 768)),
+                         dtype=torch.float32, device=dev)
+
+    def fwd_bwd(run, params):
+        y, aux = run(x)
+        loss = torch.mean((y - yt) ** 2) + MOE_AUX_WEIGHT * aux
+        return y.detach(), aux.detach(), torch.autograd.grad(
+            loss, [x] + params)
+    base_params = [layer.gate] + [getattr(layer, n) for n in EXPERT_PARAMS]
+    ep_params = [ep.gate] + list(ep._pieces)
+    y0, a0, g0 = fwd_bwd(layer, base_params)
+    y1, a1, g1 = fwd_bwd(ep, ep_params)
+    n = mesh.size
+    g1 = list(g1[:2]) + [torch.cat(g1[2 + i * n:2 + (i + 1) * n])
+                         for i in range(len(EXPERT_PARAMS))]
+    names = ("x", "gate") + EXPERT_PARAMS
+    y_gap = float(((y1 - y0).abs() - EP_TOL * y0.abs()).max())
+    grad_gaps = {nm: float((a - b).abs().max() / b.abs().max()
+                           .clamp_min(1e-30))
+                 for nm, a, b in zip(names, g1, g0)}
+    check(y_gap <= EP_TOL, f"ep y off the unsharded layer by {y_gap}")
+    check(abs(float(a1) - float(a0)) <= 1e-5 * abs(float(a0)),
+          f"ep aux {float(a1)} vs {float(a0)}")
+    check(all(v <= EP_GRAD_TOL for v in grad_gaps.values()),
+          f"ep gradients: {grad_gaps}")
+    check(all(p.shape[0] == MOE_EXPERTS // n
+              for p in ep.blocks["w1"].pieces), "ep blocks not cut")
+
+    def ms(run, params, reps=3):
+        fwd_bwd(run, params)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fwd_bwd(run, params)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+    return {"tokens": MOE_EP_TOKENS, "positions": n,
+            "y_max_excess_over_tol": y_gap, "aux": [float(a0), float(a1)],
+            "grad_rel_gaps": grad_gaps,
+            "fwd_bwd_ms": {"unsharded": ms(layer, base_params),
+                           "ep4_one_card": ms(ep, ep_params)}}
+
+
+def phase_moe(dev, seed, steps=MOE_STEPS):
+    """MoE-BERT at BERT-base widths on the card: ``BertConfig.base()``
+    with ``moe_experts = 4`` (every second layer routed, k 2, capacity
+    1.25; bf16, dropout 0.1), weights from seed 0. An 8 x 512 encode
+    through ``encode_fn(attn_fn=flash_attn_fn())`` (B1 12 launches),
+    then ``steps`` MLM train steps (adamw(1e-4), loss + 0.01 aux; B1-B3
+    12 launches a step each), whose loss must be finite and fall; two
+    more steps traced for the device breakdown; the capacity drops
+    before and after training. Then :func:`moe_parity` and
+    :func:`moe_ep`."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.models.bert import Bert, BertConfig
+    from tosem_tpu_torch.nn.attention import flash_attn_fn
+    from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.train import (adamw, create_train_state,
+                                       make_train_step)
+    from tosem_tpu_torch.train.trainer import step_generator
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(BertConfig.base(), moe_experts=MOE_EXPERTS)
+    model = Bert(cfg, device=dev, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    B, T = 8, 512
+    rng = np.random.default_rng(seed + 1)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, T)),
+                          device=dev)
+    masked = torch.as_tensor(rng.random((B, T)) < 0.15, device=dev)
+    mask = torch.ones((B, T), dtype=torch.int32, device=dev)
+    enc_fn = model.encode_fn(attn_fn=flash_attn_fn())
+    enc_fn(ids, mask)
+    torch.cuda.synchronize()
+    registry.reset_launch_counts()
+    t = time.perf_counter()
+    enc = enc_fn(ids, mask)
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t) * 1e3
+    enc_counts = dict(registry.LAUNCH_COUNTS)
+    check(enc_counts["flash_fwd"] == cfg.layers,
+          f"MoE encode: flash_fwd {enc_counts['flash_fwd']} launches, not "
+          f"{cfg.layers}")
+    check(bool(torch.isfinite(enc.float()).all()), "MoE encode not finite")
+    dropped_before = moe_dropped(model, ids)
+
+    st = create_train_state(model, adamw(1e-4))
+    step = make_train_step(model, st.optimizer, functools.partial(
+        moe_mlm_loss, attn_fn=flash_attn_fn()))
+    batch = {"ids": ids, "labels": ids, "masked": masked}
+    torch.cuda.synchronize()
+    registry.reset_launch_counts()
+    mets = []
+    t = time.perf_counter()
+    for i in range(steps):
+        st, met = step(st, batch, step_generator(seed, i, dev))
+        mets.append(met)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) / steps * 1e3
+    counts = dict(registry.LAUNCH_COUNTS)
+    losses = [float(m["loss"]) for m in mets]
+    auxes = [float(m["moe_aux"]) for m in mets]
+    check(all(np.isfinite(losses)), f"MoE train losses {losses}")
+    check(losses[-1] < losses[0], f"MoE train loss did not fall: {losses}")
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        check(counts[name] == cfg.layers * steps,
+              f"MoE train: {name} {counts[name]} launches in {steps} "
+              f"steps, not {cfg.layers} a step")
+    mem = torch.cuda.max_memory_allocated() / 2**30
+
+    def traced_steps():
+        nonlocal st
+        for i in range(steps, steps + MOE_TRACED):
+            st, _ = step(st, batch, step_generator(seed, i, dev))
+    wall = _timed(traced_steps)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        traced = _timed(traced_steps)
+    breakdown = _device_breakdown(prof, wall, traced, MOE_TRACED)
+    registry.reset_launch_counts()
+    dropped_after = moe_dropped(model, ids)
+    capacity = model.layers[1].moe.capacity(B * T)
+    del st, step, model, enc, enc_fn
+    torch.cuda.empty_cache()
+    parity = moe_parity(dev, seed)
+    ep = moe_ep(dev, seed)
+    emit({"phase": "moe", "gpu": gpu_line(),
+          "config": "BERT-base bf16, moe_experts 4, moe_every 2, k 2, "
+                    "capacity 1.25, dropout 0.1",
+          "params": n_params, "batch": [B, T], "capacity": capacity,
+          "encode_ms": enc_ms, "encode_launches": enc_counts,
+          "steps": steps, "losses": losses, "aux": auxes,
+          "step_ms": step_ms, "tokens_per_s": B * T / step_ms * 1e3,
+          "max_memory_gib": mem,
+          "dropped_per_routed_layer": {"before": dropped_before,
+                                       "after": dropped_after,
+                                       "of": 2 * B * T},
+          "launches_train": counts, "device_breakdown": breakdown,
+          "parity": parity, "ep": ep})
+    return {k: enc_counts[k] + counts[k] for k in KERNELS}
+
+
+SPEECH_UTTS = 8                # utterances a speech leg serves
+SPEECH_FRAMES = (150, 500)     # their frame counts, drawn from seed
+SPEECH_BUCKETS = [256, 512]    # SpeechBatchBackend's padding buckets
+SPEECH_CHUNK = 8               # frames a SpeechDecodeBackend step
+SPEECH_ROW_TOL = 1e-4          # logits rows, served vs full pass (fp32)
+MFCC_TOL = 1e-3                # card vs CPU MFCC, of the largest value
+CTC_TOL = 1e-4                 # card vs CPU CTC loss and gradient
+SPEECH_TRAIN_STEPS = 3         # Adam steps of full-width CTC training
+
+
+def speech_replica_class():
+    """``SpeechDecodeBackend`` as the speech phase deploys it: its
+    results carry the logits rows, and each step's time is kept (read
+    through ``stats``). Defined in a function so cloudpickle ships it by
+    value to the replica."""
+    from tosem_tpu_torch.serve.speech import SpeechDecodeBackend
+
+    class ServedSpeech(SpeechDecodeBackend):
+        def step_batch(self, seq_ids, step_idxs):
+            import torch
+            t = time.perf_counter()
+            try:
+                return super().step_batch(seq_ids, step_idxs)
+            finally:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize()
+                self.step_ms.append((time.perf_counter() - t) * 1e3)
+
+        def warmup(self, shapes):
+            out = super().warmup(shapes)
+            self.step_ms = []
+            self.admit("warm", {"frames": [[0.0] * self.cfg.n_input]})
+            while not self.step_batch(["warm"], [self._seqs["warm"]
+                                                 .next_step])[0]["done"]:
+                pass
+            self.release("warm")
+            self.step_ms = []
+            return out
+
+        def _result_locked(self, seq):
+            out = super()._result_locked(seq)
+            out["rows"] = self._rows_locked(seq)
+            return out
+
+        def stats(self):
+            out = replica_stats(super().stats())
+            out["step_ms"] = list(getattr(self, "step_ms", []))
+            return out
+
+    return ServedSpeech
+
+
+def speech_utterances(seed, n_input):
+    import numpy as np
+    rng = np.random.default_rng(seed + 5)
+    lens = rng.integers(SPEECH_FRAMES[0], SPEECH_FRAMES[1] + 1, SPEECH_UTTS)
+    return [rng.normal(size=(int(n), n_input)).astype(np.float32)
+            for n in lens]
+
+
+def speech_mfcc(dev, wavs):
+    """MFCC of each WAV on the card and on the CPU (fp32)."""
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.data.audio import mfcc
+    gaps, frames = [], 0
+    for a in wavs:
+        x = torch.from_numpy(np.asarray(a, np.float32))
+        want = mfcc(x)
+        got = mfcc(x.to(dev)).cpu()
+        check(got.shape == want.shape, f"MFCC shape {got.shape}")
+        gaps.append(float((got - want).abs().max() / want.abs().max()))
+        frames += want.shape[0]
+    check(max(gaps) <= MFCC_TOL, f"MFCC card vs CPU: {max(gaps)}")
+    return {"wavs": len(wavs), "frames": frames, "tol": MFCC_TOL,
+            "max_rel_gap": max(gaps)}
+
+
+def speech_batch(dev, seed, utts, full):
+    """``SpeechBatchBackend`` (full width, max_batch 8): each bucket's
+    utterances in one batch against each alone at the same bucket, by
+    text and by logits rows, and each row against the utterance's own
+    full pass."""
+    import numpy as np
+    from tosem_tpu_torch.data.feeding import bucket_for
+    from tosem_tpu_torch.serve.speech import SpeechBatchBackend
+    b = SpeechBatchBackend(cfg_name="full", seed=seed, max_batch=8,
+                           device=dev)
+    by_bucket = {}
+    for i, u in enumerate(utts):
+        by_bucket.setdefault(bucket_for(len(u), SPEECH_BUCKETS), []).append(i)
+    seq_gap = full_gap = 0.0
+    t_batched = []
+    for bucket, idx in sorted(by_bucket.items()):
+        reqs = [{"frames": utts[i]} for i in idx]
+        t = time.perf_counter()
+        texts = b.call_batch(reqs, pad_to=bucket)
+        t_batched.append((time.perf_counter() - t) * 1e3)
+        logits, lengths = b.logits_batch(reqs, pad_to=bucket)
+        for j, i in enumerate(idx):
+            alone, _ = b.logits_batch([reqs[j]], pad_to=bucket)
+            n = int(lengths[j])
+            check(texts[j]["text"] == b.call_batch([reqs[j]],
+                                                   pad_to=bucket)[0]["text"],
+                  f"utterance {i}: batched text != sequential")
+            seq_gap = max(seq_gap, float(np.abs(logits[j, :n]
+                                                - alone[0, :n]).max()))
+            full_gap = max(full_gap, float(np.abs(logits[j, :n]
+                                                  - full[i]).max()))
+    check(seq_gap <= SPEECH_ROW_TOL, f"batched vs sequential rows {seq_gap}")
+    check(full_gap <= SPEECH_ROW_TOL, f"batched vs full-pass rows {full_gap}")
+    return {"buckets": {str(k): len(v) for k, v in by_bucket.items()},
+            "batched_vs_sequential_max_abs": seq_gap,
+            "batched_vs_full_pass_max_abs": full_gap,
+            "batch_ms": t_batched}
+
+
+def speech_decode_direct(dev, seed, utts, full):
+    """The decode backend in this process, 8 streams packed: ms per
+    scheduler step on the host clock, then the same steps traced for the
+    device time and busy share."""
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.serve.speech import SpeechDecodeBackend
+    b = SpeechDecodeBackend(cfg_name="full", seed=seed, max_batch=8,
+                            chunk_frames=SPEECH_CHUNK, max_frames=512,
+                            device=dev)
+
+    def drive(tag):
+        ids = [f"{tag}{i}" for i in range(len(utts))]
+        for sid, u in zip(ids, utts):
+            b.admit(sid, {"frames": u})
+        live, step = list(ids), 0
+        while live:
+            outs = b.step_batch(live, [step] * len(live))
+            live = [s for s, o in zip(live, outs) if not o["done"]]
+            step += 1
+        rows = [b.logits_rows(s) for s in ids]
+        for s in ids:
+            b.release(s)
+        return step, rows
+    drive("w")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    n_steps, rows = drive("a")
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        traced = _timed(lambda: drive("p"))
+    gap = max(float(np.abs(r - f).max()) for r, f in zip(rows, full))
+    check(gap <= SPEECH_ROW_TOL, f"direct streamed rows vs full pass {gap}")
+    return {"steps": n_steps, "ms_per_step": wall / n_steps,
+            "rows_vs_full_pass_max_abs": gap,
+            "device_breakdown": _device_breakdown(prof, wall, traced,
+                                                  n_steps)}
+
+
+def speech_decode_served(dev, seed, utts, full, texts):
+    """``SpeechDecodeBackend`` (full width, max_batch 8, chunk 8) in a
+    replica process behind ``DecodeQueue``: the 8 utterances at once,
+    each answer's text the full pass's and its rows within
+    SPEECH_ROW_TOL."""
+    import numpy as np
+    import tosem_tpu_torch.runtime as rt
+    from tosem_tpu_torch.serve import DecodePolicy, Serve
+    served = speech_replica_class()
+    serve = Serve()
+    try:
+        t = time.perf_counter()
+        dep = serve.deploy("speech", served, init_kwargs=dict(
+            cfg_name="full", seed=seed, max_batch=8,
+            chunk_frames=SPEECH_CHUNK, max_frames=512, device=dev),
+            decode_policy=DecodePolicy(max_active=8), warmup_shapes=[1])
+        deploy_s = time.perf_counter() - t
+        h = serve.get_handle("speech")
+        t = time.perf_counter()
+        futs = [h.remote({"frames": u.tolist()}) for u in utts]
+        got = [f.result(timeout=300.0) for f in futs]
+        wall = time.perf_counter() - t
+        rep = rt.get(dep._replicas[0].stats.remote(), timeout=60)
+        dstats = dep.stats()
+    finally:
+        for name in list(serve.list_deployments()):
+            serve.delete(name)
+        rt.shutdown()
+    gap = 0.0
+    for i, (g, f) in enumerate(zip(got, full)):
+        check(g["text"] == texts[i], f"served stream {i}: {g['text']!r} "
+              f"!= full pass {texts[i]!r}")
+        gap = max(gap, float(np.abs(np.asarray(g["rows"]) - f).max()))
+    check(gap <= SPEECH_ROW_TOL, f"served rows vs full pass {gap}")
+    steps = rep["step_ms"]
+    return {"deploy_s": deploy_s, "wall_s": wall,
+            "scheduler_steps": dstats["decode_steps"],
+            "ms_per_scheduler_step": wall * 1e3 / dstats["decode_steps"],
+            "replica_step_ms_median": float(np.median(steps)),
+            "sequences_ok": dstats["sequences_ok"],
+            "rows_vs_full_pass_max_abs": gap}
+
+
+def speech_c_api(dev, seed, utts, full, texts):
+    """One stream through the built ``speech_api`` library, fed uneven
+    chunks, against the full pass's greedy text."""
+    from tosem_tpu_torch.serve.speech import (SERVE_ALPHABET,
+                                              CStreamingModel,
+                                              build_speech_model)
+    model = build_speech_model("full", seed=seed, device=dev)
+    cm = CStreamingModel(model, SERVE_ALPHABET[:model.cfg.n_classes - 1],
+                         chunk_frames=16)
+    try:
+        u = utts[0]
+        s = cm.create_stream()
+        t = time.perf_counter()
+        for a, b in ((0, 7), (7, 30), (30, 31), (31, 100), (100, len(u))):
+            cm.feed(s, u[a:b])
+        mid = cm.intermediate(s)
+        text = cm.finish(s)
+        ms = (time.perf_counter() - t) * 1e3
+    finally:
+        cm.close()
+    check(text == texts[0], f"C API stream {text!r} != full pass "
+          f"{texts[0]!r}")
+    return {"frames": len(u), "text_chars": len(text), "ms": ms,
+            "intermediate_is_prefix": texts[0].startswith(mid)}
+
+
+def speech_ctc(dev, seed):
+    """CTC loss and its gradient at [8, 500, 29] on the card against the
+    CPU (fp32), timed beside ``F.ctc_loss`` (a library yardstick, not on
+    the path); the beam decoder with a scorer from ``build_scorer``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from tosem_tpu_torch.data.audio import ALPHABET, labels_to_text
+    from tosem_tpu_torch.data.scorer import build_scorer
+    from tosem_tpu_torch.ops.ctc import Scorer, beam_search_decode, ctc_loss
+    rng = np.random.default_rng(seed + 6)
+    B, T, V, L = 8, 500, 29, 60
+    logits = torch.as_tensor(3 * rng.normal(size=(B, T, V)),
+                             dtype=torch.float32)
+    labels = torch.as_tensor(rng.integers(0, V - 1, (B, L)))
+    il = torch.as_tensor(rng.integers(300, T + 1, B))
+    ll = torch.as_tensor(rng.integers(10, L + 1, B))
+
+    def run(where):
+        x = logits.to(where).detach().requires_grad_(True)
+        loss = ctc_loss(x, labels.to(where), il.to(where), ll.to(where),
+                        blank=V - 1)
+        loss.sum().backward()
+        return loss.detach().cpu(), x.grad.cpu()
+    want, g_want = run("cpu")
+    got, g_got = run(dev)
+    loss_gap = float(((got - want).abs() / want.abs()).max())
+    grad_gap = float((g_got - g_want).abs().max() / g_want.abs().max())
+    check(loss_gap <= CTC_TOL and grad_gap <= CTC_TOL,
+          f"CTC card vs CPU: loss {loss_gap}, gradient {grad_gap}")
+
+    def port_fb():
+        x = logits.to(dev).detach().requires_grad_(True)
+        ctc_loss(x, labels.to(dev), il.to(dev), ll.to(dev),
+                 blank=V - 1).sum().backward()
+    xs = logits.to(dev).log_softmax(-1).transpose(0, 1).contiguous()
+
+    def lib_fb():
+        x = xs.detach().requires_grad_(True)
+        F.ctc_loss(x, labels.to(dev), il.to(dev), ll.to(dev), blank=V - 1,
+                   reduction="sum").backward()
+    port_ms = cuda_ms(port_fb, iters=3, warmup=1)
+    lib_ms = cuda_ms(lib_fb, iters=3, warmup=1)
+    lib_loss = F.ctc_loss(xs.cpu(), labels, il, ll, blank=V - 1,
+                          reduction="none")
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="torch_scorer_") as d:
+        path = os.path.join(d, "s.scorer")
+        texts = ["".join(rng.choice(list(ALPHABET[:26]), 4)) for _ in
+                 range(30)]
+        build_scorer([" ".join(texts[i:i + 3]) for i in range(0, 30, 3)],
+                     path, order=2)
+        sc = Scorer(path, alpha=1.0, beta=0.3, space_index=ALPHABET.index(" "))
+        lp = torch.log_softmax(got.new_tensor(3 * rng.normal(size=(T, V))),
+                               -1).numpy()
+        t = time.perf_counter()
+        lab1, s1 = beam_search_decode(lp, blank=V - 1, beam_width=16,
+                                      scorer=sc)
+        beam_ms = (time.perf_counter() - t) * 1e3
+        lab2, s2 = beam_search_decode(lp, blank=V - 1, beam_width=16,
+                                      scorer=sc)
+        sc.close()
+    check(lab1 == lab2 and s1 == s2, "beam decode with a scorer is not "
+          "deterministic")
+    return {"shape": [B, T, V], "labels": L, "tol": CTC_TOL,
+            "loss_max_rel_gap": loss_gap, "grad_rel_gap": grad_gap,
+            "port_fwd_bwd_ms": port_ms,
+            "library_F_ctc_loss_fwd_bwd_ms": lib_ms,
+            "library_vs_port_loss_max_abs": float(
+                (lib_loss - want).abs().max()),
+            "beam_lm_ms": beam_ms, "beam_lm_chars": len(labels_to_text(lab1))}
+
+
+def speech_train_full(dev, seed, utts):
+    """SPEECH_TRAIN_STEPS Adam steps of CTC training at full width on a
+    batch of 8 of the phase's utterances (random labels of 20-60
+    symbols), the loss finite, ms a step."""
+    import functools
+
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.models.speech import (SpeechConfig, SpeechModel,
+                                               pad_feats_batch)
+    from tosem_tpu_torch.ops.ctc import ctc_loss_mean
+    from tosem_tpu_torch.train.trainer import (create_train_state,
+                                               make_train_step)
+    cfg = SpeechConfig()
+    model = SpeechModel(cfg, device=dev, seed=seed)
+    feats, lengths = pad_feats_batch(utts, max(len(u) for u in utts))
+    rng = np.random.default_rng(seed + 7)
+    ll = rng.integers(20, 61, len(utts))
+    labels = rng.integers(0, cfg.vocab_size, (len(utts), 60))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             (("feats", feats), ("il", lengths), ("labels", labels),
+              ("ll", ll))}
+
+    def loss_fn(m, b, generator=None):
+        logits, _ = m(b["feats"], train=True, generator=generator)
+        return ctc_loss_mean(logits, b["labels"], b["il"], b["ll"],
+                             blank=cfg.blank), {}
+    torch.cuda.reset_peak_memory_stats()
+    st = create_train_state(model, functools.partial(torch.optim.Adam,
+                                                     lr=3e-3))
+    step = make_train_step(model, st.optimizer, loss_fn)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    losses, ms = [], []
+    for _ in range(SPEECH_TRAIN_STEPS):
+        t = time.perf_counter()
+        st, met = step(st, batch, gen)
+        losses.append(float(met["loss"]))
+        ms.append((time.perf_counter() - t) * 1e3)
+    check(all(np.isfinite(losses)), f"full-width CTC losses {losses}")
+    return {"batch": [len(utts), int(feats.shape[1])], "losses": losses,
+            "step_ms": ms,
+            "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def speech_cli(dev):
+    """``cli --config=speech_train --steps=3`` on the card: the four rows,
+    device gpu, the loss below the run's first."""
+    import tempfile
+
+    from tosem_tpu_torch import cli
+    from tosem_tpu_torch.utils.results import read_results
+    with tempfile.TemporaryDirectory(prefix="torch_speech_train_") as d:
+        path = os.path.join(d, "speech.csv")
+        t = time.perf_counter()
+        check(cli.main([f"--device={dev}", "--config=speech_train",
+                        "--steps=3", f"--results_csv={path}"]) == 0,
+              "the speech_train config failed")
+        secs = time.perf_counter() - t
+        rows = {r["bench_id"]: r for r in read_results(path)}
+    want = {"speech_ctc_loss", "speech_wer_greedy", "speech_wer_beam",
+            "speech_wer_beam_lm"}
+    check(set(rows) == want, f"speech_train rows {sorted(rows)}")
+    check(all(r["device"] == "gpu" for r in rows.values()),
+          "speech_train rows not on gpu")
+    loss = rows["speech_ctc_loss"]
+    check(loss["value"] < loss["extra"]["first_loss"],
+          f"speech_train loss {loss['value']} not below its first "
+          f"{loss['extra']['first_loss']}")
+    return {"seconds": secs,
+            **{k: r["value"] for k, r in sorted(rows.items())},
+            "first_loss": loss["extra"]["first_loss"],
+            "epochs": loss["extra"]["epochs"],
+            "train_steps": loss["extra"]["steps"]}
+
+
+def phase_speech(dev, seed):
+    """The DeepSpeech family on the card at ``SpeechConfig()``'s full
+    width (26 MFCC, context 9, 2048 hidden, 2048 cells, 28 symbols +
+    blank), weights from seed 0: MFCC of the synthetic corpus' 16 WAVs,
+    the batch backend, the decode backend (in this process, traced, and
+    behind ``DecodeQueue`` in a replica), the C streaming API, CTC loss
+    and the beam decoder, full-width training, and the CLI's
+    ``speech_train``. No kernel of ``csrc/`` is on this path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.data.feeding import (import_synthetic_corpus,
+                                              read_csv_manifest)
+    from tosem_tpu_torch.serve.speech import (SERVE_ALPHABET,
+                                              build_speech_model,
+                                              greedy_ctc_text)
+    out = {"phase": "speech", "gpu": gpu_line(),
+           "config": "SpeechConfig() full width, fp32"}
+    secs = {}
+
+    def leg(name, fn, *a):
+        t = time.perf_counter()
+        out[name] = fn(*a)
+        secs[name] = time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory(prefix="torch_speech_") as d:
+        wavs = [s.load_audio() for s in read_csv_manifest(
+            import_synthetic_corpus(d, n=16, seed=seed))]
+    leg("mfcc", speech_mfcc, dev, wavs)
+    model = build_speech_model("full", seed=seed, device=dev)
+    utts = speech_utterances(seed, model.cfg.n_input)
+    full, texts = [], []
+    t = time.perf_counter()
+    with torch.no_grad():
+        for u in utts:
+            f = model(torch.from_numpy(u)[None].to(dev))[0][0].cpu().numpy()
+            full.append(f)
+            texts.append(greedy_ctc_text(
+                f, SERVE_ALPHABET[:model.cfg.n_classes - 1],
+                model.cfg.blank))
+    secs["full_passes"] = time.perf_counter() - t
+    out["utterance_frames"] = [len(u) for u in utts]
+    del model
+    leg("batch", speech_batch, dev, seed, utts, full)
+    leg("decode_direct", speech_decode_direct, dev, seed, utts, full)
+    leg("decode_served", speech_decode_served, dev, seed, utts, full, texts)
+    leg("c_api", speech_c_api, dev, seed, utts, full, texts)
+    leg("ctc", speech_ctc, dev, seed)
+    leg("train_full_width", speech_train_full, dev, seed, utts)
+    leg("cli_speech_train", speech_cli, dev)
+    torch.cuda.empty_cache()
+    out["seconds"] = secs
+    out["texts_nonempty"] = int(sum(bool(t) for t in texts))
+    emit(out)
+    check(np.isfinite(out["train_full_width"]["losses"]).all(),
+          "speech phase")
+
+
 def phase_suite():
     """North-star config 5 through the port's experiment runner at its
     default BERT-base shapes. Returns the suite's launch counts."""
@@ -6230,7 +6953,7 @@ def main(argv=None):
                     default="build,kernels,decode,decode_modes,encode,"
                             "serve,cluster,encode_sparse,cpu,profile,train,"
                             "train_dp,parallel,pipeline,mesh_train,benches,"
-                            "configs,kernel_matrix,suite")
+                            "configs,kernel_matrix,moe,speech,suite")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(ROOT, "tosem_tpu_torch")):
@@ -6317,6 +7040,10 @@ def main(argv=None):
         timed("configs", phase_configs, dev, SEED)
     if "kernel_matrix" in phases:
         timed("kernel_matrix", phase_kernel_matrix, dev, SEED)
+    if "moe" in phases:
+        add(timed("moe", phase_moe, dev, SEED))
+    if "speech" in phases:
+        timed("speech", phase_speech, dev, SEED)
     if "suite" in phases:
         add(timed("suite", phase_suite))
     emit({"phase": "seconds", **secs,

@@ -320,10 +320,21 @@ def test_flash_attn_fn_counts_the_dense_mask_fallback():
 @pytest.mark.parametrize("change", [{"moe_experts": 4},
                                     {"moe_experts": 2, "moe_every": 1}])
 def test_unported_variants_raise(change):
-    from tosem_tpu_torch.models.bert import Bert, BertConfig
+    """MoE configs build and encode, and the decode path refuses them
+    with the JAX package's ValueError."""
+    from tosem_tpu_torch.models.bert import Bert, BertConfig, \
+        MoEEncoderLayer
     cfg = dataclasses.replace(BertConfig.tiny(), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Bert(cfg, device="cpu")
+    m = Bert(cfg, device="cpu")
+    routed = [i for i, l in enumerate(m.layers)
+              if isinstance(l, MoEEncoderLayer)]
+    assert routed == [i for i in range(cfg.layers)
+                      if i % cfg.moe_every == cfg.moe_every - 1]
+    h, state = m.apply(torch.zeros(1, 8, dtype=torch.long),
+                       return_state=True)
+    assert h.shape == (1, 8, cfg.dim) and "moe_aux" in state
+    with pytest.raises(ValueError, match="dense-FFN"):
+        m.prefill_fn()
 
 
 @pytest.mark.parametrize("remat", ["full", "dots"])

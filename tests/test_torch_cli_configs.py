@@ -131,3 +131,31 @@ def test_a_missing_card_exits_1(tmp_path):
     assert main(["--config=gemm",
                  f"--results_csv={tmp_path / 'x.csv'}"]) == 1
     assert not os.path.exists(tmp_path / "x.csv")
+
+
+def test_speech_train_end_to_end(tmp_path):
+    """``tests/test_cli.py``'s speech_train case: the four rows, a finite
+    loss that fell, WERs in range. The beam decode's WER is read as a
+    number only: on the undertrained model it may exceed 1 (insertions),
+    a property of the model, not of the decoder."""
+    rows = _run(tmp_path, "--config=speech_train", "--steps=3")
+    by_id = {r["bench_id"]: r for r in rows}
+    assert set(by_id) == {"speech_ctc_loss", "speech_wer_greedy",
+                          "speech_wer_beam", "speech_wer_beam_lm"}
+    loss = by_id["speech_ctc_loss"]
+    assert loss["value"] > 0 and loss["device"] == "cpu"
+    assert loss["value"] < loss["extra"]["first_loss"]
+    assert loss["extra"]["epochs"] == 3 and loss["extra"]["n_utts"] == 6
+    for mode in ("greedy", "beam_lm"):
+        assert 0.0 <= by_id[f"speech_wer_{mode}"]["value"] <= 1.0
+    assert by_id["speech_wer_beam"]["value"] >= 0.0
+
+
+def test_speech_train_on_the_ldc93s1_import(tmp_path):
+    """``--speech_data=ldc93s1``: the importer's fabricated stand-in
+    (no corpus files here), one utterance, the four rows."""
+    rows = _run(tmp_path, "--config=speech_train", "--steps=1",
+                "--speech_data=ldc93s1")
+    loss = next(r for r in rows if r["bench_id"] == "speech_ctc_loss")
+    assert loss["extra"]["n_utts"] == 1 and np.isfinite(loss["value"])
+    assert len(rows) == 4

@@ -610,9 +610,21 @@ def test_batch_rules():
 
 
 def test_moe_rules_wait_for_their_module():
-    from tosem_tpu_torch.parallel.sharding import bert_rules
-    with pytest.raises(NotImplementedError, match="A13"):
-        bert_rules(ep="ep")
+    """``bert_rules(ep=)`` places MoE-BERT's expert stacks on ``ep`` and
+    keeps the dense layers' Megatron specs."""
+    import dataclasses
+    from tosem_tpu_torch.models.bert import Bert, BertConfig
+    from tosem_tpu_torch.parallel.sharding import bert_rules, shard_tree
+    mesh = make_mesh(MeshSpec.of(dp=2, tp=2, ep=2), CPU8)
+    m = Bert(dataclasses.replace(BertConfig.tiny(), moe_experts=4),
+             device="cpu")
+    params = {n: p.detach() for n, p in m.named_parameters()}
+    sh = shard_tree(params, mesh, bert_rules(ep="ep"))
+    assert sh["layers.1.moe.w1"].spec[0] == "ep"
+    assert sh["layers.1.moe.w1"].pieces[0].shape == (2, 32, 64)
+    assert tuple(sh["layers.1.moe.gate"].spec) == ()
+    assert sh["layers.0.fc1.w"].spec[1] == "tp"
+    assert bert_rules() == bert_rules(ep="ep")[:len(bert_rules())]
 
 
 def test_parallel_package_exports_what_the_reference_s_does():

@@ -212,10 +212,10 @@ def test_stack_layer_params_shapes():
 def test_moe_config_rejected(pp_mesh):
     from tosem_tpu_torch.models.bert import Bert, BertConfig
     from tosem_tpu_torch.models.bert_pipeline import make_bert_pipeline_fn
-    model = Bert(BertConfig.tiny(), device="cpu")
-    # the port builds no MoE layer (A13): a config that asks for experts
-    # is refused by the pipeline before any layer is touched
-    model.cfg = dataclasses.replace(model.cfg, moe_experts=4)
+    model = Bert(dataclasses.replace(BertConfig.tiny(), moe_experts=4),
+                 device="cpu")
+    # its routed layers hold other parameters than the dense ones: the
+    # pipeline refuses the stack before any layer is touched
     with pytest.raises(ValueError, match="homogeneous"):
         make_bert_pipeline_fn(model, pp_mesh, n_micro=2)
 

@@ -67,6 +67,16 @@ scenario (the diurnal ramp under the closed autoscaling loop);
 (``train/bench_train.py``). Their ratio rows carry the JAX package's
 speed floors beside them; no run raises on a speed floor.
 
+``--config=speech_train`` runs the DeepSpeech-family leg end to end:
+the synthetic WAV corpus (16 utterances on the card, 6 on the CPU;
+``--speech_data=ldc93s1`` the LDC93S1 import, fabricated when its files
+are absent, or a CSV manifest or SDB bundle path), MFCC featurized in
+length buckets, CTC training of the CLI's small acoustic model (26 MFCC,
+context 2, 96 hidden, 96 cells, Adam 3e-3) for ``--steps`` epochs (6x
+that on the card), then WER with greedy, beam and LM-scored beam decode
+(a scorer built from the corpus' transcripts): rows ``speech_ctc_loss``
+and ``speech_wer_{greedy,beam,beam_lm}``.
+
 ``--config=flash_sparse`` runs ``sparse_kernel_suite``: flash forward and
 forward+backward under the block-sparse mask programs causal,
 ``local:1024`` and ``doc:2048+causal`` at [1, 12, 8192, 64] bf16 on the
@@ -89,7 +99,6 @@ NOT_PORTED = {
     "detection_train": "A13 (models/efficientdet.py)",
     "detection_infer": "A13 (models/efficientdet.py)",
     "pointpillars_infer": "A13 (models/pointpillars.py)",
-    "speech_train": "A13 (models/speech.py)",
     "analysis": "A12 (the analysis config, analysis/)",
     "chaos": "A14 (chaos/runner.py and chaos/cli.py)",
 }
@@ -404,6 +413,121 @@ def run_bert_train(args, device) -> List[Any]:
     return rows
 
 
+def run_speech_train(args, device) -> List[Any]:
+    """The DeepSpeech train + ``evaluate.py`` roles, hermetic through the
+    importer's fabricated WAVs (the JAX package's ``speech_train``):
+    bucketed batches of 4, Adam 3e-3 on the mean CTC loss, then one
+    padded batch of every utterance decoded greedy, by beam search and
+    by beam search with an order-2 scorer of the transcripts."""
+    import functools
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.data.audio import labels_to_text
+    from tosem_tpu_torch.data.feeding import (import_synthetic_corpus,
+                                              speech_batches)
+    from tosem_tpu_torch.data.sample_collections import (import_ldc93s1,
+                                                         open_collection)
+    from tosem_tpu_torch.data.scorer import build_scorer
+    from tosem_tpu_torch.models.speech import (SpeechConfig, SpeechModel,
+                                               evaluate_wer, wer)
+    from tosem_tpu_torch.ops.ctc import Scorer, ctc_loss_mean, greedy_decode
+    from tosem_tpu_torch.train.trainer import (create_train_state,
+                                               make_train_step)
+    from tosem_tpu_torch.utils.results import ResultRow
+    on_card = device.type == "cuda"
+
+    def as_batch(b):
+        return {k: torch.from_numpy(getattr(b, k)).to(device)
+                for k in ("features", "labels", "feature_lengths",
+                          "label_lengths")}
+
+    with tempfile.TemporaryDirectory(prefix="tosem_torch_speech_") as tmp:
+        if args.speech_data == "ldc93s1":
+            manifest = import_ldc93s1(tmp, fabricate=True)
+        elif args.speech_data:
+            manifest = args.speech_data
+        else:
+            manifest = import_synthetic_corpus(tmp, n=16 if on_card else 6,
+                                               seed=0)
+        refs = [s.transcript for s in open_collection(manifest)]
+        n_utts = len(refs)
+        if not refs:
+            raise ValueError(f"no samples in speech data {manifest!r}")
+        # label capacity fits the longest transcript
+        max_label = max(24, max(len(r) for r in refs) + 1)
+        cfg = SpeechConfig(n_input=26, n_context=2, n_hidden=96, n_cell=96,
+                           vocab_size=28, dropout=0.0)
+        model = SpeechModel(cfg, device=device, seed=0)
+
+        def loss_fn(m, batch, generator=None):
+            logits, _ = m(batch["features"])
+            return ctc_loss_mean(logits, batch["labels"],
+                                 batch["feature_lengths"],
+                                 batch["label_lengths"],
+                                 blank=cfg.blank), {}
+
+        st = create_train_state(model, functools.partial(
+            torch.optim.Adam, lr=3e-3, betas=(0.9, 0.999), eps=1e-8))
+        step = make_train_step(model, st.optimizer, loss_fn)
+        batches = [as_batch(b) for b in speech_batches(
+            manifest, batch_size=4, n_buckets=2, max_label_len=max_label,
+            device=device)]
+        epochs = max(args.steps, 1) * (6 if on_card else 1)
+        losses = []
+        for _ in range(epochs):
+            for b in batches:
+                st, met = step(st, b)
+                losses.append(met["loss"])
+        losses = [float(x) for x in losses]
+        first_loss, last_loss = losses[0], losses[-1]
+
+        # eval: one padded batch of every utterance, three decode modes
+        batch = next(speech_batches(manifest, batch_size=n_utts,
+                                    n_buckets=1, max_label_len=max_label,
+                                    sort_by_size=False, device=device))
+        with torch.no_grad():
+            logits, _ = model(torch.from_numpy(batch.features).to(device))
+        logp = torch.log_softmax(logits.float(), -1).cpu().numpy()
+        lengths = batch.feature_lengths
+        ref_texts = [labels_to_text(
+            [int(x) for x in batch.labels[i][:int(batch.label_lengths[i])]])
+            for i in range(n_utts)]
+        scorer_path = f"{tmp}/corpus.scorer"
+        build_scorer(refs, scorer_path, order=2)
+        scorer = Scorer(scorer_path, alpha=1.0, beta=0.3)
+        beam = evaluate_wer(logp, lengths, ref_texts, blank=cfg.blank,
+                            beam_width=16)
+        beam_lm = evaluate_wer(logp, lengths, ref_texts, blank=cfg.blank,
+                               beam_width=16, scorer=scorer)
+        scorer.close()
+        dec, n_dec = greedy_decode(logits, torch.from_numpy(lengths),
+                                   blank=cfg.blank)
+        dec, n_dec = dec.cpu().numpy(), n_dec.cpu().numpy()
+        greedy = float(np.mean([
+            wer(ref_texts[i], labels_to_text(
+                [int(x) for x in dec[i][:int(n_dec[i])]]))
+            for i in range(n_utts)]))
+
+    dev = _row_device(device)
+    rows = [ResultRow(project="models", config="speech_train",
+                      bench_id="speech_ctc_loss", metric="ctc_loss",
+                      value=last_loss, unit="nats", device=dev,
+                      extra={"first_loss": first_loss, "epochs": epochs,
+                             "n_utts": n_utts, "steps": len(losses)})]
+    for mode, val in [("greedy", greedy), ("beam", beam["wer"]),
+                      ("beam_lm", beam_lm["wer"])]:
+        rows.append(ResultRow(
+            project="models", config="speech_train",
+            bench_id=f"speech_wer_{mode}", metric="wer",
+            value=float(val), unit="ratio", device=dev,
+            extra={"decoder": mode, "n_utts": n_utts}))
+    for r in rows:
+        print(f"  {r.bench_id}: {r.value:.4f} {r.unit}")
+    return rows
+
+
 def run_kernel_matrix(args, device) -> List[Any]:
     """The cross-backend kernel bench (``ops/bench_kernels.py``) as a
     config: on the card the ``cuda`` arm (graph replay) and the
@@ -614,7 +738,8 @@ RUNNERS = {"gemm": run_gemm,
            "decode_scenarios": run_decode_scenarios,
            "cluster_bench": run_cluster_bench,
            "control_bench": run_control_bench,
-           "train_bench": run_train_bench}
+           "train_bench": run_train_bench,
+           "speech_train": run_speech_train}
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -637,7 +762,12 @@ def make_parser() -> argparse.ArgumentParser:
                          "legs serve (the JAX package's tiny one, or "
                          "BERT-base)")
     ap.add_argument("--steps", type=int, default=20,
-                    help="resnet_train/bert_train: timed steps")
+                    help="resnet_train/bert_train: timed steps; "
+                         "speech_train: epochs (x6 on the card)")
+    ap.add_argument("--speech_data", default="",
+                    help="speech_train data: '' = synthetic, 'ldc93s1' = "
+                         "the LDC93S1 import path, else a CSV manifest or "
+                         "SDB bundle path")
     ap.add_argument("--converge_steps", type=int, default=0,
                     help="resnet_train: extra steps for the convergence "
                          "gate (0 = throughput only)")

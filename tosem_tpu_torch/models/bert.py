@@ -129,9 +129,38 @@ class EncoderLayer(nn.Module):
 
 
 class MoEEncoderLayer(nn.Module):
+    """Encoder layer whose FFN is a routed expert layer (the MoE-BERT
+    block): ``forward`` returns ``(x, aux)``, the load-balance aux loss
+    beside the encodings, for training to add to the task loss."""
+
     def __init__(self, cfg: BertConfig, generator=None):
-        raise NotImplementedError(
-            "MoE BERT layers are not ported yet (ROADMAP.md A13: nn/moe.py)")
+        super().__init__()
+        from tosem_tpu_torch.nn.moe import MoELayer
+        dt = _torch_dtype(cfg.dtype)
+        self.ln1 = LayerNorm(cfg.dim, dtype=dt)
+        self.attn = MultiHeadAttention(cfg.dim, cfg.heads,
+                                       dropout=cfg.dropout, dtype=dt,
+                                       precision=cfg.precision,
+                                       generator=generator)
+        self.ln2 = LayerNorm(cfg.dim, dtype=dt)
+        # clamped here, as the JAX package does: a config may set fewer
+        # experts than the default moe_k
+        self.moe = MoELayer(cfg.dim, cfg.moe_experts, hidden=cfg.mlp_dim,
+                            k=min(cfg.moe_k, cfg.moe_experts),
+                            capacity_factor=cfg.moe_capacity_factor,
+                            dtype=dt, generator=generator)
+        self.drop = Dropout(cfg.dropout)
+
+    def forward(self, x, *, mask=None, train=False, attn_fn=None,
+                generator=None):
+        h = self.attn(self.ln1(x), mask=mask, train=train, attn_fn=attn_fn,
+                      generator=generator)
+        x = x + h
+        h = self.ln2(x)
+        B, T, D = h.shape
+        y, aux = self.moe(h.reshape(B * T, D))
+        y = self.drop(y.reshape(B, T, D), train=train, generator=generator)
+        return x + y, aux
 
 
 class Bert(nn.Module):
@@ -141,8 +170,6 @@ class Bert(nn.Module):
     def __init__(self, cfg: BertConfig, *, device="cuda", seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
-        if cfg.moe_experts:
-            MoEEncoderLayer(cfg)
         if cfg.remat not in ("none", "full", "dots"):
             raise ValueError(f"unknown remat mode {cfg.remat!r}; "
                              "expected none|full|dots")
@@ -154,8 +181,13 @@ class Bert(nn.Module):
         self.pos = Embedding(cfg.max_len, cfg.dim, dtype=dt, generator=gen)
         self.seg = Embedding(2, cfg.dim, dtype=dt, generator=gen)
         self.ln_emb = LayerNorm(cfg.dim, dtype=dt)
-        self.layers = nn.ModuleList(EncoderLayer(cfg, gen)
-                                    for _ in range(cfg.layers))
+
+        def make_layer(i):
+            if cfg.moe_experts and i % cfg.moe_every == cfg.moe_every - 1:
+                return MoEEncoderLayer(cfg, gen)
+            return EncoderLayer(cfg, gen)
+
+        self.layers = nn.ModuleList(make_layer(i) for i in range(cfg.layers))
         self.ln_out = LayerNorm(cfg.dim, dtype=dt)
         self.drop = Dropout(cfg.dropout)
         self.to(dev)
@@ -164,10 +196,12 @@ class Bert(nn.Module):
     # ------------------------------------------------------------ encoder
 
     def apply(self, ids, *, segments=None, mask=None, train=False,
-              attn_fn=None, generator=None):
+              attn_fn=None, generator=None, return_state=False):
         """ids: [B, T] int. mask: [B, T] (1 = real token) or None.
-        Returns [B, T, dim] encodings. Differentiable; ``generator``
-        drives dropout when ``train``."""
+        Returns [B, T, dim] encodings, or with ``return_state`` the JAX
+        package's ``(encodings, state)``, where an MoE config's state
+        holds ``"moe_aux"``, the routed layers' aux losses summed.
+        Differentiable; ``generator`` drives dropout when ``train``."""
         B, T = ids.shape
         pos_ids = torch.arange(T, device=ids.device)[None, :]
         h = self.tok(ids) + self.pos(pos_ids)
@@ -178,10 +212,20 @@ class Bert(nn.Module):
         if mask is not None:
             attn_mask = mask[:, None, None, :].bool()
         h = self.drop(h, train=train, generator=generator)
+        moe_aux = 0.0
         for layer in self.layers:
             h = self._run_layer(layer, h, attn_mask, train, attn_fn,
                                 generator)
-        return self.ln_out(h)
+            if isinstance(h, tuple):           # a routed layer: (h, aux)
+                h, aux = h
+                moe_aux = moe_aux + aux
+        h = self.ln_out(h)
+        if not return_state:
+            return h
+        if not self.cfg.moe_experts:
+            return h, {}
+        return h, {"moe_aux": torch.as_tensor(moe_aux, dtype=torch.float32,
+                                              device=h.device)}
 
     def _run_layer(self, layer, h, mask, train, attn_fn, generator):
         def run(x):
@@ -433,3 +477,11 @@ def bert_base(*, device="cuda", seed: int = 0) -> Bert:
 
 def bert_tiny(*, device="cuda", seed: int = 0) -> Bert:
     return Bert(BertConfig.tiny(), device=device, seed=seed)
+
+
+def bert_tiny_moe(n_experts: int = 4, *, device="cuda",
+                  seed: int = 0) -> Bert:
+    """CI-sized MoE-BERT: every second layer routed."""
+    from dataclasses import replace
+    return Bert(replace(BertConfig.tiny(), moe_experts=n_experts,
+                        moe_k=min(2, n_experts)), device=device, seed=seed)

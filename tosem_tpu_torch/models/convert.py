@@ -1,12 +1,15 @@
-"""Carry JAX-package BERT and ResNet parameters into the port.
+"""Carry JAX-package BERT, ResNet and speech parameters into the port.
 
 The input is the JAX model's ``Variables["params"]`` (and, for ResNet,
 ``Variables["state"]``, the BatchNorm moving stats) as nested dicts of
 numpy arrays (``jax.tree_util.tree_map(np.asarray, vs["params"])``); the
 output is a ``state_dict`` for :class:`tosem_tpu_torch.models.bert.Bert`
-or :class:`tosem_tpu_torch.models.resnet.ResNet`. Names map one to one,
-except ``layer{i}`` -> ``layers.{i}`` and ``block{i}`` -> ``blocks.{i}``,
-and conv kernels go HWIO -> OIHW. Nothing here
+(MoE-BERT's ``layer{i}/moe/{gate,w1,b1,w2,b2}`` included),
+:class:`tosem_tpu_torch.models.resnet.ResNet` or
+:class:`tosem_tpu_torch.models.speech.SpeechModel` (``d1``-``d3``,
+``lstm/{wi,wh,b}``, ``d5``, ``out``). Names map one to one, except
+``layer{i}`` -> ``layers.{i}`` and ``block{i}`` -> ``blocks.{i}``, and
+conv kernels go HWIO -> OIHW. Nothing here
 imports JAX: bf16 arrays arrive as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects, so their bits travel as uint16.
 """
@@ -85,3 +88,26 @@ def load_resnet_params(model, params: Mapping, state: Mapping) -> None:
     onto the model's device."""
     model.load_state_dict(resnet_params_from_numpy(params, state),
                           strict=True)
+
+
+def speech_params_from_numpy(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX ``SpeechModel``'s params -> flat ``state_dict`` (names one
+    to one, no weight transposed)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix):
+        for key, val in node.items():
+            path = f"{prefix}.{key}" if prefix else key
+            if isinstance(val, Mapping):
+                walk(val, path)
+            else:
+                out[path] = array_to_tensor(val)
+
+    walk(tree, "")
+    return out
+
+
+def load_speech_params(model, tree: Mapping) -> None:
+    """Load a converted speech tree into ``model`` (strict), onto the
+    model's device."""
+    model.load_state_dict(speech_params_from_numpy(tree), strict=True)

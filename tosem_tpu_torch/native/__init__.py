@@ -4,9 +4,11 @@ The port's copy of the ``load_library`` half of
 ``tosem_tpu/native/__init__.py``: small C++ cores with a plain C ABI,
 loaded via ctypes. ``load_library`` compiles ``native/<stem>.cpp`` into
 ``_build/lib<stem>.so`` the first time (or when the source is newer than
-the cached ``.so``) and returns the loaded ``ctypes.CDLL``. Only
-``objstore`` (the runtime's shared-memory object store, one source with
-no local headers) lives here so far.
+the cached ``.so``) and returns the loaded ``ctypes.CDLL``. Three
+sources, each with standard headers only, copies of the JAX package's:
+``objstore`` (the runtime's shared-memory object store),
+``ctc_decoder`` (the CTC prefix beam search with its n-gram scorer) and
+``speech_api`` (the streaming speech C ABI).
 """
 from __future__ import annotations
 

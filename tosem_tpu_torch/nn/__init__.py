@@ -1,1 +1,2 @@
-"""Layers and attention, as ``torch.nn.Module``s."""
+"""Layers, attention and the routed expert layer (``moe``), as
+``torch.nn.Module``s."""

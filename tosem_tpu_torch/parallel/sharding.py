@@ -93,13 +93,13 @@ def bert_rules(tp: str = "tp",
     are column-parallel (output features sharded), the attention output
     and MLP down-projection row-parallel (contraction dim sharded), the
     embeddings shard the feature dim. Everything else (layernorms, biases
-    of row-parallel layers) replicates. ``ep`` (the MoE expert axis)
-    needs ``nn/moe.py``, not ported yet."""
-    if ep is not None:
-        raise NotImplementedError(
-            "bert_rules(ep=) needs moe_rules from nn/moe.py, which is not "
-            "ported yet (ROADMAP.md A13)")
-    return [
+    of row-parallel layers) replicates.
+
+    ``ep``: the mesh axis of MoE-BERT's expert stacks
+    (``layers.*.moe.*``), needed on a mesh that hosts an MoE config, or
+    the E-times FFN weights replicate onto every position. None for dense
+    models and meshes without an expert axis."""
+    rules = [
         (r"attn\.(q|k|v)\.w$", P(None, tp)),
         (r"attn\.(q|k|v)\.b$", P(tp)),
         (r"attn\.o\.w$", P(tp, None)),
@@ -108,6 +108,12 @@ def bert_rules(tp: str = "tp",
         (r"fc2\.w$", P(tp, None)),
         (r"(tok|pos|seg)\.table$", P(None, tp)),
     ]
+    if ep is not None:
+        # from the MoE layer's own spec table, so the two cannot drift
+        from tosem_tpu_torch.nn.moe import moe_rules
+        rules += [(rf"moe\.{name}$", spec)
+                  for name, spec in moe_rules(ep).items()]
+    return rules
 
 
 def seq_batch_rules(dp: str = "dp", sp: Optional[str] = "sp"

@@ -22,8 +22,14 @@ to them through a tier of router processes::
     cs.get_handle("decode").call({"ids": [1, 2, 3]}, key="session-1")
 
 with SLO admission (:class:`SLOConfig`, :class:`Overloaded`) and the
-autoscalers (:class:`ServeAutoscaler`, ``tosem_tpu_torch.control``). The
-speech backends wait for ROADMAP.md A13.
+autoscalers (:class:`ServeAutoscaler`, ``tosem_tpu_torch.control``).
+
+Speech (``speech.py``): :class:`CStreamingModel` drives the streaming
+model through the native speech C ABI, :class:`SpeechStreamBackend`
+serves its sessions (:class:`StreamingClient` replays a stream onto a
+fresh replica), :class:`SpeechBatchBackend` transcribes utterances in
+padding buckets behind ``BatchQueue`` and :class:`SpeechDecodeBackend`
+streams them behind ``DecodeQueue``.
 """
 # exported lazily (PEP 562): a replica that unpickles BatchingReplica or a
 # queue type imports its own module only, not torch with the backends
@@ -38,6 +44,9 @@ _LAZY_EXPORTS = {
     "BertEncodeBackend": "backends", "BertDecodeBackend": "backends",
     "ShardedAttentionBackend": "backends",
     "ShardedPagedDecodeBackend": "backends",
+    "CStreamingModel": "speech", "SpeechStreamBackend": "speech",
+    "SpeechBatchBackend": "speech", "SpeechDecodeBackend": "speech",
+    "StreamingClient": "speech", "greedy_ctc_text": "speech",
     "ServeAutoscaler": "autoscale", "ServeScaleConfig": "autoscale",
     "ClusterServe": "cluster_serve", "ClusterDeployment": "cluster_serve",
     "ClusterHandle": "cluster_serve", "PlacementError": "cluster_serve",
