@@ -313,6 +313,29 @@ Phases, each printing one JSON line:
               3 Adam steps of full-width CTC training; ``cli
               --config=speech_train`` (four rows, device gpu, the loss
               below its first). No kernel of ``csrc/`` is on this path.
+7j. detection — the detection family on the card: (a) EfficientDet-D0
+              at full width (``EfficientDetConfig.d0()``: 512 px, 90
+              classes, 4,336,838 parameters, 49,104 anchors; fp32, TF32
+              off), weights from seed 0: a forward at batch 8, then 5 Adam
+              steps (2e-3) at batch 8 on ``detection_train``'s synthetic
+              boxes, whose loss must fall (ms a step, images/s, peak
+              memory); (b) one SGD step of D0 at batch 2 on the card and on
+              the CPU from the same weights: eval logits and boxes, loss
+              and BatchNorm moving stats within 1e-3 of the largest value,
+              each parameter's update within 1e-2 (relative L2), and the
+              class head's conv scaled by 1.1 breaking both; (c) the CLI's
+              ``detection_train`` (AP50 and AP, the loss falling),
+              ``detection_infer`` (its ``.pt2`` reloaded within 1e-5 of the
+              eager forward) and ``pointpillars_infer`` (the 141 x 141
+              grid, 16,384 points); (d) PointPillars at that grid:
+              ``apply`` card vs CPU within 1e-5 with equal masks, two
+              ``detect`` launches bit for bit, and the NMS kernel
+              (``nms_sweep``) equal to its plain version element for
+              element on the card at n = 19,881 (the detect thresholds,
+              and every box live) and at 64 boxes with tied scores, each
+              launched twice bit for bit; then its time by graph replay
+              beside the plain version's and its bound from this run's
+              IoU count.
 8. suite    — north-star config 5 through the port's experiment runner,
               ``tosem_tpu_torch.cli --config=bert_kernels`` (BERT-base:
               8 x 512, 12 heads of 64, hidden 768, bf16) into a
@@ -324,7 +347,7 @@ Phases, each printing one JSON line:
               forward+backward). Every row must read under the card's
               peak (a row above it means a timing window closed early).
 
-``--phases`` picks a subset (default: all twenty-one), e.g.
+``--phases`` picks a subset (default: all twenty-two), e.g.
 ``build,kernels``
 for a first call after a kernel change, ``build,kernels,train`` for the
 training path, ``build,train_dp`` for data-parallel training,
@@ -335,14 +358,16 @@ for the pipeline and the global-batch mesh steps,
 kernel matrix, ``build,decode,serve`` for the served path,
 ``build,decode,cluster``
 for cluster serving, ``build,benches`` for the benches,
-``build,moe,speech`` for MoE-BERT and the speech family, or
+``build,moe,speech`` for MoE-BERT and the speech family,
+``build,detection`` for the detection family, or
 ``build,kernels,decode,decode_modes,serve`` for the decode modes.
 
 The launch counts of every kernel are set to 0 just before the decode,
 each decode mode, the encode, the sparse encode, the train, each
 data-parallel run, each sharded path, the pipelined forward and
 backward, each mesh train run, each bench, the MoE encode, the MoE train
-steps and the suite paths run and read just
+steps, the detection family's CLI entries and ``detect`` launches and the
+suite paths run and read just
 after (the serve, cluster and decode-bench paths' inside their
 replicas: set to 0 as each replica's warm-up ends, read after its
 traffic; the data-parallel ranks' inside each rank process, which
@@ -410,7 +435,8 @@ SM_SHAPES = ((49152, 512), (4095, 512), (300, 1000), (64, 77), (256, 8192),
              (300, 1024), (300, 1025), (300, 1032), (64, 1))
 KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "paged_decode",
            "paged_decode_multi", "ln_fwd", "ln_bwd", "sm_fwd", "sm_bwd",
-           "flash_fwd_sched", "flash_bwd_dkv_sched", "flash_bwd_dq_sched")
+           "flash_fwd_sched", "flash_bwd_dkv_sched", "flash_bwd_dq_sched",
+           "nms_sweep")
 SCHED = ("flash_fwd_sched", "flash_bwd_dkv_sched", "flash_bwd_dq_sched")
 # B1-B3's schedule mode is checked at [2, SCHED_T, 12, 64] under these
 # mask programs ("mh": 12 heads alternating CausalMask and LocalMask(128);
@@ -6853,6 +6879,392 @@ def phase_speech(dev, seed):
           "speech phase")
 
 
+DET_BATCH = 8            # (a) EfficientDet-D0's forward and training batch
+DET_STEPS = 5            # (a) its Adam steps (2e-3)
+DET_CHECK_BATCH = 2      # (b) the card-vs-CPU D0 step's batch
+# (b) card vs CPU, fp32 with TF32 off: eval logits and boxes, the loss and
+# the BatchNorm moving stats (each kind over its largest stat) within this
+# share of the largest value. The tiny model's fp32 forward reads 1.5e-6
+# and 3.7e-6 against the JAX package's on the CPU (tests/
+# test_torch_efficientdet.py); D0 is deeper, 16 MBConv blocks and 3 BiFPN
+# layers
+DET_REL = 1e-3
+# (b) each parameter's SGD update (its gradient) card vs CPU in relative
+# L2, as RESNET_UPDATE_REL; a gradient that vanishes in exact arithmetic
+# (a bias in front of a training-mode BatchNorm, a head BatchNorm with no
+# positive anchor: below VANISHING of the largest) is held against the
+# largest update's norm
+DET_UPDATE_REL = 1e-2
+VANISHING = 1e-6
+EXPORT_REL = 1e-5        # (c) the reloaded .pt2 vs the eager forward
+PP_REL = 1e-5            # (d) PointPillars apply, card vs CPU
+NMS_TIE_N = 64           # (d) the tied-score NMS case's boxes
+NMS_IOU_OPS = 14         # fp32 operations of one IoU and its compare
+
+
+def det_batch(cfg, batch, seed, where):
+    """``run_detection_train``'s synthetic recipe at ``cfg``'s size:
+    images from numpy seed ``seed``, one box a image at (0.2, 0.25, 0.7,
+    0.8) of the side, class 2."""
+    import numpy as np
+    import torch
+    s = cfg.image_size
+    imgs = np.random.default_rng(seed).normal(
+        size=(batch, s, s, 3)).astype(np.float32)
+    boxes = np.tile(np.array([[[0.2 * s, 0.25 * s, 0.7 * s, 0.8 * s]]],
+                             np.float32), (batch, 1, 1))
+    return {"imgs": torch.from_numpy(imgs).to(where),
+            "boxes": torch.from_numpy(boxes).to(where),
+            "classes": torch.full((batch, 1), 2, device=where),
+            "n_gt": torch.ones(batch, dtype=torch.int32, device=where)}
+
+
+def det_loss(model, b, anchors):
+    from tosem_tpu_torch.models.efficientdet import detection_loss
+    cl, bx = model(b["imgs"], train=True)
+    return detection_loss(cl, bx, b["boxes"], b["classes"], b["n_gt"],
+                          anchors, model.cfg)["loss"]
+
+
+def det_d0_train(dev, seed):
+    """(a) EfficientDet-D0 at full width on the card: a forward at batch
+    8, then DET_STEPS Adam steps on the synthetic batch."""
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.models.efficientdet import (efficientdet_d0,
+                                                     generate_anchors)
+    from tosem_tpu_torch.ops.common import precision
+    model = efficientdet_d0(device=dev, seed=seed)
+    cfg = model.cfg
+    b = det_batch(cfg, DET_BATCH, seed, dev)
+    anchors = torch.from_numpy(generate_anchors(cfg)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with precision("float32"):
+        fwd_ms = []
+        for _ in range(3):
+            t = time.perf_counter()
+            with torch.no_grad():
+                cl, bx = model(b["imgs"])
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t) * 1e3)
+        check(tuple(cl.shape) == (DET_BATCH, len(anchors), cfg.num_classes)
+              and tuple(bx.shape) == (DET_BATCH, len(anchors), 4)
+              and bool(torch.isfinite(cl).all()),
+              f"D0 forward: {tuple(cl.shape)} {tuple(bx.shape)}")
+        opt = torch.optim.Adam(model.parameters(), lr=2e-3)
+        losses, ms = [], []
+        for _ in range(DET_STEPS):
+            t = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = det_loss(model, b, anchors)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+            ms.append((time.perf_counter() - t) * 1e3)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"D0 losses {losses}: not finite or not falling")
+    steady = float(np.median(ms[1:]))
+    return {"config": "EfficientDetConfig.d0(): 512 px, 90 classes, fp32, "
+                      "TF32 off", "params": model.param_count(),
+            "anchors": len(anchors), "batch": DET_BATCH,
+            "forward_ms": fwd_ms, "step_ms": ms,
+            "images_per_s": DET_BATCH / steady * 1e3, "losses": losses,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def det_step(where, init, batch, wrong=False):
+    """One SGD step (lr 0.01) of D0 in fp32 (TF32 off) from ``init`` on
+    ``batch``: (eval logits and boxes before the step, the step's loss,
+    the BatchNorm moving stats after it, each parameter's update; all on
+    the CPU). ``wrong`` scales the class head's output conv by 1.1
+    first: the yardstick (no BatchNorm follows it)."""
+    import torch
+    from tosem_tpu_torch.models.efficientdet import (EfficientDet,
+                                                     EfficientDetConfig,
+                                                     generate_anchors)
+    from tosem_tpu_torch.ops.common import precision
+    m = EfficientDet(EfficientDetConfig.d0(), device=where)
+    m.load_state_dict(init)
+    if wrong:
+        with torch.no_grad():
+            m.class_out.w.mul_(1.1)
+    start = {k: v.detach().clone() for k, v in m.named_parameters()}
+    b = {k: v.to(where) for k, v in batch.items()}
+    anchors = torch.from_numpy(generate_anchors(m.cfg)).to(where)
+    opt = torch.optim.SGD(m.parameters(), lr=0.01)
+    with precision("float32"):
+        with torch.no_grad():
+            cl, bx = m(b["imgs"])
+            out = torch.cat([cl, bx], -1).cpu()
+        opt.zero_grad(set_to_none=True)
+        loss = det_loss(m, b, anchors)
+        loss.backward()
+        opt.step()
+    return (out, float(loss),
+            {k: v.detach().cpu() for k, v in m.named_buffers()},
+            {k: (v.detach() - start[k]).cpu()
+             for k, v in m.named_parameters()})
+
+
+def det_gaps(got, want):
+    """The eval outputs' and the loss's gaps over the largest value, the
+    moving stats' (each kind over its largest stat), and each
+    parameter's update's ||got - want|| / ||want|| (the largest, and
+    the parameter that has it; a vanishing one over the largest norm)."""
+    stats = 0.0
+    for kind in (".mean", ".var"):
+        keys = [k for k in want[2] if k.endswith(kind)]
+        scale = max(float(want[2][k].abs().max()) for k in keys)
+        stats = max(stats, max(float((got[2][k] - want[2][k]).abs().max())
+                               for k in keys) / scale)
+    top = max(float(w.abs().max()) for w in want[3].values())
+    top_norm = max(float(w.norm()) for w in want[3].values())
+    ups = {k: float((got[3][k] - w).norm()) / (
+        top_norm if float(w.abs().max()) < VANISHING * top
+        else float(w.norm())) for k, w in want[3].items()}
+    worst = max(ups, key=ups.get)
+    return {"outputs": _rel(got[0], want[0]),
+            "loss": abs(got[1] - want[1]) / abs(want[1]),
+            "bn_stats": stats, "updates": ups[worst],
+            "updates_worst": worst}
+
+
+def det_held(g):
+    return (max(g["outputs"], g["loss"], g["bn_stats"]) <= DET_REL,
+            g["updates"] <= DET_UPDATE_REL)
+
+
+def det_cuda_vs_cpu(dev, seed):
+    """(b) One D0 step at batch 2 on the card and on the CPU from the
+    same weights, and the wrong-weight yardstick on the card."""
+    from tosem_tpu_torch.models.efficientdet import (EfficientDetConfig,
+                                                     efficientdet_d0)
+    init = {k: v.clone() for k, v in efficientdet_d0(
+        device="cpu", seed=seed).state_dict().items()}
+    batch = det_batch(EfficientDetConfig.d0(), DET_CHECK_BATCH, seed + 1,
+                      "cpu")
+    t = time.perf_counter()
+    want = det_step("cpu", init, batch)
+    cpu_s = time.perf_counter() - t
+    got = det_step(dev, init, batch)
+    wrong = det_step(dev, init, batch, wrong=True)
+    out = {"batch": DET_CHECK_BATCH, "gaps": det_gaps(got, want),
+           "wrong_weight_gaps": det_gaps(wrong, want),
+           "loss": [got[1], want[1]], "cpu_step_s": cpu_s,
+           "limit_rel": DET_REL, "update_limit_rel": DET_UPDATE_REL}
+    fwd, bwd = det_held(out["gaps"])
+    check(fwd and bwd, f"D0 step card vs CPU: {out}")
+    fwd, bwd = det_held(out["wrong_weight_gaps"])
+    check(not fwd and not bwd, f"wrong-weight D0 within a limit: {out}")
+    return out
+
+
+def det_cli(dev):
+    """(c) The CLI's detection_train, detection_infer and
+    pointpillars_infer on the card, into a temporary CSV: AP50 and AP
+    with a falling loss; the exported .pt2 reloaded against the eager
+    forward; the PointPillars rows at the card grid."""
+    import tempfile
+
+    import torch
+    from tosem_tpu_torch import cli
+    from tosem_tpu_torch.models.efficientdet import efficientdet_tiny
+    from tosem_tpu_torch.ops.common import precision
+    from tosem_tpu_torch.utils.results import read_results
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="torch_detection_") as d:
+        path = os.path.join(d, "detection.csv")
+        for config in ("detection_train", "detection_infer",
+                       "pointpillars_infer"):
+            t = time.perf_counter()
+            check(cli.main([f"--config={config}",
+                            f"--results_csv={path}"]) == 0,
+                  f"the {config} config failed")
+            out[f"{config}_s"] = time.perf_counter() - t
+        rows = read_results(path)
+        by = {(r["bench_id"], r["metric"]): r for r in rows}
+        check(all(r["device"] == "gpu" for r in rows
+                  if r["metric"] != "postprocess_ms"),
+              "detection rows not on gpu")
+        ap = by[("efficientdet_tiny_b2", "ap50")]
+        e = ap["extra"]
+        check(e["final_loss"] < e["first_loss"],
+              f"detection_train loss {e['final_loss']} not below its "
+              f"first {e['first_loss']}")
+        out["detection_train"] = {
+            "ap50": ap["value"], "ap": e["ap"], "steps": e["steps"],
+            "first_loss": e["first_loss"], "final_loss": e["final_loss"],
+            "step_ms": by[("efficientdet_tiny_b2", "step_time_ms")]["value"]}
+        exp = by[("effdet_tiny_export", "export_kb")]
+        pt2 = [p for p in exp["extra"]["paths"] if p.endswith(".pt2")][0]
+        x = torch.randn(1, 64, 64, 3, generator=torch.Generator()
+                        .manual_seed(1)).to(dev)
+        # a .pt2 keeps no process-wide switch: fp32 is the caller's
+        with precision("float32"), torch.no_grad():
+            loaded = torch.export.load(pt2).module()(x)
+            eager = efficientdet_tiny(device=dev, seed=0).eval()(x)
+        gap = max(_rel(a, b) for a, b in zip(loaded, eager))
+        check(gap <= EXPORT_REL, f"reloaded .pt2 vs eager: {gap}")
+        out["detection_infer"] = {
+            "fwd_ms": by[("effdet_tiny_fwd_b1", "latency_ms")]["value"],
+            "postprocess_ms": by[("effdet_tiny_post_b1",
+                                  "postprocess_ms")]["value"],
+            "export_kb": exp["value"], "reloaded_rel_gap": gap,
+            "limit_rel": EXPORT_REL}
+        pp = {k[0]: r for k, r in by.items()
+              if r["config"] == "pointpillars_infer"}
+        check(set(pp) == {"pointpillars_apply_n16384_141x141",
+                          "pointpillars_detect_n16384_141x141"},
+              f"pointpillars rows {sorted(pp)}")
+        out["pointpillars_infer"] = {k: [r["value"],
+                                         r["extra"]["clouds_per_sec"]]
+                                     for k, r in pp.items()}
+    return out
+
+
+def nms_pairs(boxes, scores, keep, iou_t, score_t):
+    """The IoUs the greedy sweep must compute on these inputs: for each
+    kept box i in score order, the boxes j > i still live at step i. A
+    live box j is suppressed at the first kept i < j that overlaps it
+    past ``iou_t`` (and evaluated by every kept box up to it), or kept
+    (and evaluated by every kept box before it)."""
+    import torch
+    from tosem_tpu_torch.ops.nms import iou_matrix, score_order
+    order = score_order(scores)
+    kept = keep[order]
+    live0 = scores[order] > score_t
+    n = len(order)
+    idx = torch.arange(n, device=boxes.device)
+    hit = (iou_matrix(boxes[order]) > iou_t) & kept[:, None] & \
+        (idx[:, None] < idx[None, :])
+    has = hit.any(0)
+    first = hit.float().argmax(0)
+    lim = torch.where(has, first, idx - 1)
+    ckept = torch.cumsum(kept.long(), 0)
+    count = torch.where(lim >= 0, ckept[lim.clamp_min(0)],
+                        torch.zeros_like(lim))
+    return int((count * live0).sum())
+
+
+def det_pointpillars(dev, seed):
+    """(d) PointPillars at the card grid: ``apply`` on the card against
+    the CPU, two ``detect`` launches bit for bit. Returns the record and
+    the card's (boxes, scores)."""
+    import torch
+    from tosem_tpu_torch import cli
+    from tosem_tpu_torch.models.pointpillars import (PointPillarsDetector,
+                                                     voxelize)
+    grid, det, pts = cli.pointpillars_case(torch.device(dev))
+    cpu = PointPillarsDetector(grid, device="cpu", seed=0)
+    with torch.no_grad():
+        boxes, scores = det.apply(pts)
+        cb, cs = cpu.apply(pts.cpu())
+        masks_equal = torch.equal(voxelize(pts, grid)[1].cpu(),
+                                  voxelize(pts.cpu(), grid)[1])
+        first = det.detect(pts)
+        second = det.detect(pts)
+    torch.cuda.synchronize()
+    gaps = {"boxes": _rel(boxes.cpu(), cb), "scores": _rel(scores.cpu(), cs)}
+    check(masks_equal, "voxelize masks differ card vs CPU")
+    check(max(gaps.values()) <= PP_REL, f"PointPillars apply card vs CPU "
+          f"{gaps}")
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    check(same, "two detect launches differ")
+    return {"grid": [grid.nx, grid.ny, grid.max_points_per_pillar],
+            "points": int(pts.shape[0]), "apply_gaps": gaps,
+            "limit_rel": PP_REL, "masks_equal": masks_equal,
+            "detect_bit_identical": same,
+            "kept": int(first[2].sum()),
+            "live": int((first[1] > 0.5).sum())}, boxes, scores
+
+
+def det_nms(dev, seed, boxes, scores):
+    """The NMS kernel's keep against the plain version's on the card,
+    element for element: at the card grid's boxes (the detect
+    thresholds, and every box live) and at NMS_TIE_N boxes with tied
+    scores; then its time by graph replay, the plain version's by CUDA
+    events, and its bound from this run's IoU count."""
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.ops.nms import _nms_cuda, max_boxes, nms_plain
+    from tosem_tpu_torch.utils.timing import DeviceLoopBench
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 10, (NMS_TIE_N, 2))
+    tb = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(0.5, 3, (NMS_TIE_N, 2))], 1).astype(
+            np.float32)).to(dev)
+    ts = torch.from_numpy((rng.integers(0, 4, NMS_TIE_N) / 4).astype(
+        np.float32)).to(dev)
+    cases = {"grid_detect": (boxes, scores, 0.5, 0.5),
+             "grid_all_live": (boxes, scores, 0.5, -1.0),
+             f"tied_n{NMS_TIE_N}": (tb, ts, 0.3, 0.2)}
+    out = {"max_boxes": max_boxes(), "cases": {}}
+    for name, (b, s, it, st) in cases.items():
+        k1 = _nms_cuda(b, s, it, st)
+        k2 = _nms_cuda(b, s, it, st)
+        plain = nms_plain(b, s, it, st)
+        torch.cuda.synchronize()
+        diff = int((k1 != plain).sum())
+        out["cases"][name] = {"n": int(b.shape[0]), "kept": int(k1.sum()),
+                              "differ": diff,
+                              "bit_identical": torch.equal(k1, k2)}
+        check(diff == 0 and torch.equal(k1, k2),
+              f"NMS kernel vs plain, {name}: {out['cases'][name]}")
+    b, s = boxes, scores
+    ms = DeviceLoopBench(op=lambda x, y: _nms_cuda(x, y, 0.5, 0.5),
+                         args=(b, s)).time() * 1e3
+    plain_ms = cuda_ms(lambda: nms_plain(b, s, 0.5, 0.5), iters=2, warmup=1)
+    pairs = nms_pairs(b, s, _nms_cuda(b, s, 0.5, 0.5), 0.5, 0.5)
+    n = int(b.shape[0])
+    bound_ms, bound_by = bound(n * (16 + 4 + 1), pairs * NMS_IOU_OPS,
+                               "float32")
+    torch.cuda.synchronize()
+    out["timing"] = {"n": n, "ms": ms, "plain_ms": plain_ms,
+                     "iou_pairs": pairs, "bound_ms": bound_ms,
+                     "bound_by": bound_by,
+                     "serial_steps": n}
+    rec = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "library_is": "none: no single PyTorch call computes it",
+           "dtype": "float32", "shape": [n, 4]}
+    return out, rec
+
+
+def phase_detection(dev, seed):
+    """The detection family on the card (see the module docstring).
+    Returns the main path's launch counts (the CLI's three entries and
+    two detect launches; the kernel-vs-plain checks and timings after
+    them do not count) and the NMS kernel's record for the kernels
+    line."""
+    import torch
+    from tosem_tpu_torch.ops import registry
+    out = {"phase": "detection", "gpu": gpu_line()}
+    secs = {}
+
+    def leg(name, fn, *a):
+        t = time.perf_counter()
+        r = fn(*a)
+        secs[name] = time.perf_counter() - t
+        return r
+    out["d0_train"] = leg("d0_train", det_d0_train, dev, seed)
+    torch.cuda.empty_cache()
+    out["d0_cuda_vs_cpu"] = leg("d0_cuda_vs_cpu", det_cuda_vs_cpu, dev, seed)
+    torch.cuda.empty_cache()
+    registry.reset_launch_counts()
+    out["cli"] = leg("cli", det_cli, dev)
+    out["pointpillars"], boxes, scores = leg("pointpillars",
+                                             det_pointpillars, dev, seed)
+    counts = dict(registry.LAUNCH_COUNTS)
+    check(counts["nms_sweep"] > 0, "nms_sweep never launched on the "
+          "PointPillars path")
+    out["launches"] = {k: n for k, n in counts.items() if n}
+    out["nms"], rec = leg("nms", det_nms, dev, seed, boxes, scores)
+    out["seconds"] = secs
+    emit(out)
+    return counts, {"nms_sweep": rec}
+
+
 def phase_suite():
     """North-star config 5 through the port's experiment runner at its
     default BERT-base shapes. Returns the suite's launch counts."""
@@ -6953,7 +7365,8 @@ def main(argv=None):
                     default="build,kernels,decode,decode_modes,encode,"
                             "serve,cluster,encode_sparse,cpu,profile,train,"
                             "train_dp,parallel,pipeline,mesh_train,benches,"
-                            "configs,kernel_matrix,moe,speech,suite")
+                            "configs,kernel_matrix,moe,speech,detection,"
+                            "suite")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(ROOT, "tosem_tpu_torch")):
@@ -7044,6 +7457,10 @@ def main(argv=None):
         add(timed("moe", phase_moe, dev, SEED))
     if "speech" in phases:
         timed("speech", phase_speech, dev, SEED)
+    if "detection" in phases:
+        counts, rec = timed("detection", phase_detection, dev, SEED)
+        add(counts)
+        lines.update(rec)
     if "suite" in phases:
         add(timed("suite", phase_suite))
     emit({"phase": "seconds", **secs,
@@ -7068,7 +7485,8 @@ def main(argv=None):
             "flash_bwd_dkv_sched": ("flash_bwd.cu",
                                     "tosem_tpu/ops/flash_attention.py:402"),
             "flash_bwd_dq_sched": ("flash_bwd.cu",
-                                   "tosem_tpu/ops/flash_attention.py:471")}
+                                   "tosem_tpu/ops/flash_attention.py:471"),
+            "nms_sweep": ("nms.cu", "tosem_tpu/models/pointpillars.py:155")}
     kernels = []
     for name, (f, replaces) in meta.items():
         rec = lines.get(name, {})

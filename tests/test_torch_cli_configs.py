@@ -159,3 +159,62 @@ def test_speech_train_on_the_ldc93s1_import(tmp_path):
     loss = next(r for r in rows if r["bench_id"] == "speech_ctc_loss")
     assert loss["extra"]["n_utts"] == 1 and np.isfinite(loss["value"])
     assert len(rows) == 4
+
+
+def test_detection_train_rows(tmp_path):
+    """``tosem_tpu/cli.py``'s ``detection_train`` rows on the tiny
+    EfficientDet: AP50 with AP and the losses in ``extra``, then the step
+    time; the loss falls over the steps."""
+    rows = _run(tmp_path, "--config=detection_train", "--steps=3")
+    assert [(r["bench_id"], r["metric"], r["unit"]) for r in rows] == [
+        ("efficientdet_tiny_b2", "ap50", "AP"),
+        ("efficientdet_tiny_b2", "step_time_ms", "ms")]
+    ap = rows[0]
+    assert 0.0 <= ap["value"] <= 1.0 and 0.0 <= ap["extra"]["ap"] <= 1.0
+    assert ap["extra"]["steps"] == 3 and ap["device"] == "cpu"
+    assert ap["extra"]["final_loss"] < ap["extra"]["first_loss"]
+    assert rows[1]["value"] > 0 and rows[1]["extra"]["batch"] == 2
+
+
+def test_detection_infer_rows_and_export(tmp_path):
+    """Latency, host postprocess and the export row (``export_kb``, the
+    ``.pt2`` the JAX package's ``stablehlo_kb`` row stands for); the
+    program reloads and gives the tiny model's eval forward."""
+    from tosem_tpu_torch.models.efficientdet import efficientdet_tiny
+    rows = _run(tmp_path, "--config=detection_infer")
+    assert [(r["bench_id"], r["metric"]) for r in rows] == [
+        ("effdet_tiny_fwd_b1", "latency_ms"),
+        ("effdet_tiny_post_b1", "postprocess_ms"),
+        ("effdet_tiny_export", "export_kb")]
+    assert all(r["value"] > 0 for r in rows)
+    assert rows[1]["device"] == "cpu" and rows[1]["extra"]["nms"] == "host"
+    paths = rows[2]["extra"]["paths"]
+    assert [os.path.basename(p) for p in paths] == [
+        "efficientdet_infer.meta", "efficientdet_infer.pt2"]
+    assert open(paths[0]).read().splitlines() == [
+        "in data f32 1 64 64 3", "out data f32 1 756 5",
+        "out data f32 1 756 4"]
+    x = torch.randn(1, 64, 64, 3, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        got = torch.export.load(paths[1]).module()(x)
+        want = efficientdet_tiny(device="cpu", seed=0).eval()(x)
+    for g, w in zip(got, want):
+        assert torch.allclose(g, w, rtol=0, atol=1e-5 * float(w.abs().max()))
+
+
+def test_pointpillars_infer_rows(tmp_path):
+    rows = _run(tmp_path, "--config=pointpillars_infer")
+    assert [(r["bench_id"], r["metric"]) for r in rows] == [
+        ("pointpillars_apply_n256_4x4", "latency_ms"),
+        ("pointpillars_detect_n256_4x4", "latency_ms")]
+    assert rows[1]["extra"]["includes"] == "NMS sweep"
+    for r in rows:
+        assert r["value"] > 0 and r["extra"]["grid"] == [4, 4]
+        assert r["extra"]["points"] == 256 and r["device"] == "cpu"
+
+
+@pytest.mark.parametrize("config", ["detection_train", "detection_infer",
+                                    "pointpillars_infer"])
+def test_detection_configs_are_ported(config):
+    from tosem_tpu_torch.cli import NOT_PORTED, RUNNERS
+    assert config in RUNNERS and config not in NOT_PORTED

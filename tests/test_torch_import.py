@@ -41,6 +41,10 @@ def test_import_loads_neither_jax_nor_triton():
             "from tosem_tpu_torch.train import distributed; "
             "from tosem_tpu_torch.cluster import fencing, transport; "
             "from tosem_tpu_torch.chaos import network; "
+            "from tosem_tpu_torch.models import (efficientdet, pointpillars, "
+            "detection_eval); "
+            "from tosem_tpu_torch.ops import image, nms; "
+            "from tosem_tpu_torch.compile import export; "
             "print(sorted(m for m in ('jax', 'triton', 'tosem_tpu', "
             "'ml_dtypes') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -290,7 +294,8 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
              "flash_bwd.cu": ["_bwd_dkv_kernel", "_bwd_dq_kernel"],
              "paged_decode.cu": ["_decode_kernel", "_decode_multi_kernel"],
              "fused_norms.cu": ["_ln_fwd_kernel", "_ln_bwd_kernel",
-                                "_sm_fwd_kernel", "_sm_bwd_kernel"]}
+                                "_sm_fwd_kernel", "_sm_bwd_kernel"],
+             "nms.cu": ["device_nms"]}
     for name, kernels in notes.items():
         head = open(os.path.join(csrc, name)).read().split("#include")[0]
         assert "Replaces" in head and "bounds it" in head
@@ -336,3 +341,37 @@ def test_a_mesh_without_devices_raises_without_a_gpu(entry):
                                                                tp=2)}[entry]
     with pytest.raises(RuntimeError, match="cuda|device_count"):
         make()
+
+
+# the detection family and the exporter
+DETECTION_MODULES = ["tosem_tpu_torch.ops.image", "tosem_tpu_torch.ops.nms",
+                     "tosem_tpu_torch.models.efficientdet",
+                     "tosem_tpu_torch.models.pointpillars",
+                     "tosem_tpu_torch.models.detection_eval",
+                     "tosem_tpu_torch.models.convert",
+                     "tosem_tpu_torch.compile",
+                     "tosem_tpu_torch.compile.export"]
+
+
+@pytest.mark.parametrize("module", DETECTION_MODULES)
+def test_detection_modules_import_alone(module):
+    """EfficientDet, PointPillars, the NMS sweep's wrapper, the AP
+    evaluation, the image ops and the exporter load neither JAX, Triton
+    nor the JAX package, and build no kernel."""
+    code = (f"import sys, {module}; "
+            "from tosem_tpu_torch.ops import _build; "
+            "print(sorted(m for m in ('jax', 'triton', 'tosem_tpu') "
+            "if m in sys.modules), sorted(_build._LIBS))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.stdout.strip() == "[] []"
+
+
+def test_every_kernel_source_is_built():
+    """``ops/_build.SOURCES`` names every ``csrc/*.cu``, the NMS sweep's
+    included, so ``build_all`` builds them together."""
+    from tosem_tpu_torch.ops import _build
+    srcs = sorted(f[:-3] for f in os.listdir(os.path.join(PKG, "ops", "csrc"))
+                  if f.endswith(".cu"))
+    assert sorted(_build.SOURCES) == srcs and "nms" in srcs

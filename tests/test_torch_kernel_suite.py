@@ -224,8 +224,8 @@ def test_cli_writes_the_suite_csv_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--device=cpu", "--config=detection_train"], "A13"),
-    (["--device=cpu", "--config=pointpillars_infer"], "A13"),
+    (["--device=cpu", "--config=chaos"], "A14"),
+    (["chaos", "--device=cpu"], "A14"),
     (["--device=cpu", "--config=flash_autotune"], "A4"),
     (["--device=cpu", "--config=analysis"], "A12")])
 def test_cli_names_the_roadmap_item_of_an_unported_config(argv, item):

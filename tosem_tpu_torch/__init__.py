@@ -51,10 +51,15 @@ mesh, and cluster serving):
                               model multiplexing, the closed-loop
                               ``ControlPlane``
 - ``tosem_tpu_torch.chaos``   seeded fault plans and the injection seam
+- ``tosem_tpu_torch.models``  also EfficientDet and PointPillars (the NMS
+                              sweep ``ops/csrc/nms.cu``), COCO-style AP
+- ``tosem_tpu_torch.compile`` ``export_program`` on ``torch.export``
 - ``tosem_tpu_torch.utils``   result CSVs, device timing, the roofline
 - ``tosem_tpu_torch.cli``     the experiment runner (``bert_kernels``,
                               ``flash_sparse``, ``allreduce``,
-                              ``serve_bench``)
+                              ``serve_bench``, ``detection_train``,
+                              ``detection_infer``, ``pointpillars_infer``
+                              and the rest)
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 ``import tosem_tpu_torch`` loads neither JAX nor Triton, and builds no

@@ -77,6 +77,15 @@ that on the card), then WER with greedy, beam and LM-scored beam decode
 (a scorer built from the corpus' transcripts): rows ``speech_ctc_loss``
 and ``speech_wer_{greedy,beam,beam_lm}``.
 
+``--config=detection_train`` trains the tiny EfficientDet on two
+synthetic images with one box each (Adam 2e-3, fp32; ``--steps`` steps,
+6x on the card) and reports COCO-style AP50 and AP;
+``--config=detection_infer`` times its forward and host postprocess and
+exports the forward with ``torch.export`` (``compile/export.py``);
+``--config=pointpillars_infer`` times PointPillars' ``apply`` and
+``detect`` (the NMS sweep, ``ops/csrc/nms.cu`` on the card) at a
+141 x 141 grid and 16,384 points on the card, 4 x 4 and 256 on the CPU.
+
 ``--config=flash_sparse`` runs ``sparse_kernel_suite``: flash forward and
 forward+backward under the block-sparse mask programs causal,
 ``local:1024`` and ``doc:2048+causal`` at [1, 12, 8192, 64] bf16 on the
@@ -96,9 +105,6 @@ from typing import Any, List
 # yet -> the ROADMAP.md item that ports each
 NOT_PORTED = {
     "flash_autotune": "A4 (the flash half of block selection)",
-    "detection_train": "A13 (models/efficientdet.py)",
-    "detection_infer": "A13 (models/efficientdet.py)",
-    "pointpillars_infer": "A13 (models/pointpillars.py)",
     "analysis": "A12 (the analysis config, analysis/)",
     "chaos": "A14 (chaos/runner.py and chaos/cli.py)",
 }
@@ -723,6 +729,207 @@ def run_train_bench(args, device) -> List[Any]:
                    "train_bench")
 
 
+def _detection_setup(device, batch):
+    """The JAX package's detection recipe: ``EfficientDetConfig.tiny()``,
+    weights from seed 0, ``batch`` images drawn from numpy seed 0, their
+    anchors."""
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.models.efficientdet import (EfficientDet,
+                                                     EfficientDetConfig,
+                                                     generate_anchors)
+    cfg = EfficientDetConfig.tiny()
+    model = EfficientDet(cfg, device=device, seed=0)
+    imgs = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(batch, cfg.image_size, cfg.image_size, 3)).astype(
+            np.float32)).to(device)
+    return cfg, model, imgs, generate_anchors(cfg)
+
+
+def run_detection_train(args, device) -> List[Any]:
+    """EfficientDet training on synthetic boxes, then COCO-style AP (the
+    ``efficientdet/main.py`` train and ``coco_metric.py`` eval roles):
+    tiny EfficientDet, 2 images with one box each, Adam 2e-3 in fp32
+    (TF32 off); one untimed step, then ``--steps`` steps (6x on the card)
+    timed as one block; detections above score 0.1 through the host NMS.
+    Rows ``ap50`` (``extra.ap``, the steps, the first and final loss) and
+    ``step_time_ms``."""
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.models.detection_eval import evaluate_detections
+    from tosem_tpu_torch.models.efficientdet import (detection_loss,
+                                                     postprocess)
+    from tosem_tpu_torch.ops.common import precision
+    from tosem_tpu_torch.utils.results import ResultRow
+    B = 2
+    cfg, model, imgs, anchors = _detection_setup(device, B)
+    steps = max(args.steps, 1) * (6 if device.type == "cuda" else 1)
+    s = cfg.image_size
+    boxes = [[[0.2 * s, 0.25 * s, 0.7 * s, 0.8 * s]]] * B
+    classes = [[2]] * B
+    gt_boxes = torch.tensor(boxes, dtype=torch.float32, device=device)
+    gt_classes = torch.tensor(classes, device=device)
+    n_gt = torch.ones(B, dtype=torch.int32, device=device)
+    anchors_t = torch.from_numpy(anchors).to(device)
+    opt = torch.optim.Adam(model.parameters(), lr=2e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        cl, bx = model(imgs, train=True)
+        loss = detection_loss(cl, bx, gt_boxes, gt_classes, n_gt,
+                              anchors_t, cfg)["loss"]
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    with precision("float32"):
+        first = float(step())           # untimed: the first step's set-up
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = step()
+        loss = float(loss)              # the block's one sync
+        step_ms = (time.perf_counter() - t0) / steps * 1e3
+        with torch.no_grad():
+            cl, bx = model(imgs, train=False)
+    dets = postprocess(cl, bx, anchors, score_thresh=0.1)
+    ap = evaluate_detections(
+        [{"boxes": d[0], "scores": d[1], "classes": d[2]} for d in dets],
+        [{"boxes": np.asarray(b), "classes": np.asarray(c)}
+         for b, c in zip(boxes, classes)])
+    dev = _row_device(device)
+    rows = [
+        ResultRow(project="models", config="detection_train",
+                  bench_id=f"efficientdet_tiny_b{B}", metric="ap50",
+                  value=ap["AP50"], unit="AP", device=dev, n_devices=1,
+                  extra={"ap": ap["AP"], "steps": steps,
+                         "first_loss": first, "final_loss": loss}),
+        ResultRow(project="models", config="detection_train",
+                  bench_id=f"efficientdet_tiny_b{B}", metric="step_time_ms",
+                  value=step_ms, unit="ms", device=dev, n_devices=1,
+                  extra={"batch": B}),
+    ]
+    for r in rows:
+        print(f"  {r.bench_id}: {r.metric}={r.value:.3f} {r.unit}")
+    return rows
+
+
+def run_detection_infer(args, device) -> List[Any]:
+    """EfficientDet inference latency and export (the ``model_inspect.py``
+    bm and export run modes): the tiny model's eval forward timed by
+    ``DeviceLoopBench`` (graph replay on the card), the host
+    postprocess (decode and NMS) per image, and the forward exported by
+    ``compile/export.py`` (``torch.export``: ``.pt2`` and ``.meta``)
+    under ``<results dir>/export/``. Rows ``latency_ms``,
+    ``postprocess_ms`` and ``export_kb`` (KiB of the ``.pt2``; the JAX
+    package's row is ``stablehlo_kb``)."""
+    import os
+
+    import torch
+    from tosem_tpu_torch.compile.export import export_program
+    from tosem_tpu_torch.models.efficientdet import postprocess
+    from tosem_tpu_torch.ops.common import precision
+    from tosem_tpu_torch.utils.results import ResultRow
+    from tosem_tpu_torch.utils.timing import DeviceLoopBench
+    B = max(args.batch, 1) if args.batch else 1
+    cfg, model, imgs, anchors = _detection_setup(device, B)
+    model.eval()
+
+    def fwd(x):
+        with torch.no_grad():
+            return model(x, train=False)
+
+    with precision("float32"):
+        sec = DeviceLoopBench(op=fwd, args=(imgs,), perturb=0).time(reps=3)
+        cls_logits, box_regs = fwd(imgs)
+    t0 = time.perf_counter()
+    for b in range(B):
+        postprocess(cls_logits[b:b + 1], box_regs[b:b + 1], anchors)
+    post_s = (time.perf_counter() - t0) / B
+    export_dir = os.path.join(os.path.dirname(args.results_csv) or ".",
+                              "export")
+    paths = export_program(model, (imgs,), export_dir, "efficientdet_infer")
+    dev = _row_device(device)
+    rows = [
+        ResultRow(project="models", config="detection_infer",
+                  bench_id=f"effdet_tiny_fwd_b{B}", metric="latency_ms",
+                  value=sec * 1e3, unit="ms", device=dev, n_devices=1,
+                  extra={"image_size": cfg.image_size, "batch": B}),
+        ResultRow(project="models", config="detection_infer",
+                  bench_id=f"effdet_tiny_post_b{B}",
+                  metric="postprocess_ms", value=post_s * 1e3, unit="ms",
+                  device="cpu", n_devices=1, extra={"nms": "host"}),
+        ResultRow(project="models", config="detection_infer",
+                  bench_id="effdet_tiny_export", metric="export_kb",
+                  value=os.path.getsize(paths["pt2"]) / 1024.0, unit="KiB",
+                  device=dev, n_devices=1,
+                  extra={"paths": sorted(paths.values()),
+                         "format": "torch.export"}),
+    ]
+    for r in rows:
+        print(f"  {r.bench_id}: {r.value:.2f} {r.unit}")
+    return rows
+
+
+def pointpillars_case(device):
+    """The ``pointpillars_infer`` grid, points and detector: a 70.4 m x
+    70.4 m field of 0.5 m pillars (141 x 141, 32 points each) and 16,384
+    points on the card, a 4 x 4 grid of 8 and 256 points on the CPU;
+    points uniform over the field (z in [-2, 2], intensity in [0, 1])
+    from numpy seed 0, weights from seed 0."""
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.models.pointpillars import (PillarGrid,
+                                                     PointPillarsDetector)
+    on_card = device.type == "cuda"
+    grid = (PillarGrid(0.0, 70.4, -35.2, 35.2, 141, 141, 32) if on_card
+            else PillarGrid(0, 8, 0, 8, 4, 4, 8))
+    n_pts = 16384 if on_card else 256
+    det = PointPillarsDetector(grid, device=device, seed=0)
+    lo = np.array([grid.x_min, grid.y_min, -2.0, 0.0], np.float32)
+    hi = np.array([grid.x_max, grid.y_max, 2.0, 1.0], np.float32)
+    pts = np.random.default_rng(0).uniform(lo, hi, (n_pts, 4)).astype(
+        np.float32)
+    return grid, det, torch.from_numpy(pts).to(device)
+
+
+def run_pointpillars_infer(args, device) -> List[Any]:
+    """PointPillars end to end (Apollo's lidar path): ``apply``
+    (voxelize, PFN, canvas, head) and ``detect`` (with the NMS sweep)
+    timed by ``DeviceLoopBench``, graph replay on the card. Rows
+    ``latency_ms`` for each, with clouds a second."""
+    import torch
+    from tosem_tpu_torch.utils.results import ResultRow
+    from tosem_tpu_torch.utils.timing import DeviceLoopBench
+    grid, det, pts = pointpillars_case(device)
+    n_pts = pts.shape[0]
+
+    def apply_fn(p):
+        with torch.no_grad():
+            return det.apply(p)[0]
+
+    def detect_fn(p):
+        with torch.no_grad():
+            boxes, scores, keep = det.detect(p)
+        return boxes * keep[:, None].to(boxes.dtype) + scores[:, None]
+
+    dev = _row_device(device)
+    rows = []
+    for name, fn, extra in (("apply", apply_fn, {}),
+                            ("detect", detect_fn,
+                             {"includes": "NMS sweep"})):
+        sec = DeviceLoopBench(op=fn, args=(pts,), perturb=0).time()
+        rows.append(ResultRow(
+            project="models", config="pointpillars_infer",
+            bench_id=f"pointpillars_{name}_n{n_pts}_{grid.nx}x{grid.ny}",
+            metric="latency_ms", value=sec * 1e3, unit="ms", device=dev,
+            n_devices=1,
+            extra={"points": n_pts, "grid": [grid.nx, grid.ny], **extra,
+                   "clouds_per_sec": round(1.0 / sec, 1)}))
+    for r in rows:
+        print(f"  {r.bench_id}: {r.value:.2f} {r.unit}")
+    return rows
+
+
 RUNNERS = {"gemm": run_gemm,
            "timing_check": run_timing_check,
            "conv_sweep": run_conv_sweep,
@@ -739,7 +946,10 @@ RUNNERS = {"gemm": run_gemm,
            "cluster_bench": run_cluster_bench,
            "control_bench": run_control_bench,
            "train_bench": run_train_bench,
-           "speech_train": run_speech_train}
+           "speech_train": run_speech_train,
+           "detection_train": run_detection_train,
+           "detection_infer": run_detection_infer,
+           "pointpillars_infer": run_pointpillars_infer}
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -762,7 +972,8 @@ def make_parser() -> argparse.ArgumentParser:
                          "legs serve (the JAX package's tiny one, or "
                          "BERT-base)")
     ap.add_argument("--steps", type=int, default=20,
-                    help="resnet_train/bert_train: timed steps; "
+                    help="resnet_train/bert_train/detection_train: timed "
+                         "steps (detection_train x6 on the card); "
                          "speech_train: epochs (x6 on the card)")
     ap.add_argument("--speech_data", default="",
                     help="speech_train data: '' = synthetic, 'ldc93s1' = "

@@ -26,7 +26,8 @@ from typing import Dict, Iterable, Optional
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
-SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "fused_norms")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "fused_norms",
+           "nms")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

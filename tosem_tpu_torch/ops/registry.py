@@ -1,9 +1,10 @@
 """Kernel-backend registry: which lowering serves a call, and how often
 each kernel launched.
 
-Four kernel families (``flash``, ``schedule``, ``paged``, ``norms``),
-each with two backends (``schedule`` is flash attention driven by a
-block-sparse mask program: B1-B3's schedule mode):
+Five kernel families (``flash``, ``schedule``, ``paged``, ``norms``,
+``nms``), each with two backends (``schedule`` is flash attention driven
+by a block-sparse mask program: B1-B3's schedule mode; ``nms`` is the
+greedy suppression sweep of PointPillars, ``ops/nms.py``, fp32 only):
 
 - ``cuda`` — the hand-written CUDA C++ kernel for ``sm_90a``
   (``ops/csrc``). Runs on CUDA tensors only, in fp32 or bf16.
@@ -31,7 +32,7 @@ import collections
 import threading
 from typing import Dict, Optional
 
-FAMILIES = ("flash", "schedule", "paged", "norms")
+FAMILIES = ("flash", "schedule", "paged", "norms", "nms")
 
 BACKEND_CUDA = "cuda"
 BACKEND_TORCH = "torch"
@@ -47,7 +48,8 @@ LAUNCH_COUNTS: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dkv": 0,
                                  "flash_bwd_dkv_sched": 0,
                                  "flash_bwd_dq_sched": 0, "paged_decode": 0,
                                  "paged_decode_multi": 0, "ln_fwd": 0,
-                                 "ln_bwd": 0, "sm_fwd": 0, "sm_bwd": 0}
+                                 "ln_bwd": 0, "sm_fwd": 0, "sm_bwd": 0,
+                                 "nms_sweep": 0}
 
 # "family:requested->served" for the dense-mask fallback of flash_attn_fn
 FALLBACK_COUNTS: "collections.Counter[str]" = collections.Counter()
