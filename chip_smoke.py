@@ -14,8 +14,10 @@ Phases, each printing one JSON line:
               (``ptxas -v``), and report the blocks an SM holds; every
               instantiation of B6's, B7's and B8's warp-row bodies must
               hold 16-byte global loads and stores (LDG.E.128,
-              STG.E.128) and spill nothing, and every instantiation of
-              B4/B5's chunk body 16-byte global loads and no spill.
+              STG.E.128) and spill nothing, every instantiation of
+              B4/B5's chunk body 16-byte global loads and no spill, and
+              N1's three kernels spill nothing (registers and shared
+              memory from ``ptxas -v``).
 2. kernels  — each CUDA kernel against its plain PyTorch version on the
               card, at the main path's shapes, bf16 and fp32, with its
               time, its bound from bytes and operations, and a library
@@ -332,10 +334,14 @@ Phases, each printing one JSON line:
               ``detect`` launches bit for bit, and the NMS kernel
               (``nms_sweep``) equal to its plain version element for
               element on the card at n = 19,881 (the detect thresholds,
-              and every box live) and at 64 boxes with tied scores, each
-              launched twice bit for bit; then its time by graph replay
-              beside the plain version's and its bound from this run's
-              IoU count.
+              and every box live), at 64 boxes with tied scores, at the
+              chunk boundaries n = 1, 63, 64, 65 and 4,097, and at the
+              detector's 60,025 boxes of a 245 x 245 grid (past the
+              one-block sweep's former 49,152-box cap; against the plain
+              version in row blocks), each launched twice bit for bit;
+              then its time at 60,025 boxes, and at 19,881 by graph
+              replay beside the plain version's and its bound from this
+              run's IoU count.
 8. suite    — north-star config 5 through the port's experiment runner,
               ``tosem_tpu_torch.cli --config=bert_kernels`` (BERT-base:
               8 x 512, 12 heads of 64, hidden 768, bf16) into a
@@ -653,6 +659,17 @@ def paged_name(mangled):
         return mangled
     t = "f32" if m.group(1) == "f" else "bf16"
     return f"paged_chunk<{t},{m.group(2)},{m.group(3)}>"
+
+
+def nms_report():
+    """The three kernels of N1's bitmask NMS (``csrc/nms.cu``): the
+    ``ptxas -v`` line of each (registers, shared memory), 0 spills."""
+    import re
+
+    def name(mangled):
+        m = re.search(r"nms_(?:gather|mask|sweep)_kernel", mangled)
+        return m.group(0) if m else mangled
+    return body_report("nms", (), lambda n: name(n) != n, 3, name)
 
 
 def paged_report():
@@ -6899,6 +6916,12 @@ VANISHING = 1e-6
 EXPORT_REL = 1e-5        # (c) the reloaded .pt2 vs the eager forward
 PP_REL = 1e-5            # (d) PointPillars apply, card vs CPU
 NMS_TIE_N = 64           # (d) the tied-score NMS case's boxes
+# (d) random boxes at the NMS kernel's chunk boundaries (64 candidates a
+# word), and a grid past the one-block sweep's former cap of 49,152
+# boxes: the detector's boxes at 245 x 245 pillars of the same 70.4 m
+# field
+NMS_EDGE_N = (1, 63, 64, 65, 4097)
+NMS_BIG_GRID = 245
 NMS_IOU_OPS = 14         # fp32 operations of one IoU and its compare
 
 
@@ -7179,51 +7202,137 @@ def det_pointpillars(dev, seed):
             "live": int((first[1] > 0.5).sum())}, boxes, scores
 
 
+def nms_boxes(rng, n, side):
+    """n random boxes (x1, y1, x2, y2) over a side x side field, each
+    side 0.5-3, as float32 numpy."""
+    import numpy as np
+    xy = rng.uniform(0, side, (n, 2))
+    return np.concatenate([xy, xy + rng.uniform(0.5, 3, (n, 2))],
+                          1).astype(np.float32)
+
+
+NMS_KERNELS = ("nms_gather_kernel", "nms_mask_kernel", "nms_sweep_kernel")
+
+
+def nms_kernel_ms(b, s, calls=3):
+    """Device ms a call of N1's wrapper on (b, s) at the detect
+    thresholds, by kernel, from a ``torch.profiler`` trace of ``calls``
+    calls: the score sort and the three kernels of ``csrc/nms.cu``. A
+    trace that lacks a launch of those kernels (after the script's
+    earlier traced phases the profiler has dropped device events) is
+    reported as None: not measured."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tosem_tpu_torch.ops.nms import _nms_cuda
+    _nms_cuda(b, s, 0.5, 0.5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            _nms_cuda(b, s, 0.5, 0.5)
+        torch.cuda.synchronize()
+    per, seen = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("::")[-1].split("(")[0][:60]
+            per[name] += e.time_range.elapsed_us() / 1e3 / calls
+            seen[name] += 1
+    if any(seen[k] != calls for k in NMS_KERNELS):
+        return None
+    return dict(per.most_common(6))
+
+
 def det_nms(dev, seed, boxes, scores):
     """The NMS kernel's keep against the plain version's on the card,
-    element for element: at the card grid's boxes (the detect
-    thresholds, and every box live) and at NMS_TIE_N boxes with tied
-    scores; then its time by graph replay, the plain version's by CUDA
-    events, and its bound from this run's IoU count."""
+    element for element, each case launched twice bit for bit: at the
+    card grid's boxes (the detect thresholds, and every box live), at
+    NMS_TIE_N boxes with tied scores, at the chunk boundaries
+    NMS_EDGE_N, and at the detector's boxes on the NMS_BIG_GRID grid
+    (60,025, past the former cap; held against ``nms_plain_rows``, since
+    ``nms_plain``'s N x N temporaries outgrow the card there, and that
+    yardstick is held to ``nms_plain`` at the card grid first). Then the
+    kernel's time at the big grid, and at the card grid by graph replay
+    beside the plain version's and its bound from this run's IoU
+    count."""
     import numpy as np
     import torch
-    from tosem_tpu_torch.ops.nms import _nms_cuda, max_boxes, nms_plain
+    from tosem_tpu_torch import cli
+    from tosem_tpu_torch.models.pointpillars import (PillarGrid,
+                                                     PointPillarsDetector)
+    from tosem_tpu_torch.ops.nms import (_nms_cuda, max_boxes, nms_plain,
+                                         nms_plain_rows)
     from tosem_tpu_torch.utils.timing import DeviceLoopBench
     rng = np.random.default_rng(seed)
-    xy = rng.uniform(0, 10, (NMS_TIE_N, 2))
-    tb = torch.from_numpy(np.concatenate(
-        [xy, xy + rng.uniform(0.5, 3, (NMS_TIE_N, 2))], 1).astype(
-            np.float32)).to(dev)
+    tb = torch.from_numpy(nms_boxes(rng, NMS_TIE_N, 10)).to(dev)
     ts = torch.from_numpy((rng.integers(0, 4, NMS_TIE_N) / 4).astype(
         np.float32)).to(dev)
     cases = {"grid_detect": (boxes, scores, 0.5, 0.5),
              "grid_all_live": (boxes, scores, 0.5, -1.0),
              f"tied_n{NMS_TIE_N}": (tb, ts, 0.3, 0.2)}
+    for n in NMS_EDGE_N:
+        # about 64 boxes a 10 x 10 patch, as the tied case
+        eb = nms_boxes(rng, n, 10 * max(1.0, (n / 64) ** 0.5))
+        es = rng.uniform(0, 1, n).astype(np.float32)
+        cases[f"edge_n{n}"] = (torch.from_numpy(eb).to(dev),
+                               torch.from_numpy(es).to(dev), 0.5, 0.3)
+    grid, _, pts = cli.pointpillars_case(torch.device(dev))
+    g = NMS_BIG_GRID
+    big = PointPillarsDetector(
+        PillarGrid(grid.x_min, grid.x_max, grid.y_min, grid.y_max, g, g,
+                   grid.max_points_per_pillar), device=dev, seed=0)
+    with torch.no_grad():
+        bb, bs = big.apply(pts)
+    del big
+    big_name = f"grid{g}x{g}_detect"
+    cases[big_name] = (bb, bs, 0.5, 0.5)
     out = {"max_boxes": max_boxes(), "cases": {}}
     for name, (b, s, it, st) in cases.items():
         k1 = _nms_cuda(b, s, it, st)
         k2 = _nms_cuda(b, s, it, st)
-        plain = nms_plain(b, s, it, st)
+        if name == big_name:
+            plain = nms_plain_rows(b, s, it, st)
+        else:
+            plain = nms_plain(b, s, it, st)
         torch.cuda.synchronize()
         diff = int((k1 != plain).sum())
         out["cases"][name] = {"n": int(b.shape[0]), "kept": int(k1.sum()),
+                              "live": int((s > st).sum()),
                               "differ": diff,
                               "bit_identical": torch.equal(k1, k2)}
         check(diff == 0 and torch.equal(k1, k2),
               f"NMS kernel vs plain, {name}: {out['cases'][name]}")
+        if name == "grid_detect":
+            rows = nms_plain_rows(b, s, it, st)
+            same = torch.equal(rows, plain)
+            out["cases"][name]["plain_rows_equal"] = same
+            check(same, "nms_plain_rows differs from nms_plain at the "
+                  "card grid")
+        del k1, k2, plain
+    out["big_timing"] = {
+        "n": int(bb.shape[0]), "grid": [g, g],
+        "ms": DeviceLoopBench(op=lambda x, y: _nms_cuda(x, y, 0.5, 0.5),
+                              args=(bb, bs)).time() * 1e3,
+        "kernel_ms": nms_kernel_ms(bb, bs)}
+    del bb, bs
+    torch.cuda.empty_cache()
     b, s = boxes, scores
     ms = DeviceLoopBench(op=lambda x, y: _nms_cuda(x, y, 0.5, 0.5),
                          args=(b, s)).time() * 1e3
     plain_ms = cuda_ms(lambda: nms_plain(b, s, 0.5, 0.5), iters=2, warmup=1)
     pairs = nms_pairs(b, s, _nms_cuda(b, s, 0.5, 0.5), 0.5, 0.5)
     n = int(b.shape[0])
+    live = int((s > 0.5).sum())
     bound_ms, bound_by = bound(n * (16 + 4 + 1), pairs * NMS_IOU_OPS,
                                "float32")
     torch.cuda.synchronize()
     out["timing"] = {"n": n, "ms": ms, "plain_ms": plain_ms,
                      "iou_pairs": pairs, "bound_ms": bound_ms,
                      "bound_by": bound_by,
-                     "serial_steps": n}
+                     "design_ious": live * (live - 1) // 2,
+                     "sweep_chunks": -(-n // 64),
+                     "kernel_ms": nms_kernel_ms(b, s)}
     rec = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
            "library_is": "none: no single PyTorch call computes it",
@@ -7387,17 +7496,19 @@ def main(argv=None):
     bodies, faults = bwd_tc_report()
     rows, row_faults = warp_row_report()
     paged, paged_faults = paged_report()
+    nms, nms_faults = nms_report()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": took, "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "ptxas": {k: ptxas_summary(v[1])
                     for k, v in _build.BUILD_LOG.items()},
           "bwd_bf16_bodies": bodies, "warp_row_bodies": rows,
-          "paged_bodies": paged})
+          "paged_bodies": paged, "nms_kernels": nms})
     check(not faults, "bf16 B2/B3 bodies: " + "; ".join(faults))
     check(not row_faults,
           "B6/B7/B8 warp-row bodies: " + "; ".join(row_faults))
     check(not paged_faults, "B4/B5 chunk bodies: " + "; ".join(paged_faults))
+    check(not nms_faults, "N1's kernels: " + "; ".join(nms_faults))
     secs = {"build": time.perf_counter() - t0}
 
     def timed(name, fn, *a):

@@ -8,10 +8,11 @@ Tolerances: ``voxelize`` is exact (same floors, the pillar sums in the
 reference's order: pillars, masks and offsets bit for bit); the PFN,
 ``apply`` and ``detect`` within 1e-6 of the largest value (fp32
 products in another order), masks and keep masks equal; the plain NMS
-keep mask equal to the reference's element for element, ties included;
-gradients through ``apply`` within 1e-5. The CUDA sweep refuses CPU
-tensors; it runs on the card only (``chip_smoke.py``). The last part
-copies ``tests/test_pointpillars.py``'s checks."""
+keep mask equal to the reference's element for element, ties included,
+and so is a numpy model of the CUDA kernel's bitmask design; gradients
+through ``apply`` within 1e-5. The CUDA kernel refuses CPU tensors; it
+runs on the card only (``chip_smoke.py``). The last part copies
+``tests/test_pointpillars.py``'s checks."""
 import numpy as np
 import pytest
 import torch
@@ -99,25 +100,42 @@ def test_pfn_apply_and_detect_match_reference(detectors):
     assert 0 < int(pk.sum()) < len(pk)
 
 
-@pytest.mark.parametrize("n,levels,iou_t,score_t", [
-    (32, 0, 0.5, 0.0), (64, 4, 0.3, 0.2), (48, 2, 0.1, 0.0),
-    (16, 1, 0.5, 0.5)])
-def test_plain_nms_equals_reference(n, levels, iou_t, score_t):
-    """Random boxes; ``levels`` > 0 draws scores from that many values,
-    so most scores tie and the stable order decides."""
+def _nms_case(rng, n, levels):
+    """Boxes [n, 4] over a 10 x 10 field, sides 0.5-3; scores uniform, or
+    from ``levels`` values (most tie and the stable order decides; one
+    level: every score ties at 0)."""
+    xy = rng.uniform(0, 10, (n, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(0.5, 3, (n, 2))],
+                           1).astype(np.float32)
+    scores = (rng.integers(0, levels, n) / levels if levels
+              else rng.uniform(0, 1, n)).astype(np.float32)
+    return boxes, scores
+
+
+def _reference_nms(boxes, scores, iou_t, score_t):
     import jax
     import jax.numpy as jnp
     from tosem_tpu.models.pointpillars import device_nms as ref_nms
+    return np.asarray(jax.jit(ref_nms, static_argnums=(2, 3))(
+        jnp.asarray(boxes), jnp.asarray(scores), iou_t, score_t))
+
+
+# (n, levels, iou_t, score_t): the first four, then the kernel's chunk
+# boundaries (64 candidates a word) and every score tied and live
+NMS_CASES = [(32, 0, 0.5, 0.0), (64, 4, 0.3, 0.2), (48, 2, 0.1, 0.0),
+             (16, 1, 0.5, 0.5), (63, 0, 0.5, 0.0), (64, 0, 0.3, 0.2),
+             (65, 2, 0.5, 0.0), (129, 0, 0.3, 0.2), (96, 1, 0.3, -1.0)]
+
+
+@pytest.mark.parametrize("n,levels,iou_t,score_t", NMS_CASES)
+def test_plain_nms_equals_reference(n, levels, iou_t, score_t):
+    """Random boxes; ``levels`` > 0 draws scores from that many values,
+    so most scores tie and the stable order decides."""
     from tosem_tpu_torch.ops.nms import nms_plain, nms_sweep
     rng = np.random.default_rng(n + levels)
     for _ in range(4):
-        xy = rng.uniform(0, 10, (n, 2))
-        boxes = np.concatenate([xy, xy + rng.uniform(0.5, 3, (n, 2))],
-                               1).astype(np.float32)
-        scores = (rng.integers(0, levels, n) / levels if levels
-                  else rng.uniform(0, 1, n)).astype(np.float32)
-        want = np.asarray(jax.jit(ref_nms, static_argnums=(2, 3))(
-            jnp.asarray(boxes), jnp.asarray(scores), iou_t, score_t))
+        boxes, scores = _nms_case(rng, n, levels)
+        want = _reference_nms(boxes, scores, iou_t, score_t)
         got = nms_sweep(torch.from_numpy(boxes), torch.from_numpy(scores),
                         iou_t, score_t)
         assert got.dtype == torch.bool
@@ -125,6 +143,91 @@ def test_plain_nms_equals_reference(n, levels, iou_t, score_t):
         assert torch.equal(got, nms_plain(torch.from_numpy(boxes),
                                           torch.from_numpy(scores),
                                           iou_t, score_t))
+
+
+@pytest.mark.parametrize("n,levels,iou_t,score_t", NMS_CASES[4:])
+def test_row_blocked_plain_nms_equals_reference(n, levels, iou_t, score_t):
+    """``nms_plain_rows`` (the yardstick past the plain version's memory)
+    in blocks of 16 rows."""
+    from tosem_tpu_torch.ops.nms import nms_plain_rows
+    rng = np.random.default_rng(3 * n + levels)
+    boxes, scores = _nms_case(rng, n, levels)
+    b, s = torch.from_numpy(boxes), torch.from_numpy(scores)
+    assert np.array_equal(nms_plain_rows(b, s, iou_t, score_t, rows=16)
+                          .numpy(),
+                          _reference_nms(boxes, scores, iou_t, score_t))
+
+
+def _bitmask_nms_model(boxes, scores, iou_t, score_t, seed=0):
+    """``csrc/nms.cu``'s design in numpy, word for word: live0 packed
+    into W = ceil(n / 64) words; overlap words mask[i][c] (bit b: j = 64c
+    + b > i, j live at the start, IoU(i, j) > iou_t) for live rows only,
+    written on the row's own chunk always and elsewhere only where not
+    zero, with a bit in the row's occupancy words; every other word holds
+    garbage, which the design must never use. Then the sweep: ``removed``
+    = ~live0, each chunk resolved in series on its diagonal words, the
+    kept rows' later non-zero words (from their occupancy) ORed in, and
+    the clear bits of ``removed`` scattered to the input order. The IoUs
+    are the port's ``iou_matrix``, whose bits the kernel's arithmetic
+    matches."""
+    from tosem_tpu_torch.ops.nms import iou_matrix, mask_words, score_order
+    n = len(scores)
+    W = mask_words(n)
+    one = np.uint64(1)
+    order = score_order(torch.from_numpy(scores)).numpy()
+    over = np.zeros((n, W * 64), bool)
+    over[:, :n] = iou_matrix(torch.from_numpy(boxes[order])).numpy() > iou_t
+    bits = one << np.arange(64, dtype=np.uint64)
+    live0 = np.zeros(W * 64, bool)
+    live0[:n] = scores[order] > score_t
+    live = (live0.reshape(W, 64) * bits).sum(1, dtype=np.uint64)
+    garbage = np.random.default_rng(seed).integers(
+        0, 2 ** 63, (n, W), dtype=np.int64).astype(np.uint64)
+    mask = garbage.copy()
+    occ = np.zeros((n, mask_words(W)), np.uint64)
+    for i in np.flatnonzero(live0[:n]):
+        for c in range(i // 64, W):
+            j = np.arange(64 * c, 64 * c + 64)
+            word = (((j > i) & live0[j] & over[i, j]) * bits).sum(
+                dtype=np.uint64)
+            if c == i // 64 or word:
+                mask[i, c] = word
+            if c != i // 64 and word:
+                occ[i, c // 64] |= one << np.uint64(c % 64)
+    full = ~np.uint64(0)
+    removed = ~live
+    for c in range(W):
+        if removed[c] == full:
+            continue
+        run = removed[c]
+        kept = []
+        for b in range(64):
+            if 64 * c + b < n and not (run >> np.uint64(b)) & one:
+                kept.append(64 * c + b)
+                run |= mask[64 * c + b, c]
+        removed[c] = run
+        for i in kept:
+            for w in range(c + 1, W):
+                if (occ[i, w // 64] >> np.uint64(w % 64)) & one:
+                    removed[w] |= mask[i, w]
+    sweep = ((removed[:, None] & bits) == 0).reshape(-1)[:n]
+    keep = np.zeros(n, bool)
+    keep[order] = sweep
+    return keep
+
+
+@pytest.mark.parametrize("n,levels,iou_t,score_t", NMS_CASES[4:] + [
+    (1, 0, 0.5, 0.0), (128, 4, -0.1, 0.5), (200, 0, 0.5, 0.7)])
+def test_bitmask_nms_model_equals_reference(n, levels, iou_t, score_t):
+    """The kernel's words, bits and chunks, held against the reference
+    before any card runs them (at a negative IoU threshold every pair
+    overlaps; at score 0.7 whole chunks start removed)."""
+    rng = np.random.default_rng(7 * n + levels)
+    for _ in range(2):
+        boxes, scores = _nms_case(rng, n, levels)
+        assert np.array_equal(
+            _bitmask_nms_model(boxes, scores, iou_t, score_t),
+            _reference_nms(boxes, scores, iou_t, score_t))
 
 
 def test_iou_matrix_matches_reference():
