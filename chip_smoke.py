@@ -130,7 +130,7 @@ Phases, each printing one JSON line:
               over two of the agents, the third the spare capacity
               re-placements land on. The 9 decode prompts, each under a
               session key (the prefix-hit prompt under its donor's), go
-              through ``ClusterHandle.call`` in 3 rounds, each answer
+              through ``ClusterHandle.call`` in 2 rounds, each answer
               equal bit for bit to the same backend's in-process
               ``call`` in the same order; then 8 clients in a closed loop
               while one replica's node is SIGKILLed: no error may reach a
@@ -208,8 +208,8 @@ Phases, each printing one JSON line:
               launches equal positions x calls. Then the device ms of the
               sharded calls beside the unsharded kernels (one card: no
               speedup is read), and ``--config=allreduce`` at its
-              default of 4 positions a card (1 KB to 64 MB a position,
-              each timing one graph of 256 calls), each row beside the
+              default of 4 positions a card (1 KB, 16 KB, 256 KB, 4 MB
+              and 64 MB a position, each timing one graph of 256 calls), each row beside the
               card's name and power limit; on one card the "bus" is its
               memory.
 7c. pipeline — BERT-base as a GPipe pipeline over pp = 4 positions on
@@ -277,6 +277,39 @@ Phases, each printing one JSON line:
               and BatchNorm moving stats within 1e-3 of the largest value,
               and each parameter's update within 1e-2 (relative L2 norm:
               the backward); a model with a wrong weight must break both.
+              Its rows stay for the analysis phase.
+7f1. analysis — the study's analysis config (budget 30 s): ``python -m
+              tosem_tpu_torch.cli --device=cuda --config=analysis
+              --tests_dir=tests`` twice, each in a fresh interpreter, its
+              tables and rows in a temporary directory beside the configs
+              phase's rows: the ``tests_<method>`` rows sum to
+              ``n_tests``, ``tests_with_strategy`` lies in [0, 100],
+              ``bench_correlations`` is reported, the configs phase's GEMM
+              and conv configs are in the bench summary, the second run
+              writes the same table files byte for byte (its own rows are
+              never re-ingested), and the replication leg says it was
+              skipped (no study checkout is given).
+7f2. tune   — HPO trials that train BERT-base on the card (budget 90 s).
+              The trainable is this script's ``TuneBert``, reached as
+              ``"chip_smoke:TuneBert"``: an iteration is 2 masked-LM AdamW
+              steps of the train phase's model (bf16, dropout 0.1, weights
+              from seed 0) at batch 8 x 128 synthetic ids, at the config's
+              learning rate, reporting the loss, the card's name and peak
+              memory. (a) ``hpo_cli create`` and ``run`` through the
+              ``subprocess`` service (each trial a fresh interpreter): 4
+              trials, ``lr`` log-uniform in [1e-5, 3e-4] from a seeded
+              random searcher, ASHA (max_t 4, grace 1), 2 at a time; then
+              ``status`` and ``results --top 1`` from other processes. No
+              trial ends in error, every trial reports the card, each
+              trial's losses equal the same learning rate trained for the
+              same steps in this process bit for bit, each launched B1-B3
+              12 a step, and ``results --top 1`` names the least final
+              loss. (b) ``BootstrapService`` over the local shell, 2 agents,
+              2 trials of the same trainable: one is killed
+              (``kill_trial``) once its first report is in, and its
+              process must be gone (exited and reaped);
+              the other finishes with the direct run's losses bit for
+              bit; ``shutdown()`` leaves no agent or trial process behind.
 7g. kernel_matrix — the kernel parity harness (``ops/parity.py``) on the
               card: every scenario of the flash, paged and schedule
               matrices with the ``cuda`` arm against the ``torch`` arm
@@ -353,7 +386,7 @@ Phases, each printing one JSON line:
               forward+backward). Every row must read under the card's
               peak (a row above it means a timing window closed early).
 
-``--phases`` picks a subset (default: all twenty-two), e.g.
+``--phases`` picks a subset (default: all twenty-four), e.g.
 ``build,kernels``
 for a first call after a kernel change, ``build,kernels,train`` for the
 training path, ``build,train_dp`` for data-parallel training,
@@ -361,7 +394,8 @@ training path, ``build,train_dp`` for data-parallel training,
 for the pipeline and the global-batch mesh steps,
 ``build,kernels,suite`` for the kernel suite,
 ``build,configs,kernel_matrix`` for configs 1, 2 and 4 and the
-kernel matrix, ``build,decode,serve`` for the served path,
+kernel matrix, ``build,configs,analysis,tune`` for the analysis config
+and HPO trials on the card, ``build,decode,serve`` for the served path,
 ``build,decode,cluster``
 for cluster serving, ``build,benches`` for the benches,
 ``build,moe,speech`` for MoE-BERT and the speech family,
@@ -371,13 +405,13 @@ for cluster serving, ``build,benches`` for the benches,
 The launch counts of every kernel are set to 0 just before the decode,
 each decode mode, the encode, the sparse encode, the train, each
 data-parallel run, each sharded path, the pipelined forward and
-backward, each mesh train run, each bench, the MoE encode, the MoE train
-steps, the detection family's CLI entries and ``detect`` launches and the
-suite paths run and read just
+backward, each mesh train run, each bench, the tune phase's direct runs, the MoE
+encode, the MoE train steps, the detection family's CLI entries and
+``detect`` launches and the suite paths run and read just
 after (the serve, cluster and decode-bench paths' inside their
 replicas: set to 0 as each replica's warm-up ends, read after its
-traffic; the data-parallel ranks' inside each rank process, which
-starts at 0); a kernel of the path
+traffic; the data-parallel ranks' and the tune trials' inside each process,
+which starts at 0); a kernel of the path
 that never launched fails the run. A ``seconds`` line gives each
 phase's time. Before the last line it prints the card's name and
 power limit (``nvidia-smi``) and one ``{"kernels": [...]}`` line; the last
@@ -387,8 +421,10 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3535,9 +3571,9 @@ def cluster_replica(backend, **kw):
 CLUSTER_ATTN_DIMS = dict(batch=8, heads=12, seq=512, dim=64)
 CLUSTER_PAGED_DIMS = dict(batch=8, heads=12, head_dim=64, page_size=128,
                           pages=64, table_w=4)
-CLUSTER_ROUNDS = 3          # sequential passes over the prompts
+CLUSTER_ROUNDS = 2          # sequential passes over the prompts
 CLUSTER_CLIENTS = 8         # the fail-over leg's closed loop
-CLUSTER_WINDOW_S = 6.0      # its window before the kill and after re-placing
+CLUSTER_WINDOW_S = 4.0      # its window before the kill and after re-placing
 
 
 def percentiles(ms):
@@ -4795,7 +4831,8 @@ def phase_train_dp(dev, seed):
 PAR_POSITIONS = 4   # positions of the one-card meshes (dp x tp = 2 x 2)
 PAR_FLASH_MESHES = ((2, 2), (1, 4), (2, 3))
 PAR_RING_T = 512    # ring/Ulysses sequence, split over sp = 4
-PAR_SWEEP_MAX = 1 << 26     # the allreduce rows: 1 KB to 64 MB a position
+PAR_SWEEP_MAX = 1 << 26     # the allreduce rows: 1 KB to 64 MB a position,
+PAR_SWEEP_EVERY = 2         # every 2nd size of the x4 ladder (5 a collective)
 
 
 def phase_parallel(dev, seed):
@@ -5080,6 +5117,7 @@ def phase_parallel(dev, seed):
     with tempfile.TemporaryDirectory(prefix="torch_allreduce_") as d:
         rows_csv = os.path.join(d, "allreduce.csv")
         check(cli.main(["--config=allreduce", f"--max_bytes={PAR_SWEEP_MAX}",
+                        f"--sweep_every={PAR_SWEEP_EVERY}",
                         f"--results_csv={rows_csv}"]) == 0,
               "the allreduce config failed")
         sweep = [{"bench_id": r["bench_id"],
@@ -5104,7 +5142,7 @@ def phase_parallel(dev, seed):
 
 PP = 4              # pipeline stages (positions of the pp mesh)
 PP_MICRO = 4        # microbatches of the 8 x 512 batch: 2 x 512 each
-MESH_STEPS = 3      # steps of each mesh train run
+MESH_STEPS = 2      # steps of each mesh train run
 
 
 def _base_batch(seed, dev, masked_rows=None):
@@ -5302,7 +5340,7 @@ def phase_mesh_train(dev, seed):
     """Global-batch training over a device mesh on the one card:
     ``make_partitioned_train_step`` with ``bert_rules``/``seq_batch_rules``
     over (dp, tp, sp) = (2, 2, 2) and ``make_train_step(mesh=)`` over dp
-    = 4, each 3 steps of BERT-base on the train phase's 8 x 512 batch
+    = 4, each MESH_STEPS (2) steps of BERT-base on the train phase's 8 x 512 batch
     with dropout 0.1 drawn from ``step_generator(seed, i)``, whose rows
     are masked at 40% (rows 0-3) and 5% (rows 4-7), so a mean of the dp
     shards' means is another loss. In fp32 without TF32 under
@@ -5519,7 +5557,7 @@ AUTOTUNE_PAGE_SHAPES = ((8, 12, 512, 64, "bfloat16"),
                         (16, 12, 1024, 64, "bfloat16"))
 AUTOTUNE_SPEC_SHAPES = ((8, 12, 512, 64, "bfloat16"),)
 BENCH_MIN_S = 0.2       # (b) the decode bench's closed-loop windows
-CLUSTER_BENCH_MIN_S = 0.1   # (d) run_cluster_benchmarks' windows
+CLUSTER_BENCH_MIN_S = 0.05  # (d) run_cluster_benchmarks' windows
 DP_NODES_WORLD = 4      # (c) ranks, one a node agent
 
 
@@ -5716,30 +5754,39 @@ def benches_dp_nodes(dev, seed, out):
     from tosem_tpu_torch.cluster.rpc import RpcClient
     from tosem_tpu_torch.cluster.supervisor import HeadJournal, NodePool
     from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.ops.common import matmul_settings
     from tosem_tpu_torch.train.distributed import (DataParallelConfig,
                                                    DistributedTrainer,
                                                    make_dp_train_step)
     flash = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     torch.cuda.empty_cache()
     job = dp_job(seed, dev)
-    state = job.init_state()
-    step_fn = make_dp_train_step(job)
-    ref_losses = []
-    for _ in range(DP_STEPS):
-        state, m = step_fn(state)
-        ref_losses.append(m["loss"])
-    ref_params = [p.detach().clone() for p in state.leaves()]
-    del state, step_fn
-    registry.reset_launch_counts()
-    rec = {"world": DP_NODES_WORLD, "steps": DP_STEPS,
-           "local_fold_losses": ref_losses, "runs": {}}
+    rec = {"world": DP_NODES_WORLD, "steps": DP_STEPS, "runs": {}}
     counts = {k: 0 for k in KERNELS}
     pids = set()
 
-    def same(tr):
-        got = tr.fetch_state().leaves()
-        return len(got) == len(ref_params) and all(
-            torch.equal(a, b) for a, b in zip(got, ref_params))
+    def local_fold():
+        state = job.init_state()
+        step_fn = make_dp_train_step(job)
+        fold = []
+
+        def shard_grads(st, step, shard):
+            loss, leaves = type(job).shard_grads(job, st, step, shard)
+            fold.append([step, shard, float(loss)])
+            return loss, leaves
+        job.shard_grads = shard_grads
+        losses = []
+        try:
+            for _ in range(DP_STEPS):
+                state, m = step_fn(state)
+                losses.append(m["loss"])
+        finally:
+            del job.shard_grads
+        params = [p.detach().clone() for p in state.leaves()]
+        registry.reset_launch_counts()
+        rec["local_fold_losses"] = losses
+        rec["local_fold_shard_losses"] = fold
+        return losses, params
 
     def timed_fit(tr, kill_after=None):
         marks = []
@@ -5767,10 +5814,29 @@ def benches_dp_nodes(dev, seed, out):
             params = [p.detach().clone()
                       for p in tr.fetch_state().leaves()]
             world = tr.world
+            ranks = [h.call("stats") for h in tr._workers]
         registry.reset_launch_counts()
         rec["runs"][what] = {"losses": losses, "step_ms": ms,
-                             "world_after": world}
+                             "world_after": world,
+                             "shard_losses": shard_losses(ranks)}
         return losses, params
+
+    def shard_losses(ranks):
+        """Every shard's loss the ranks computed, [step, shard, loss]
+        in step and shard order (a lost rank's are not among them)."""
+        return sorted(r for rank in ranks for r in rank["shard_losses"])
+
+    def parted(what):
+        """The diagnosis printed beside a failed check: each arm's
+        shard losses and each process's rounding settings (ROADMAP
+        C8)."""
+        runs = rec["runs"]
+        return json.dumps({
+            "local_fold": rec["local_fold_shard_losses"],
+            **{k: runs[k].get("shard_losses") for k in what if k in runs},
+            "settings_here": matmul_settings(),
+            "settings_ranks": {k: runs[k].get("rank_settings")
+                               for k in what if k in runs}})
 
     def nodes_trainer(what, pool):
         """(trainer, seconds to start it): the ranks build the job from
@@ -5811,7 +5877,12 @@ def benches_dp_nodes(dev, seed, out):
         events = [e["event"] for e in HeadJournal.load(journal)
                   if e.get("job") == cfg.job]
         rec["runs"][what] = {
-            "losses": losses, "step_ms": ms, "spawn_s": spawn_s,
+            "losses": losses, "shard_losses": shard_losses(ranks),
+            "rank_settings": [r["matmul_settings"] for r in ranks],
+            "settings_differ": sorted(
+                {k for r in ranks for k, v in r["matmul_settings"].items()
+                 if v != matmul_settings().get(k)}),
+            "step_ms": ms, "spawn_s": spawn_s,
             "startup_s": stats["startup_s"], "fetch_s": fetch_s,
             "close_s": close_s,
             "world_after": stats["world"], "shrinks": stats["shrinks"],
@@ -5831,12 +5902,14 @@ def benches_dp_nodes(dev, seed, out):
                 num_workers=1), range(DP_NODES_WORLD)))
         for i, node in enumerate(agents):
             pool.add_node(node, name=f"t{i}")
+        ref_losses, ref_params = local_fold()
+        t_losses, t_params = threads_run("threads")
         n_losses, n_params, n_stats, n_events = nodes_run(
             "nodes", nodes_trainer("nodes", pool), journal)
-        t_losses, t_params = threads_run("threads")
+        rec["settings_here"] = matmul_settings()
         check(n_losses == t_losses == ref_losses,
               f"dp nodes: losses {n_losses}, threads {t_losses}, local "
-              f"fold {ref_losses}")
+              f"fold {ref_losses}; " + parted(("nodes", "threads")))
         check(all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in
                   zip(n_params, t_params, ref_params))
               and len(n_params) == len(t_params) == len(ref_params),
@@ -5863,7 +5936,8 @@ def benches_dp_nodes(dev, seed, out):
               f"dp nodes killed: journal {k_events}")
         check(k_losses == s_losses == ref_losses,
               f"dp nodes killed: losses {k_losses}, threads shrunk "
-              f"{s_losses}, local fold {ref_losses}")
+              f"{s_losses}, local fold {ref_losses}; "
+              + parted(("nodes_killed", "threads_shrunk")))
         check(all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in
                   zip(k_params, s_params, ref_params))
               and len(k_params) == len(s_params) == len(ref_params),
@@ -6020,12 +6094,12 @@ def resnet_held(g):
             g["updates"] <= RESNET_UPDATE_REL)
 
 
-def phase_configs(dev, seed):
+def phase_configs(dev, seed, work=None):
     """North-star configs 1, 2 and 4 on the card through the port's
     experiment runner, then the space-to-depth stem and the ResNet step
-    against the CPU (see the module docstring)."""
+    against the CPU (see the module docstring). Leaves its rows in
+    ``work``/configs.csv for the analysis phase."""
     import csv
-    import tempfile
 
     import numpy as np
     import torch
@@ -6051,6 +6125,8 @@ def phase_configs(dev, seed):
         with open(os.path.join(d, "profile", "resnet_train_gpu",
                                "kernel_summary.csv")) as f:
             summary = list(csv.DictReader(f))
+        if work:
+            shutil.copy(path, os.path.join(work, "configs.csv"))
     over = [(r["bench_id"], r["value"]) for r in rows
             if r["unit"] == "GFLOPS"
             and r["value"] >= peak_gflops(str(r["extra"].get("dtype", "")))]
@@ -7468,14 +7544,421 @@ def phase_suite_sparse():
     return counts
 
 
+ANALYSIS_BUDGET_S = 30     # the analysis phase's budget
+TUNE_BUDGET_S = 90         # the tune phase's budget
+TUNE_BATCH = (8, 128)      # a trial's masked-LM batch (synthetic ids)
+TUNE_STEPS = 2             # AdamW steps a trial iteration
+TUNE_LR = (1e-5, 3e-4)     # the experiment's log-uniform learning rates
+TUNE_TRIALS = 4            # the experiment's trials, 2 at a time
+TUNE_MAX_T = 4             # iterations a trial (ASHA's max_t)
+TUNE_NODE_LRS = (1e-4, 3e-5)   # the node-agent leg's two trials
+TUNE_KILL_T = 1000         # the killed trial's iterations: it runs until killed
+TUNE_FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def phase_analysis(work):
+    """The study's analysis config through the port's runner, twice, in a
+    fresh interpreter each: ``cli --device=cuda --config=analysis
+    --tests_dir=tests`` with its tables and rows under ``work`` (where the
+    configs phase left its GEMM, conv and ResNet rows). The rows must add
+    up, ``bench_correlations`` be reported, the second run write the same
+    table files byte for byte, and the replication leg say it was skipped
+    (no study checkout is given)."""
+    from tosem_tpu_torch.utils.results import read_results
+    tables = ("tests_methods.csv", "tests_correlate.csv",
+              "tests_strategy.csv", "properties.csv", "bench_summary.csv",
+              "bench_correlate.csv")
+    csv_path = os.path.join(work, "analysis.csv")
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    runs, blobs = [], []
+    for i in range(2):
+        out_dir = os.path.join(work, f"analysis_{i}")
+        t = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "tosem_tpu_torch.cli", "--device=cuda",
+             "--config=analysis", "--tests_dir=tests",
+             f"--analysis_out={out_dir}", f"--results_csv={csv_path}"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        runs.append({"rc": p.returncode, "seconds": time.perf_counter() - t,
+                     "skipped_replication": "replication leg skipped"
+                     in p.stdout})
+        check(p.returncode == 0, f"analysis run {i} exited {p.returncode}: "
+              f"{p.stderr[-2000:]}")
+        blobs.append({n: open(os.path.join(out_dir, n), "rb").read()
+                      for n in tables})
+    rows = [r for r in read_results(csv_path) if r["config"] == "analysis"]
+    last = rows[len(rows) // 2:]
+    by_id = {r["bench_id"]: r for r in last}
+    strat = by_id.get("tests_with_strategy")
+    check(strat is not None, f"no tests_with_strategy row: {sorted(by_id)}")
+    n_tests = strat["extra"]["n_tests"]
+    by_method = {b: r["value"] for b, r in by_id.items()
+                 if b != "tests_with_strategy"}
+    summary = [ln.split(",") for ln in
+               blobs[1]["bench_summary.csv"].decode().splitlines()[1:]]
+    configs = sorted({r[0] for r in summary})
+    out = {"phase": "analysis", "runs": runs, "n_tests": n_tests,
+           "by_method": by_method, "with_strategy_pct": strat["value"],
+           "n_projects": strat["extra"]["n_projects"],
+           "n_strategies": strat["extra"]["n_strategies"],
+           "bench_correlations": strat["extra"].get("bench_correlations"),
+           "bench_configs": configs,
+           "tables_equal": blobs[0] == blobs[1]}
+    emit(out)
+    check(sum(by_method.values()) == n_tests and n_tests > 300,
+          f"analysis: tests_<method> rows {by_method} != n_tests {n_tests}")
+    check(0 <= strat["value"] <= 100,
+          f"analysis: tests_with_strategy {strat['value']}")
+    check("bench_correlations" in strat["extra"],
+          "analysis: bench_correlations missing")
+    check(out["tables_equal"], "analysis: the second run's tables differ "
+          "from the first's (its own rows were re-ingested)")
+    check(all(r["skipped_replication"] for r in runs),
+          "analysis: the replication leg did not say it was skipped")
+    if os.path.exists(os.path.join(work, "configs.csv")):
+        check({"gemm", "conv_sweep"} <= set(configs),
+              f"analysis: the configs phase's rows are not in its bench "
+              f"summary ({configs})")
+
+
+def tune_setup(seed, dev):
+    """The train phase's model (BERT-base, bf16, dropout 0.1, weights
+    from ``seed``), its masked-LM loss on flash attention (B1-B3), and a
+    TUNE_BATCH batch of ids from numpy seed + 2, 15% of positions
+    masked."""
+    import functools
+
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.models.bert import Bert, BertConfig
+    from tosem_tpu_torch.nn.attention import flash_attn_fn
+    from tosem_tpu_torch.train import mlm_loss
+    cfg = BertConfig.base()
+    B, T = TUNE_BATCH
+    rng = np.random.default_rng(seed + 2)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, T)),
+                          device=dev)
+    masked = torch.as_tensor(rng.random((B, T)) < 0.15, device=dev)
+    return (Bert(cfg, device=dev, seed=seed),
+            functools.partial(mlm_loss, attn_fn=flash_attn_fn()),
+            _mlm_batch(ids, masked))
+
+
+def tune_train(model, loss_fn, lr):
+    """A fresh adamw(lr) state and ``train/trainer.py``'s step."""
+    from tosem_tpu_torch.train import adamw, create_train_state
+    from tosem_tpu_torch.train import make_train_step
+    st = create_train_state(model, adamw(float(lr)))
+    return st, make_train_step(model, st.optimizer, loss_fn)
+
+
+def tune_steps(st, step, batch, seed, start, n):
+    """Steps ``start`` .. ``start + n - 1``, each drawing its dropout from
+    ``step_generator(seed, i)``. Returns (state, losses)."""
+    from tosem_tpu_torch.train.trainer import step_generator
+    losses = []
+    for i in range(start, start + n):
+        st, met = step(st, batch, step_generator(seed, i,
+                                                 batch["ids"].device))
+        losses.append(float(met["loss"]))
+    return st, losses
+
+
+class TuneBert:
+    """The tune phase's trainable, a class trainable reached by ref as
+    ``"chip_smoke:TuneBert"`` from a trial process that has the checkout
+    on its path. Each iteration is TUNE_STEPS masked-LM AdamW steps of
+    BERT-base at ``config["lr"]`` on the card; it reports the last
+    step's loss, every step's loss, the card's name, peak memory, its
+    process id and its launch counts, and appends the report to
+    ``config["history"]/<pid>.jsonl`` where the config names one (the
+    experiment leg's: a run's table keeps no history)."""
+
+    def __init__(self, config):
+        self.config = dict(config)
+        self.model, loss_fn, self.batch = tune_setup(SEED, "cuda")
+        self.state, self.step_fn = tune_train(self.model, loss_fn,
+                                              config["lr"])
+        self.done = 0
+
+    def step(self):
+        import torch
+        from tosem_tpu_torch.ops import registry
+        self.state, losses = tune_steps(self.state, self.step_fn,
+                                        self.batch, SEED,
+                                        self.done * TUNE_STEPS, TUNE_STEPS)
+        self.done += 1
+        rep = {"loss": losses[-1], "losses": losses,
+               "lr": float(self.config["lr"]), "iteration": self.done,
+               "device": torch.cuda.get_device_name(),
+               "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+               "pid": os.getpid(),
+               "launches": {k: registry.LAUNCH_COUNTS[k]
+                            for k in TUNE_FLASH}}
+        hist = self.config.get("history")
+        if hist:
+            with open(os.path.join(hist, f"{os.getpid()}.jsonl"), "a") as f:
+                f.write(json.dumps(rep) + "\n")
+        return rep
+
+
+def read_histories(d):
+    """Every trial report under ``d``, by learning rate."""
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name)) as f:
+            for line in f:
+                rep = json.loads(line)
+                out.setdefault(rep["lr"], []).append(rep)
+    return out
+
+
+def tune_experiment(work, history):
+    """(a) ``hpo_cli create`` then ``run`` (service ``subprocess``, each
+    trial a fresh interpreter), then ``status`` and ``results --top 1``
+    from other processes. Returns (the run's trial rows, the top line's
+    trial id, seconds)."""
+    spec = {"name": "tune-bert", "trainable": "chip_smoke:TuneBert",
+            "space": {"lr": {"type": "loguniform", "low": TUNE_LR[0],
+                             "high": TUNE_LR[1]},
+                      "history": history},
+            "metric": "loss", "mode": "min", "num_samples": TUNE_TRIALS,
+            "max_iterations": TUNE_MAX_T, "scheduler": "asha",
+            "scheduler_args": {"max_t": TUNE_MAX_T, "grace_period": 1},
+            "search": "random", "search_args": {"seed": SEED},
+            "max_concurrent": 2, "training_service": "subprocess",
+            "checkpoint_freq": 0, "service_timeout_s": 300}
+    spec_path = os.path.join(work, "tune.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    db = os.path.join(work, "hpo.db")
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    secs = {}
+
+    def hpo(*argv):
+        t = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "tosem_tpu_torch.hpo_cli",
+                            *argv, "--db", db], cwd=work, env=env,
+                           capture_output=True, text=True, timeout=600)
+        secs[argv[0]] = time.perf_counter() - t
+        check(p.returncode == 0, f"hpo_cli {argv[0]} exited {p.returncode}: "
+              f"{p.stderr[-2000:]}")
+        return p.stdout
+    hpo("create", "--spec", spec_path)
+    hpo("run", "--name", "tune-bert")
+    status = json.loads(hpo("status", "--name", "tune-bert"))
+    top = hpo("results", "--name", "tune-bert", "--top", "1")
+    from tosem_tpu_torch.tune.experiment import ExperimentManager
+    rows = ExperimentManager(path=db).results("tune-bert")
+    check(status["status"] == "done" and status["n_trials"] == TUNE_TRIALS
+          and status["training_service"] == "subprocess",
+          f"hpo_cli status: {status}")
+    lines = top.strip().splitlines()
+    check(len(lines) == 1, f"hpo_cli results --top 1: {top!r}")
+    return rows, status, lines[0].split()[0], secs
+
+
+def tune_nodes():
+    """(b) ``BootstrapService`` over the local shell with 2 agents runs 2
+    trials of the same trainable; the first, given TUNE_KILL_T
+    iterations, is killed once its first report is in. Returns what the
+    checks read. A killed trial is gone when its process is (reaped or
+    never seen again): nvidia-smi's compute processes cannot show it,
+    since inside a container they list none of its ids."""
+    from tosem_tpu_torch.cluster.bootstrap import BootstrapService, \
+        LocalRunner
+    t0 = time.perf_counter()
+    svc = BootstrapService([LocalRunner(), LocalRunner()], num_workers=1,
+                           extra_sys_path=[ROOT], max_concurrent=2)
+    boot_s = time.perf_counter() - t0
+    agent_pids = [a._proc.pid for a in svc._agents]
+    rec = {"agents": len(agent_pids), "bootstrap_s": boot_s}
+    killed = ran = None
+    try:
+        for i, (lr, iters) in enumerate(zip(TUNE_NODE_LRS,
+                                            (TUNE_KILL_T, TUNE_MAX_T))):
+            svc.submit("chip_smoke:TuneBert", {"lr": lr}, f"n{i}", iters)
+        deadline = time.perf_counter() + 120
+        jobs = {}
+        while time.perf_counter() < deadline:
+            jobs = {j.trial_id: j for j in svc.poll()}
+            if jobs["n0"].metrics or jobs["n0"].status not in (
+                    "WAITING", "RUNNING"):
+                break
+            time.sleep(0.1)
+        check(jobs["n0"].status == "RUNNING" and jobs["n0"].metrics,
+              f"node leg: n0 never reported ({jobs['n0']})")
+        victim = jobs["n0"].metrics[0]["pid"]
+        t_kill = time.perf_counter()
+        svc.cancel("n0")
+        while (time.perf_counter() < t_kill + 30
+               and pid_state(victim) == "alive"):
+            time.sleep(0.1)
+        rec["killed"] = {"pid": victim, "state": pid_state(victim),
+                         "gone_s": time.perf_counter() - t_kill}
+        while time.perf_counter() < deadline:
+            jobs = {j.trial_id: j for j in svc.poll()}
+            if all(j.status not in ("WAITING", "RUNNING")
+                   for j in jobs.values()):
+                break
+            time.sleep(0.2)
+        killed, ran = jobs["n0"], jobs["n1"]
+        rec["statuses"] = {t: j.status for t, j in jobs.items()}
+        rec["errors"] = {t: j.error for t, j in jobs.items() if j.error}
+        trial_pids = {m["pid"] for j in jobs.values() for m in j.metrics}
+    finally:
+        svc.shutdown()
+    t = time.perf_counter()
+    while time.perf_counter() < t + 30 and any(
+            pid_state(p) == "alive" for p in agent_pids):
+        time.sleep(0.1)
+    rec["shutdown_s"] = time.perf_counter() - t
+    rec["agent_pids"] = {p: pid_state(p) for p in agent_pids}
+    rec["trial_pids"] = {p: pid_state(p) for p in sorted(trial_pids)}
+    return rec, killed, ran
+
+
+def phase_tune(dev, seed, work):
+    """HPO trials that train BERT-base on the card (see the module
+    docstring). Returns the launch counts of the direct runs in this
+    process (the trials launch B1-B3 in their own)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from tosem_tpu_torch.ops import registry
+    card = torch.cuda.get_device_name(0)
+    out = {"phase": "tune", "gpu": gpu_line(), "budget_s": TUNE_BUDGET_S,
+           "batch": list(TUNE_BATCH), "steps_per_iteration": TUNE_STEPS}
+    secs = {}
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    torch.cuda.empty_cache()
+    hist = tempfile.mkdtemp(prefix="tune_hist_", dir=work)
+
+    # the two legs run side by side: the experiment's trials in hpo_cli's
+    # processes, the node leg's on the agents
+    def timed_leg(name, fn, *a):
+        t = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            secs[name] = time.perf_counter() - t
+    with ThreadPoolExecutor(1) as ex:
+        exp = ex.submit(timed_leg, "experiment", tune_experiment, work,
+                        hist)
+        node, killed, ran = timed_leg("nodes", tune_nodes)
+        rows, status, top_id, hpo_s = exp.result()
+
+    # the direct runs: every trial's learning rate, trained here for the
+    # trial's steps from the same weights and batch
+    t = time.perf_counter()
+    hists = read_histories(hist)
+    need = {}
+    for lr, reps in list(hists.items()) + [
+            (TUNE_NODE_LRS[0], killed.metrics),
+            (TUNE_NODE_LRS[1], ran.metrics)]:
+        need[lr] = max(need.get(lr, 0), len(reps))
+    model, loss_fn, batch = tune_setup(seed, dev)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    registry.reset_launch_counts()
+    direct = {}
+    for lr, iters in sorted(need.items()):
+        model.load_state_dict(init)
+        st, step = tune_train(model, loss_fn, lr)
+        _, losses = tune_steps(st, step, batch, seed, 0, iters * TUNE_STEPS)
+        direct[lr] = losses
+        del st, step
+    torch.cuda.synchronize()
+    counts = dict(registry.LAUNCH_COUNTS)
+    del model, init
+    torch.cuda.empty_cache()
+    secs["direct"] = time.perf_counter() - t
+
+    def same_bits(reps):
+        lr = reps[0]["lr"]
+        got = [x for r in reps for x in r["losses"]]
+        return got == direct[lr][:len(got)]
+
+    trials = []
+    for r in rows:
+        lr = float(r["config"]["lr"])
+        reps = hists.get(lr, [])
+        trials.append({
+            "trial_id": r["trial_id"], "lr": lr, "status": r["status"],
+            "iterations": r["iterations"], "final_loss": r["best_score"],
+            "reports": len(reps), "devices": sorted({x["device"]
+                                                     for x in reps}),
+            "bit_exact": bool(reps) and same_bits(reps),
+            "peak_mib": max((x["peak_mib"] for x in reps), default=None),
+            "launches": reps[-1]["launches"] if reps else None})
+    best = min((t for t in trials if t["final_loss"] is not None),
+               key=lambda t: t["final_loss"])
+    out.update({"experiment": {"trials": trials, "results_top1": top_id,
+                               "least_final_loss": best["trial_id"],
+                               "best_score": status.get("best_score"),
+                               "hpo_cli_s": hpo_s},
+                "nodes": node,
+                "node_trial": {"lr": TUNE_NODE_LRS[1],
+                               "losses": [x for m in ran.metrics
+                                          for x in m["losses"]],
+                               "bit_exact": bool(ran.metrics)
+                               and same_bits(ran.metrics)},
+                "killed_trial": {"lr": TUNE_NODE_LRS[0],
+                                 "reports": len(killed.metrics),
+                                 "bit_exact": bool(killed.metrics)
+                                 and same_bits(killed.metrics)},
+                "direct_launches": {k: counts[k] for k in TUNE_FLASH},
+                "seconds": secs})
+    emit(out)
+    for tr in trials:
+        check(tr["status"] in ("SUCCEEDED", "CANCELED"),
+              f"tune: trial {tr['trial_id']} ended {tr['status']}")
+        check(tr["reports"] >= tr["iterations"] >= 1,
+              f"tune: trial {tr['trial_id']} has {tr['reports']} reports "
+              f"for {tr['iterations']} iterations")
+        check(tr["devices"] == [card],
+              f"tune: trial {tr['trial_id']} ran on {tr['devices']}")
+        check(tr["bit_exact"], f"tune: trial {tr['trial_id']}'s losses "
+              f"differ from the direct run at lr {tr['lr']}")
+        reps = hists[tr["lr"]]
+        check(tr["final_loss"] == reps[tr["iterations"] - 1]["loss"],
+              f"tune: trial {tr['trial_id']}'s final loss is not its "
+              f"report at iteration {tr['iterations']}")
+        check(all(x["launches"][k] == 12 * TUNE_STEPS * x["iteration"]
+                  for x in reps for k in TUNE_FLASH),
+              f"tune: trial {tr['trial_id']} launched B1-B3 "
+              f"{[x['launches'] for x in reps]}")
+    check(top_id == best["trial_id"],
+          f"tune: results --top 1 names {top_id}, the least final loss is "
+          f"{best['trial_id']}'s")
+    check(node["statuses"] == {"n0": "CANCELED", "n1": "SUCCEEDED"},
+          f"tune node leg: {node['statuses']} {node.get('errors')}")
+    check(node["killed"]["state"] != "alive",
+          f"tune node leg: the killed trial lives on: {node['killed']}")
+    check(len(ran.metrics) == TUNE_MAX_T and out["node_trial"]["bit_exact"],
+          f"tune node leg: the surviving trial's losses "
+          f"{out['node_trial']['losses']} differ from the direct run's "
+          f"{direct[TUNE_NODE_LRS[1]]}")
+    check(out["killed_trial"]["bit_exact"],
+          "tune node leg: the killed trial's losses differ from the direct "
+          "run's")
+    check(all(s != "alive" for s in node["agent_pids"].values())
+          and all(s != "alive" for s in node["trial_pids"].values()),
+          f"tune node leg: processes outlived shutdown(): {node}")
+    for k in TUNE_FLASH:
+        check(counts[k] > 0, f"tune: {k} never launched in the direct runs")
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,decode,decode_modes,encode,"
                             "serve,cluster,encode_sparse,cpu,profile,train,"
                             "train_dp,parallel,pipeline,mesh_train,benches,"
-                            "configs,kernel_matrix,moe,speech,detection,"
-                            "suite")
+                            "configs,analysis,tune,kernel_matrix,moe,speech,"
+                            "detection,suite")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(ROOT, "tosem_tpu_torch")):
@@ -7560,8 +8043,16 @@ def main(argv=None):
         add(timed("mesh_train", phase_mesh_train, dev, SEED))
     if "benches" in phases:
         add(timed("benches", phase_benches, dev, SEED))
-    if "configs" in phases:
-        timed("configs", phase_configs, dev, SEED)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        if "configs" in phases:
+            timed("configs", phase_configs, dev, SEED, work)
+        if "analysis" in phases:
+            timed("analysis", phase_analysis, work)
+        if "tune" in phases:
+            add(timed("tune", phase_tune, dev, SEED, work))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     if "kernel_matrix" in phases:
         timed("kernel_matrix", phase_kernel_matrix, dev, SEED)
     if "moe" in phases:

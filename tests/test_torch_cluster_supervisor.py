@@ -2,8 +2,8 @@
 supervisor.py``): ``tests/test_cluster_supervisor.py`` run against the
 port, journal replay/reconcile, heartbeat failure detection and
 node-death failover (fast fakes here; the real multi-process legs keep
-their ``slow`` mark). The reference's two trial-plane tests are not
-copied: the agents' trial plane waits for ``tune/`` (ROADMAP.md A14).
+their ``slow`` mark), the pool's trial plane included: a trial whose
+node dies resubmits to a survivor and resumes from its checkpoint.
 Across packages: ``HeadJournal.reconcile`` of the same events gives
 equal tables, and a journal written by either package reconciles in
 the other."""
@@ -12,10 +12,12 @@ import threading
 
 import pytest
 
-from tosem_tpu_torch.cluster.supervisor import (FailureDetector, HeadJournal,
-                                          NodeLostError, NodePool)
+from tosem_tpu_torch.cluster.supervisor import (FailureDetector,
+                                                HeadJournal, NodeLostError,
+                                                NodePool)
 
 TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
+COUNTING = "tosem_tpu_torch.tune.examples:counting"
 
 
 # module-level so spawn-mode agents can unpickle it by reference
@@ -280,6 +282,23 @@ class TestNodePoolFakes:
             pool.submit(cube, 1)
         pool.close()
 
+    def test_trial_with_no_survivors_reports_failed_fast(self):
+        """A trial whose resubmission exhausted the pool must report
+        FAILED immediately, not RESUBMITTING until the poll timeout."""
+        node = _FakeNode()
+        node.start_trial = lambda *a, **k: None    # accepts the trial
+        pool = NodePool(miss_threshold=1)
+        pool.add_node(node, name="n0")
+        pool.start_trial("t1", COUNTING, {"x": 1.0}, max_iterations=4)
+        # the only node dies; resubmission finds no survivors
+        node.kill()
+        pool.detector.check_once()
+        st = pool.trial_status("t1")
+        assert st["status"] == "FAILED"
+        assert "NodeLostError" in st["error"]
+        pool.close()
+
+
 @pytest.mark.slow
 class TestNodePoolProcesses:
     def test_node_death_resubmits_to_survivor(self, tmp_path):
@@ -307,6 +326,42 @@ class TestNodePoolProcesses:
             pool.close(close_nodes=False)
             n0.close()
             n1.close()
+
+    def test_trial_resumes_on_survivor_after_node_death(self, tmp_path):
+        """A node dies mid-trial: the pool resubmits the SAME trial id
+        to a survivor with a shared checkpoint dir, so the trial
+        RESUMES (full metric history, state continued) instead of
+        restarting."""
+        from tosem_tpu_torch.cluster.node import RemoteNode
+        ckdir = str(tmp_path / "shared_ckpts")
+        pool = NodePool(miss_threshold=1, probe_timeout=3.0)
+        nodes = [RemoteNode.spawn_local(num_workers=1,
+                                        extra_sys_path=[TESTS_DIR])
+                 for _ in range(2)]
+        try:
+            for i, n in enumerate(nodes):
+                pool.add_node(n, name=f"n{i}")
+            pool.start_trial("t1", COUNTING, {"x": 1.0},
+                             max_iterations=30, checkpoint_dir=ckdir,
+                             checkpoint_freq=2)
+            # wait until the trial has checkpointed at least once, then
+            # kill its node
+            import time
+            host = pool._trials["t1"]["node"]
+            ck = os.path.join(ckdir, "t1.ckpt")
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline and not os.path.exists(ck):
+                time.sleep(0.1)
+            assert os.path.exists(ck), "trial never checkpointed"
+            dict(pool.live_nodes())[host].kill()
+            st = pool.wait_trial("t1", timeout=120.0)
+            assert st["status"] == "SUCCEEDED", st
+            iters = [m["training_iteration"] for m in st["metrics"]]
+            assert iters == list(range(1, 31)), iters
+            # two hosts contributed: resumed, not restarted
+            assert pool._trials["t1"]["resubmits"] >= 2
+        finally:
+            pool.close(close_nodes=True)
 
 
 # ------------------------------------------------------ across packages

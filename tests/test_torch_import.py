@@ -73,7 +73,13 @@ COPIED_MODULES = [
     "tosem_tpu_torch.cluster.channel", "tosem_tpu_torch.cluster.xlang",
     "tosem_tpu_torch.cluster.stubgen", "tosem_tpu_torch.cluster.bootstrap",
     "tosem_tpu_torch.runtime.bench_runtime",
-    "tosem_tpu_torch.serve.bench_cluster"]
+    "tosem_tpu_torch.serve.bench_cluster",
+    "tosem_tpu_torch.analysis", "tosem_tpu_torch.analysis.study",
+    "tosem_tpu_torch.analysis.replicate", "tosem_tpu_torch.tune",
+    "tosem_tpu_torch.tune.search", "tosem_tpu_torch.tune.schedulers",
+    "tosem_tpu_torch.tune.tune", "tosem_tpu_torch.tune.trial_worker",
+    "tosem_tpu_torch.tune.providers", "tosem_tpu_torch.tune.experiment",
+    "tosem_tpu_torch.tune.examples", "tosem_tpu_torch.hpo_cli"]
 # the control plane: a replica of a plain backend imports these only
 CONTROL_MODULES = [m for m in COPIED_MODULES
                    if m.split(".")[1] in ("native", "runtime", "obs",

@@ -226,8 +226,7 @@ def test_cli_writes_the_suite_csv_on_cpu(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--device=cpu", "--config=chaos"], "A14"),
     (["chaos", "--device=cpu"], "A14"),
-    (["--device=cpu", "--config=flash_autotune"], "A4"),
-    (["--device=cpu", "--config=analysis"], "A12")])
+    (["--device=cpu", "--config=flash_autotune"], "A4")])
 def test_cli_names_the_roadmap_item_of_an_unported_config(argv, item):
     out = _cli(*argv)
     assert out.returncode == 2

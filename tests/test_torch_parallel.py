@@ -265,6 +265,27 @@ class TestBusBandwidth:
                    and r["extra"]["positions"] == 8
                    and r["extra"]["cards"] == 1 for r in rows)
 
+    def test_allreduce_config_thins_its_sweep(self, tmp_path):
+        """``--sweep_every=2`` keeps every second size of the x4 ladder
+        (1 KB, 16 KB, ...) for every collective, up to ``--max_bytes``."""
+        from tosem_tpu_torch import cli
+        from tosem_tpu_torch.utils.results import read_results
+        ids = {}
+        for every in (1, 2):
+            path = tmp_path / f"ar{every}.csv"
+            assert cli.main(["--device=cpu", "--config=allreduce",
+                             "--max_bytes=65536", f"--sweep_every={every}",
+                             f"--results_csv={path}"]) == 0
+            ids[every] = [r["bench_id"] for r in read_results(str(path))]
+        # four sizes (1, 4, 16 and 64 KB) a collective, in size order
+        n = len(_JAX_NAME)
+        assert len(ids[1]) == 4 * n
+        assert ids[2] == [b for i, b in enumerate(ids[1]) if i % 4 in (0, 2)]
+        path = tmp_path / "ar.csv"
+        with pytest.raises(ValueError, match="sweep_every"):
+            cli.main(["--device=cpu", "--config=allreduce",
+                      "--sweep_every=0", f"--results_csv={path}"])
+
 
 # ----------------------------------------------------------------- spmd
 

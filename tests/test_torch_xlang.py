@@ -6,7 +6,7 @@ name, args narrowed to a neutral serialization).
 A copy of ``tests/test_xlang.py`` against the port's
 ``cluster/xlang.py``: the gateway tests. Left out: the compiled C++
 client's tests (``native/xlang_client.cpp``) and the HPO bridge, which
-wait for the port's native clients and ``tune/`` (ROADMAP.md A14).
+wait for the port's native C++ client (ROADMAP.md A14).
 The last test holds the port's wire against the JAX package's client.
 """
 

@@ -55,11 +55,17 @@ mesh, and cluster serving):
                               sweep ``ops/csrc/nms.cu``), COCO-style AP
 - ``tosem_tpu_torch.compile`` ``export_program`` on ``torch.export``
 - ``tosem_tpu_torch.utils``   result CSVs, device timing, the roofline
+- ``tosem_tpu_torch.tune``    HPO: searchers, schedulers, ``tune.run`` on
+                              the runtime, training services (threads,
+                              subprocesses, node agents), the experiment
+                              manager behind ``hpo_cli``
+- ``tosem_tpu_torch.analysis`` the study's test classification and its
+                              RQ3/RQ4 tables
 - ``tosem_tpu_torch.cli``     the experiment runner (``bert_kernels``,
                               ``flash_sparse``, ``allreduce``,
                               ``serve_bench``, ``detection_train``,
-                              ``detection_infer``, ``pointpillars_infer``
-                              and the rest)
+                              ``detection_infer``, ``pointpillars_infer``,
+                              ``analysis`` and the rest)
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 ``import tosem_tpu_torch`` loads neither JAX nor Triton, and builds no

@@ -19,6 +19,7 @@ serve.dispatch      request routed to a replica             crash_replica,
 serve.decode_step   one decode scheduler iteration          evict_pages,
                                                             slow_step
 train.step          trainer ``fit()`` finished one step     preempt
+tune.step           trial step result processed             crash_trial
 ==================  =====================================  =============
 
 A controller is any object with ``on(site, **ctx)`` returning an action

@@ -86,6 +86,14 @@ exports the forward with ``torch.export`` (``compile/export.py``);
 ``detect`` (the NMS sweep, ``ops/csrc/nms.cu`` on the card) at a
 141 x 141 grid and 16,384 points on the card, 4 x 4 and 256 on the CPU.
 
+``--config=analysis`` runs the study's analysis layer
+(``analysis/study.py``): it classifies the test suite under
+``--tests_dir`` into the RQ3/RQ4 tables and correlates the results CSVs
+(``results/*.csv`` and those beside ``--results_csv``, its own rows left
+out) into ``--analysis_out``. Its replication leg runs only where
+``--reference_dir`` holds the study checkout's ``src/``; elsewhere it is
+skipped and says so. The rows run on the host, whatever ``--device``.
+
 ``--config=flash_sparse`` runs ``sparse_kernel_suite``: flash forward and
 forward+backward under the block-sparse mask programs causal,
 ``local:1024`` and ``doc:2048+causal`` at [1, 12, 8192, 64] bf16 on the
@@ -105,7 +113,6 @@ from typing import Any, List
 # yet -> the ROADMAP.md item that ports each
 NOT_PORTED = {
     "flash_autotune": "A4 (the flash half of block selection)",
-    "analysis": "A12 (the analysis config, analysis/)",
     "chaos": "A14 (chaos/runner.py and chaos/cli.py)",
 }
 
@@ -534,6 +541,70 @@ def run_speech_train(args, device) -> List[Any]:
     return rows
 
 
+def run_analysis(args, device) -> List[Any]:
+    """Study analysis layer (L8): classify the test suite into the
+    RQ3/RQ4 taxonomy and correlate the bench CSVs — the consumer role of
+    ``RQs/RQ3/tests_correlate_rq3.csv`` / ``RQs/RQ4/tests_methods_v3.csv``.
+    The JAX package's ``run_analysis``; with no study checkout at
+    ``--reference_dir`` it prints that the replication leg is skipped."""
+    import glob
+    import os
+
+    from tosem_tpu_torch.analysis import run_study
+    from tosem_tpu_torch.utils.results import ResultRow
+
+    out_dir = args.analysis_out
+    # scan both the default results dir and wherever this run is writing;
+    # rows with config=="analysis" are filtered at load so the analysis
+    # never re-ingests its own output
+    bench_csvs = sorted(set(glob.glob("results/*.csv"))
+                        | set(glob.glob(os.path.join(
+                            os.path.dirname(args.results_csv) or ".",
+                            "*.csv"))))
+    summary = run_study(args.tests_dir, bench_csvs, out_dir)
+    rows = [ResultRow(project="analysis", config="analysis",
+                      bench_id=f"tests_{m}", metric="test_count",
+                      value=float(n), unit="tests", device="host",
+                      extra={"out_dir": out_dir})
+            for m, n in sorted(summary["by_method"].items())]
+    rows.append(ResultRow(
+        project="analysis", config="analysis",
+        bench_id="tests_with_strategy", metric="pct",
+        value=float(summary["with_strategy_pct"]), unit="%", device="host",
+        extra={"n_tests": summary["n_tests"],
+               "n_strategies": summary["n_strategies"],
+               "n_projects": summary["n_projects"],
+               "bench_correlations": summary["bench_correlations"]}))
+    # replication leg: when the study checkout is mounted, also score
+    # the classifier against the published per-repo strategy tables
+    ref = args.reference_dir
+    if ref and os.path.isdir(os.path.join(ref, "src")):
+        from tosem_tpu_torch.analysis.replicate import run_replication
+        try:
+            rep = run_replication(ref, out_dir)
+        except FileNotFoundError as e:
+            # a PARTIAL study mount: drop the replication leg only,
+            # never the RQ3/RQ4 rows computed above
+            print(f"  replication leg skipped: {e}")
+            rep = {}
+        for a in rep.get("strategy_agreement", []):
+            rows.append(ResultRow(
+                project="analysis", config="analysis",
+                bench_id=f"replication_{a['project']}",
+                metric="spearman", value=float(a["spearman"]),
+                unit="rank-corr", device="host",
+                extra={"top_overlap": a["top_overlap"],
+                       "top_k": a["top_k"],
+                       "n_shared": a["n_shared_strategies"]}))
+    else:
+        print(f"  replication leg skipped: no study checkout at "
+              f"--reference_dir={ref!r}")
+    for r in rows:
+        print(f"  {r.bench_id}: {r.value:g} {r.unit}")
+    print(f"  tables -> {out_dir}/")
+    return rows
+
+
 def run_kernel_matrix(args, device) -> List[Any]:
     """The cross-backend kernel bench (``ops/bench_kernels.py``) as a
     config: on the card the ``cuda`` arm (graph replay) and the
@@ -598,9 +669,10 @@ def run_allreduce(args, device) -> List[Any]:
     """North-star config 3: the six collectives over a 1-D mesh of
     positions (8 on the CPU, as the JAX package's tests have 8 virtual
     devices; 4 a card on cuda, spread over the cards in turn), 1 KB to
-    256 MB a position (``--max_bytes`` caps it; 4 MB on the CPU). On
-    cuda each timing is one graph of :data:`ALLREDUCE_CALLS` calls; the
-    CPU takes one call a timing."""
+    256 MB a position (``--max_bytes`` caps it; 4 MB on the CPU;
+    ``--sweep_every`` thins the ladder of sizes). On cuda each timing is
+    one graph of :data:`ALLREDUCE_CALLS` calls; the CPU takes one call a
+    timing."""
     import torch
     from tosem_tpu_torch.parallel.collectives import (
         DEFAULT_COLLECTIVE_SWEEP, collective_bench)
@@ -616,9 +688,15 @@ def run_allreduce(args, device) -> List[Any]:
     print(f"  {mesh.size} positions on {mesh.cards()} device(s)"
           + (": the bus is that card's memory, not a link"
              if device.type == "cuda" and mesh.cards() == 1 else ""))
+    if args.sweep_every < 1:
+        raise ValueError(f"--sweep_every must be at least 1, got "
+                         f"{args.sweep_every}")
+    sizes = sorted({s.bytes_per_device for s in DEFAULT_COLLECTIVE_SWEEP})
+    keep = set(sizes[::args.sweep_every])
     rows = []
     for spec in DEFAULT_COLLECTIVE_SWEEP:
-        if cap and spec.bytes_per_device > cap:
+        if (cap and spec.bytes_per_device > cap
+                or spec.bytes_per_device not in keep):
             continue
         row = collective_bench(
             spec, mesh,
@@ -949,7 +1027,8 @@ RUNNERS = {"gemm": run_gemm,
            "speech_train": run_speech_train,
            "detection_train": run_detection_train,
            "detection_infer": run_detection_infer,
-           "pointpillars_infer": run_pointpillars_infer}
+           "pointpillars_infer": run_pointpillars_infer,
+           "analysis": run_analysis}
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -967,6 +1046,9 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max_bytes", type=int, default=0,
                     help="allreduce: largest buffer a position (0 = the "
                          "device's default)")
+    ap.add_argument("--sweep_every", type=int, default=1,
+                    help="allreduce: keep every n-th size of the sweep's "
+                         "x4 ladder from 1 KB (2: 1 KB, 16 KB, 256 KB, ...)")
     ap.add_argument("--preset", choices=("tiny", "base"), default="tiny",
                     help="decode_bench/decode_scenarios: the decoder the "
                          "legs serve (the JAX package's tiny one, or "
@@ -993,6 +1075,16 @@ def make_parser() -> argparse.ArgumentParser:
                          "write the kernel summary CSV")
     ap.add_argument("--remat", default="none",
                     help="bert_train activation remat: none|full|dots")
+    ap.add_argument("--tests_dir", default="tests",
+                    help="analysis: the test-suite directory")
+    ap.add_argument("--analysis_out", default="results/torch_analysis",
+                    help="analysis: output directory of the RQ tables "
+                         "(the port's own: results/analysis holds the "
+                         "JAX package's)")
+    ap.add_argument("--reference_dir", default="",
+                    help="analysis: the study checkout for the "
+                         "replication leg (skipped when empty or "
+                         "without a src/)")
     return ap
 
 

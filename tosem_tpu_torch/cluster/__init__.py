@@ -11,7 +11,9 @@ channels (``cluster/channel.py``), the parameter server
 bootstrap (``cluster/bootstrap.py``), stub generation
 (``cluster/stubgen.py``) and the cross-language gateway
 (``cluster/xlang.py``): copies of the JAX package's modules of the same
-names. The agents' trial plane comes with ``tune/`` (ROADMAP.md A14).
+names, the agents' trial plane included (``start_trial``,
+``trial_status``, ``kill_trial``: ``tosem_tpu_torch.tune`` trials as
+processes of an agent).
 
 Import-light: the names below load on first use, and nothing here loads
 torch or numpy until a tensor is sent or received, so node agents and

@@ -1,7 +1,7 @@
 """Remote-machine bootstrap — the SSH-shaped training-service leg.
 
-The reference's remote training service does three things a
-``NodeAgentService`` (``tune/providers.py``) assumes away: it
+The reference's remote training service does three things our
+:class:`~tosem_tpu_torch.tune.providers.NodeAgentService` assumed away: it
 STARTS the remote environment itself over a shell transport, waits for
 it to come up, and tears it down afterwards
 (``ts/nni_manager/training_service/remote_machine/
@@ -18,11 +18,11 @@ module supplies that leg:
   connect a :class:`~tosem_tpu_torch.cluster.node.RemoteNode` to it. No code
   upload step: the repo is the environment (the reference rsyncs a
   codeDir; our agents import by PYTHONPATH).
-- :class:`BootstrapService` — a ``tune`` ``TrainingService`` that
+- :class:`BootstrapService` — a
+  :class:`~tosem_tpu_torch.tune.providers.TrainingService` that
   bootstraps its agents on construction and tears them down in
   ``shutdown()``, with trials delegated to the agent trial plane
-  (killable mid-flight). The port's ``tune/`` and the agents' trial
-  plane are ROADMAP.md A14, so constructing it raises, naming that item.
+  (killable mid-flight).
 
 Cross-host reach note: agents bind loopback by design (`cluster/rpc.py`
 refuses public binds — the control plane is unauthenticated pickle), so
@@ -165,8 +165,8 @@ class ElasticAgentPool:
     drives in-process workers and whole agents alike.
 
     ``nodes`` is a LIVE list (mutated in place): hand it to a
-    ``NodeAgentService`` (``tune/``, ROADMAP.md A14) and newly launched
-    agents join the round-robin immediately.
+    :class:`~tosem_tpu_torch.tune.providers.NodeAgentService` and newly
+    launched agents join the round-robin immediately.
     """
 
     def __init__(self, runner_factory: Callable[[], CommandRunner], *,
@@ -289,10 +289,8 @@ class BootstrapService:
                  extra_sys_path: Sequence[str] = (),
                  max_concurrent: int = 4,
                  startup_timeout: float = 60.0):
+        from tosem_tpu_torch.tune.providers import NodeAgentService
         self._agents: List[BootstrappedAgent] = []
-        raise NotImplementedError(
-            "BootstrapService runs trials on the node agents' trial "
-            "plane, which comes with tune/ (ROADMAP.md A14)")
         try:
             for r in runners:
                 self._agents.append(bootstrap_agent(

@@ -11,13 +11,13 @@ single-box multi-daemon topologies (`cluster_utils` style). Functions
 ship as pickled blobs, so the remote side needs the same code
 importable — the multiprocessing-spawn contract, cluster-wide.
 
-A copy of the JAX package's ``cluster/node.py`` without its trial plane
-(``start_trial``/``trial_status``/``kill_trial``), which waits for the
-port of ``tune/`` (ROADMAP.md A14). The agent never imports torch and
-never touches the card: its task pool is spawned, and each serve
-replica is a fresh interpreter that sees every card the agent's
-environment shows. A replica's ``devices`` is the number of mesh
-positions it holds (all on its own device), so the slots its gang
+A copy of the JAX package's ``cluster/node.py``. The agent never imports
+torch and never touches the card: its task pool is spawned, and each
+serve replica and each trial (``start_trial``, a
+``tosem_tpu_torch.tune.trial_worker`` process) is a fresh interpreter
+that sees every card the agent's environment shows, and dies with the
+agent (``die_with_parent``). A replica's ``devices`` is the number of
+mesh positions it holds (all on its own device), so the slots its gang
 withholds.
 """
 from __future__ import annotations
@@ -36,7 +36,7 @@ from tosem_tpu_torch.cluster.rpc import RpcClient, RpcError, RpcServer
 
 class NodeDrainingError(RuntimeError):
     """The node agent is draining (unhealthy or told to drain): it
-    rejects new tasks and replicas immediately instead of hanging callers.
+    rejects new tasks/trials immediately instead of hanging callers.
     In-flight work is allowed to finish — graceful degradation, the
     raylet's drain-before-termination contract."""
 
@@ -142,6 +142,12 @@ class _AgentHandlers:
         self._active_pg: Dict[str, int] = {}
         # the replicas' stderr files
         self._work_dir = tempfile.mkdtemp(prefix="agent_")
+        # trial plane: subprocess-backed so a RUNNING trial is actually
+        # killable (a pool future is not) — the remote training
+        # service's cancelTrialJob contract
+        self._trials: Dict[str, Dict[str, Any]] = {}
+        self._trials_lock = threading.Lock()
+        self._trial_dir = tempfile.mkdtemp(prefix="agent_trials_")
         # serve replica plane: long-lived backend processes this node
         # hosts for the cluster serving tier (each is its own RpcServer
         # the router tier talks to directly — the agent only does
@@ -193,6 +199,10 @@ class _AgentHandlers:
     def stats(self) -> Dict[str, Any]:
         with self._adm:
             reserved = sum(self._reserved.values())
+        with self._trials_lock:
+            active_trials = sum(
+                1 for t in self._trials.values()
+                if t["status"] in ("WAITING", "RUNNING"))
         with self._sreps_lock:
             live = [r for r in self._sreps.values()
                     if r["proc"].poll() is None]
@@ -205,6 +215,7 @@ class _AgentHandlers:
                 "tasks_done": self._tasks_done,
                 "reserved_slots": reserved,
                 "free_slots": self._num_workers - reserved,
+                "active_trials": active_trials,
                 "replicas_active": len(live),
                 "replica_slots_free": max(
                     0, self._num_workers - reserved - replica_slots)}
@@ -290,6 +301,154 @@ class _AgentHandlers:
         with self._done_lock:
             self._tasks_done += len(outs)
         return outs
+
+    # -- trial plane (remote training service) -------------------------
+
+    def start_trial(self, task_id: str, trainable_ref: str,
+                    config_json: str, max_iterations: int,
+                    pg: Optional[str] = None,
+                    checkpoint_freq: int = 5,
+                    checkpoint_dir: Optional[str] = None) -> None:
+        """Launch a trial as a dedicated killable subprocess. Returns
+        immediately; admission (the agent's slot gate) happens on a
+        background thread, so a full node queues the trial rather than
+        blocking the RPC. ``checkpoint_dir`` overrides the agent-local
+        trial dir for the checkpoint file — point it at shared storage
+        and a trial resubmitted on ANOTHER node resumes from the same
+        checkpoint (cross-node crash-resume)."""
+        import threading
+        with self._trials_lock:
+            prior = self._trials.get(task_id)
+            if prior is not None and prior["status"] not in ("FAILED",
+                                                             "CANCELED"):
+                raise ValueError(f"trial {task_id!r} already exists")
+            # resubmitting a FAILED/CANCELED id relaunches it against
+            # the same checkpoint file — crash-resume, not restart
+            # (class trainables pick up at their last checkpoint)
+            t = {"status": "WAITING", "proc": None, "error": "",
+                 "killed": False}
+            if prior is not None:
+                t["prog_off"] = prior.get("prog_off", 0)
+                t["prog_cache"] = prior.get("prog_cache", [])
+            self._trials[task_id] = t
+
+        out = os.path.join(self._trial_dir, f"{task_id}.json")
+        progress = os.path.join(self._trial_dir, f"{task_id}.progress")
+        errp = os.path.join(self._trial_dir, f"{task_id}.err")
+
+        def work():
+            from tosem_tpu_torch.tune.trial_worker import worker_argv
+            admitted = False
+            try:
+                # inside the guard: an admission failure (e.g. the gang
+                # reservation was released while this trial queued) must
+                # fail the trial, not strand it in WAITING
+                self._admit(pg)
+                admitted = True
+                with self._trials_lock:
+                    if t["killed"]:
+                        t["status"] = "CANCELED"
+                        return
+                    env = dict(os.environ)
+                    # the agent's sys.path (repo root + --path extras)
+                    # must reach the child, or the trainable is not
+                    # importable there
+                    env["PYTHONPATH"] = os.pathsep.join(
+                        [p for p in sys.path if p])
+                    errf = open(errp, "wb")
+                    if checkpoint_dir:
+                        os.makedirs(checkpoint_dir, exist_ok=True)
+                        ckpt = os.path.join(checkpoint_dir,
+                                            f"{task_id}.ckpt")
+                    else:
+                        ckpt = os.path.join(self._trial_dir,
+                                            f"{task_id}.ckpt")
+                    t["proc"] = subprocess.Popen(
+                        worker_argv(trainable_ref, config_json,
+                                    max_iterations, out, progress,
+                                    checkpoint_path=ckpt,
+                                    checkpoint_freq=checkpoint_freq),
+                        env=env, stdout=subprocess.DEVNULL, stderr=errf,
+                        preexec_fn=die_with_parent)
+                    errf.close()
+                    t["status"] = "RUNNING"
+                rc = t["proc"].wait()
+                with self._trials_lock:
+                    if t["killed"]:
+                        t["status"] = "CANCELED"
+                    elif rc == 0 and os.path.exists(out):
+                        t["status"] = "SUCCEEDED"
+                    else:
+                        err = b""
+                        if os.path.exists(errp):
+                            with open(errp, "rb") as f:
+                                err = f.read()
+                        t["error"] = (f"rc={rc}: "
+                                      f"{err[-500:].decode(errors='replace')}")
+                        t["status"] = "FAILED"
+            except BaseException as e:
+                # a spawn/admission failure must not strand the trial in
+                # WAITING with no diagnostic
+                with self._trials_lock:
+                    t["error"] = repr(e)
+                    t["status"] = "FAILED"
+            finally:
+                if admitted:
+                    self._leave(pg)
+                with self._done_lock:
+                    self._tasks_done += 1
+
+        threading.Thread(target=work, daemon=True,
+                         name=f"trial-{task_id}").start()
+
+    def trial_status(self, task_id: str,
+                     since: int = 0) -> Dict[str, Any]:
+        """Status + metrics (final result file when done, else the
+        progress stream — the intermediate-result side channel).
+        ``since`` slices the returned metrics (the caller's count of
+        already-received reports) so a poll loop ships only the new
+        suffix; the agent itself reads the progress file incrementally
+        via a cached byte offset — O(new lines) on both sides."""
+        with self._trials_lock:
+            t = self._trials.get(task_id)
+            if t is None:
+                raise KeyError(f"unknown trial {task_id!r}")
+            status, error = t["status"], t["error"]
+        from tosem_tpu_torch.tune.trial_worker import read_progress_incr
+        out = os.path.join(self._trial_dir, f"{task_id}.json")
+        if status == "SUCCEEDED" and os.path.exists(out):
+            import json
+            with open(out) as f:
+                metrics = json.load(f)["metrics"]
+        else:
+            with self._trials_lock:
+                new, off = read_progress_incr(
+                    os.path.join(self._trial_dir,
+                                 f"{task_id}.progress"),
+                    t.get("prog_off", 0))
+                t["prog_off"] = off
+                t.setdefault("prog_cache", []).extend(new)
+                metrics = list(t["prog_cache"])
+        return {"status": status, "metrics": metrics[since:],
+                "n_total": len(metrics), "error": error}
+
+    def kill_trial(self, task_id: str) -> bool:
+        """Cancel a trial in ANY live state: a WAITING one never starts,
+        a RUNNING one's subprocess is killed (partial metrics survive in
+        the progress file)."""
+        with self._trials_lock:
+            t = self._trials.get(task_id)
+            if t is None:
+                raise KeyError(f"unknown trial {task_id!r}")
+            if t["status"] in ("SUCCEEDED", "FAILED", "CANCELED"):
+                return False
+            t["killed"] = True
+            proc = t["proc"]
+            if t["status"] == "WAITING":
+                t["status"] = "CANCELED"
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+        return True
 
     # -- serve replica plane --------------------------------------------
 
@@ -395,8 +554,11 @@ class _AgentHandlers:
 
     def close(self) -> None:
         self._pool.shutdown(wait=False, cancel_futures=True)
+        with self._trials_lock:
+            procs = [t["proc"] for t in self._trials.values()
+                     if t["proc"] is not None]
         with self._sreps_lock:
-            procs = [r["proc"] for r in self._sreps.values()]
+            procs += [r["proc"] for r in self._sreps.values()]
             lifelines = [r["lifeline"] for r in self._sreps.values()]
             self._sreps.clear()
         for p in procs:
@@ -409,6 +571,7 @@ class _AgentHandlers:
                 pass
         import shutil
         shutil.rmtree(self._work_dir, ignore_errors=True)
+        shutil.rmtree(self._trial_dir, ignore_errors=True)
 
 
 def serve(port: int = 0, num_workers: int = 2,
@@ -521,6 +684,25 @@ class RemoteNode:
                     for b in self._client.call("run_batch", blobs)]
         except RpcError as e:
             raise self._translate(e) from None
+
+    # -- trial plane ---------------------------------------------------
+
+    def start_trial(self, task_id: str, trainable_ref: str,
+                    config: Dict[str, Any], max_iterations: int,
+                    pg: Optional[str] = None,
+                    checkpoint_freq: int = 5,
+                    checkpoint_dir: Optional[str] = None) -> None:
+        import json
+        self._client.call("start_trial", task_id, trainable_ref,
+                          json.dumps(config), max_iterations, pg,
+                          checkpoint_freq, checkpoint_dir)
+
+    def trial_status(self, task_id: str,
+                     since: int = 0) -> Dict[str, Any]:
+        return self._client.call("trial_status", task_id, since)
+
+    def kill_trial(self, task_id: str) -> bool:
+        return bool(self._client.call("kill_trial", task_id))
 
     # -- serve replica plane -------------------------------------------
 

@@ -17,12 +17,13 @@ surviving raylets. Here the head is the driver process:
   never finished.
 - :class:`NodePool` ties both together: ``submit``/``map`` route tasks
   to live nodes and transparently retry on surviving nodes when a node
-  dies mid-call, and layers composed onto the pool (cluster serving)
-  hear of every death and suspicion through listeners.
+  dies mid-call; trials started through the pool are resubmitted under
+  the SAME trial id to a surviving node, so a shared ``checkpoint_dir``
+  resumes them from their last checkpoint instead of restarting; and
+  layers composed onto the pool (cluster serving) hear of every death
+  and suspicion through listeners.
 
-A copy of the JAX package's ``cluster/supervisor.py`` without the
-pool's trial plane (``start_trial``/``trial_status``/``wait_trial``),
-which waits for the port of ``tune/`` (ROADMAP.md A14). The journal's
+A copy of the JAX package's ``cluster/supervisor.py``. The journal's
 events and ``reconcile`` are the reference's, trial events included, so
 a journal written by either package reconciles in the other.
 
@@ -62,7 +63,8 @@ class HeadJournal:
     """Append-only JSONL journal of head-node control state.
 
     Each :meth:`record` is one fsync'd line, so the journal survives a
-    head crash mid-write (a torn final line is skipped on load).
+    head crash mid-write (a torn final line is skipped on load — same
+    contract as the trial progress files).
 
     Epoch lease: opening a journal ACQUIRES the next epoch from the
     fence file beside it (``<path>.epoch``), and every :meth:`record`
@@ -449,7 +451,10 @@ class NodePool:
     """Head-side router over node agents with self-healing semantics.
 
     ``submit``/``map`` retry on surviving nodes when a node dies
-    mid-call. All control transitions are journaled when a
+    mid-call; trials are tracked and resubmitted (same id) to a
+    survivor when their node is declared dead — give trials a shared
+    ``checkpoint_dir`` so the resubmission RESUMES from the last
+    checkpoint. All control transitions are journaled when a
     ``journal_path`` is given, so :meth:`recover` can rebuild a crashed
     head's state.
     """
@@ -463,8 +468,10 @@ class NodePool:
         self._nodes: Dict[str, RemoteNode] = {}
         self._rr = 0
         self._journal = HeadJournal(journal_path) if journal_path else None
-        # node-death listeners (the cluster serving controller re-places
-        # a dead node's replicas through one of these)
+        self._trials: Dict[str, Dict[str, Any]] = {}
+        # node-death listeners beyond the trial plane (the cluster
+        # serving controller re-places a dead node's replicas through
+        # one of these) — called AFTER the pool's own resubmission
         self._death_listeners: List[Callable[[str, RemoteNode], None]] = []
         # suspicion listeners: fired on SUSPECT enter/clear so the
         # serving layer can de-preference a gray node's replicas
@@ -517,8 +524,8 @@ class NodePool:
 
     def add_death_listener(
             self, fn: Callable[[str, RemoteNode], None]) -> None:
-        """Run ``fn(name, node)`` whenever a node is declared dead.
-        Listener errors are
+        """Run ``fn(name, node)`` whenever a node is declared dead,
+        after the pool's own trial resubmission. Listener errors are
         journaled, never propagated — one broken listener must not
         stop the detector sweep or other listeners."""
         with self._lock:
@@ -544,12 +551,23 @@ class NodePool:
                              error=repr(e))
 
     def _on_node_dead(self, name: str, node: RemoteNode) -> None:
-        """Detector callback: drop the corpse, journal it, and tell the
+        """Detector callback: drop the corpse and resubmit its trials
+        to survivors (same trial id ⇒ checkpoint resume), then tell the
         listeners."""
         with self._lock:
             self._nodes.pop(name, None)
+            stranded = [tid for tid, t in self._trials.items()
+                        if t["node"] == name and not t.get("terminal")]
             listeners = list(self._death_listeners)
         self._record("node_removed", name=name, reason="heartbeat")
+        for tid in stranded:
+            try:
+                self._resubmit_trial(tid)
+            except Exception as e:
+                self._record("trial_failed", trial_id=tid, error=repr(e))
+                with self._lock:
+                    self._trials[tid]["terminal"] = True
+                    self._trials[tid]["error"] = repr(e)
         for fn in listeners:
             try:
                 fn(name, node)
@@ -608,6 +626,103 @@ class NodePool:
     def map(self, fn: Callable, items) -> List[Any]:
         return [self.submit(fn, it) for it in items]
 
+    # -- trial plane ---------------------------------------------------
+
+    def start_trial(self, trial_id: str, trainable_ref: str,
+                    config: Dict[str, Any], max_iterations: int,
+                    checkpoint_dir: Optional[str] = None,
+                    checkpoint_freq: int = 5) -> str:
+        """Route a trial to a live node and track it for resubmission.
+        With a shared ``checkpoint_dir``, a node death mid-trial resumes
+        the trial on a survivor from its last checkpoint (same-id
+        resubmit); without one, the resubmitted trial restarts."""
+        with self._lock:
+            self._trials[trial_id] = {
+                "trainable_ref": trainable_ref, "config": dict(config),
+                "max_iterations": max_iterations,
+                "checkpoint_dir": checkpoint_dir,
+                "checkpoint_freq": checkpoint_freq,
+                "node": None, "resubmits": 0, "terminal": False,
+            }
+        return self._resubmit_trial(trial_id)
+
+    def _resubmit_trial(self, trial_id: str) -> str:
+        with self._lock:
+            t = self._trials[trial_id]
+            tried: set = {t["node"]} if t["node"] else set()
+        last_err: Optional[BaseException] = None
+        while True:
+            with self._lock:
+                name = self._pick_locked(tried)
+                node = self._nodes.get(name) if name else None
+            if node is None:
+                raise NodeLostError(
+                    f"no live node for trial {trial_id!r}"
+                    + (f" (last error: {last_err!r})" if last_err else ""))
+            try:
+                node.start_trial(trial_id, t["trainable_ref"], t["config"],
+                                 t["max_iterations"],
+                                 checkpoint_freq=t["checkpoint_freq"],
+                                 checkpoint_dir=t["checkpoint_dir"])
+            except (ConnectionError, TimeoutError, OSError) as e:
+                tried.add(name)
+                last_err = e
+                self.detector.declare_dead(name)
+                continue
+            with self._lock:
+                t["node"] = name
+                t["resubmits"] += 1
+            self._record("trial_started", trial_id=trial_id, node=name,
+                         attempt=t["resubmits"])
+            return name
+
+    def trial_status(self, trial_id: str) -> Dict[str, Any]:
+        with self._lock:
+            t = self._trials[trial_id]
+            # a trial whose resubmission already failed terminally (no
+            # surviving nodes) must report that, not RESUBMITTING forever
+            if t.get("terminal") and t.get("error"):
+                return {"status": "FAILED", "metrics": [], "n_total": 0,
+                        "error": t["error"]}
+            name = t["node"]
+            node = self._nodes.get(name)
+        if node is None:
+            return {"status": "RESUBMITTING", "metrics": [],
+                    "n_total": 0, "error": ""}
+        try:
+            st = node.trial_status(trial_id)
+        except (ConnectionError, TimeoutError, OSError):
+            # declare the node we actually probed — by now the detector
+            # may have re-homed the trial onto a healthy replacement
+            self.detector.declare_dead(name)
+            return {"status": "RESUBMITTING", "metrics": [],
+                    "n_total": 0, "error": ""}
+        if st["status"] in ("SUCCEEDED", "FAILED", "CANCELED"):
+            with self._lock:
+                if not t.get("terminal"):
+                    t["terminal"] = True
+                    self._record(
+                        "trial_done" if st["status"] == "SUCCEEDED"
+                        else "trial_failed", trial_id=trial_id,
+                        status=st["status"])
+        return st
+
+    def wait_trial(self, trial_id: str, timeout: float = 120.0,
+                   poll_s: float = 0.2) -> Dict[str, Any]:
+        """Poll until the trial reaches a terminal state, driving the
+        failure detector between polls so node death is noticed even
+        without the background thread running."""
+        deadline = time.monotonic() + timeout
+        st: Dict[str, Any] = {"status": "UNKNOWN"}
+        while time.monotonic() < deadline:
+            self.detector.check_once()
+            st = self.trial_status(trial_id)
+            if st["status"] in ("SUCCEEDED", "FAILED", "CANCELED"):
+                return st
+            time.sleep(poll_s)
+        raise TimeoutError(f"trial {trial_id!r} not terminal after "
+                           f"{timeout}s (last: {st['status']})")
+
     # -- head crash-restart --------------------------------------------
 
     @classmethod
@@ -617,8 +732,7 @@ class NodePool:
         """Rebuild a head from its journal: re-register every node that
         still answers health probes, journal the ones that don't as
         removed, and leave ``outstanding_work``/``outstanding_trials``
-        on the instance for the caller to resubmit (trials are the
-        reference's trial plane's: the port journals none)."""
+        on the instance for the caller to resubmit."""
         state = HeadJournal.reconcile(HeadJournal.load(journal_path))
         pool = cls(journal_path=journal_path, probe_timeout=probe_timeout,
                    **kwargs)

@@ -1,4 +1,4 @@
-"""Shared op-level helpers: matmul precision names.
+"""Shared op-level helpers: matmul precision names and settings.
 
 The JAX package passes a ``precision`` name to every matmul. PyTorch has
 no per-call precision argument; its float32 matmul and cuDNN precisions
@@ -44,6 +44,33 @@ def precision(name: Optional[str]):
     finally:
         torch.backends.cuda.matmul.allow_tf32, \
             torch.backends.cudnn.allow_tf32 = old
+
+
+MATMUL_ENV = ("CUBLAS_WORKSPACE_CONFIG", "CUBLASLT_WORKSPACE_SIZE",
+              "NVIDIA_TF32_OVERRIDE", "TORCH_BLAS_PREFER_CUBLASLT",
+              "CUDA_VISIBLE_DEVICES")
+
+
+def matmul_settings() -> dict:
+    """This process's switches that decide how cuBLAS and cuDNN round:
+    what two processes must hold equal for their products to agree bit
+    for bit."""
+    import os
+    b = torch.backends
+    out = {"tf32_matmul": b.cuda.matmul.allow_tf32,
+           "tf32_cudnn": b.cudnn.allow_tf32,
+           "float32_matmul_precision": torch.get_float32_matmul_precision(),
+           "bf16_reduced_reduction":
+               b.cuda.matmul.allow_bf16_reduced_precision_reduction,
+           "fp16_reduced_reduction":
+               b.cuda.matmul.allow_fp16_reduced_precision_reduction,
+           "deterministic": torch.are_deterministic_algorithms_enabled(),
+           "cudnn_benchmark": b.cudnn.benchmark,
+           "torch": torch.__version__, "cuda": torch.version.cuda,
+           "env": {k: os.environ.get(k) for k in MATMUL_ENV}}
+    if hasattr(b.cuda, "preferred_blas_library"):
+        out["blas"] = str(b.cuda.preferred_blas_library())
+    return out
 
 
 def resolve_device(device) -> torch.device:

@@ -646,6 +646,9 @@ class TrainWorkerBackend:
         # (stage, shard) gradients this rank computed, aborted steps
         # included: what its kernels' launch counts are read against
         self._shard_grads = 0
+        # [step, shard, loss] of every shard this rank computed: what a
+        # fold that parts from another arm is traced back through
+        self._shard_losses: List[List[Any]] = []
         # the clock that measures the compute region (the watchdog's
         # evidence); tests freeze it so eviction rests on reports alone
         self.clock: Callable[[], float] = time.perf_counter
@@ -835,6 +838,8 @@ class TrainWorkerBackend:
             for arrays, release, _, _ in results.values():
                 release()
         mean = _mean_loss(total_loss, job.grain)
+        self._shard_losses.extend([step, shard, float(shard_loss[j])]
+                                  for j, shard in enumerate(self._shards))
         self._history.append(mean)
         return {"step": step + 1, "loss": mean, "reduce": reduce_stats,
                 "compute_ms": round(compute_ms, 3),
@@ -899,12 +904,17 @@ class TrainWorkerBackend:
         """The rank's place, and what it computed: ``shard_grads`` and
         the kernels' launch counts of its process (one process a rank on
         the nodes backend; on the threads backend every rank reports
-        the trainer process's counts)."""
+        the trainer process's counts), each shard's loss as
+        ``[step, shard, loss]``, and the process's rounding settings
+        (:func:`~tosem_tpu_torch.ops.common.matmul_settings`)."""
         from tosem_tpu_torch.ops import registry
+        from tosem_tpu_torch.ops.common import matmul_settings
         return {"rank": self._rank, "world": self._world,
                 "shards": list(self._shards), "step": self.last_step(),
                 "buckets": len(self._buckets), "gen": self._gen,
                 "shard_grads": self._shard_grads,
+                "shard_losses": [list(r) for r in self._shard_losses],
+                "matmul_settings": matmul_settings(),
                 "launch_counts": dict(registry.LAUNCH_COUNTS)}
 
     def close(self) -> None:
