@@ -9,7 +9,7 @@ Phases, each printing one JSON line:
 
 1. build    — nvcc builds every kernel source of ``tosem_tpu_torch/ops/csrc``
               (one process per source, started together); the bf16 B2/B3
-              bodies at D = 16, 32 and 64 must hold HMMA, LDSM and LDGSTS
+              bodies at D = 16, 32, 64 and 128 must hold HMMA, LDSM and LDGSTS
               in their SASS (``cuobjdump -sass``) and spill nothing
               (``ptxas -v``), and report the blocks an SM holds; every
               instantiation of B6's, B7's and B8's warp-row bodies must
@@ -17,7 +17,8 @@ Phases, each printing one JSON line:
               STG.E.128) and spill nothing, every instantiation of
               B4/B5's chunk body 16-byte global loads and no spill, and
               N1's three kernels spill nothing (registers and shared
-              memory from ``ptxas -v``).
+              memory from ``ptxas -v``), and neither does any B1-B3 body
+              built at D = 128 (fp32 and bf16, dense and schedule mode).
 2. kernels  — each CUDA kernel against its plain PyTorch version on the
               card, at the main path's shapes, bf16 and fp32, with its
               time, its bound from bytes and operations, and a library
@@ -61,7 +62,14 @@ Phases, each printing one JSON line:
               and bf16, with a PARTIAL-as-FULL yardstick, FullMask ==
               dense and CausalMask == causal bit for bit, B2/B3 launched
               twice; timed at the main paths' shapes beside SDPA with the
-              same dense mask.
+              same dense mask. C1's head dims: B1, B2 and B3 at D = 128
+              and at D = 80 (which the wrappers run at 128, zero-padded),
+              dense, with key padding and under local:128:127, fp32 and
+              bf16, held to the same limits at the caller's scale
+              1/sqrt(D), each launched twice bit for bit; D = 160 raising
+              before any launch; the six entry points timed at [8, 512,
+              12, 128] bf16 beside their bounds, plain versions and SDPA,
+              with the D = 80 call's time and the bytes its padding moves.
 3. decode   — BERT-base greedy decode through ``BertDecodeBackend``'s
               client protocol: 8 packed prompts x 32 new tokens, then a
               prompt that hits the prefix cache, whose stream must equal
@@ -208,8 +216,8 @@ Phases, each printing one JSON line:
               launches equal positions x calls. Then the device ms of the
               sharded calls beside the unsharded kernels (one card: no
               speedup is read), and ``--config=allreduce`` at its
-              default of 4 positions a card (1 KB, 16 KB, 256 KB, 4 MB
-              and 64 MB a position, each timing one graph of 256 calls), each row beside the
+              default of 4 positions a card (1 KB, 256 KB and 64 MB a
+              position, each timing one graph of 256 calls), each row beside the
               card's name and power limit; on one card the "bus" is its
               memory.
 7c. pipeline — BERT-base as a GPipe pipeline over pp = 4 positions on
@@ -310,6 +318,28 @@ Phases, each printing one JSON line:
               process must be gone (exited and reaped);
               the other finishes with the direct run's losses bit for
               bit; ``shutdown()`` leaves no agent or trial process behind.
+7f3. chaos  — the chaos runner on the card (budget 120 s). (a) The five
+              canned plans whose workloads compute on tensors, each through
+              ``python -m tosem_tpu_torch.cli chaos --plan <p> --json`` in
+              its own interpreter, two at a time: ``decode-chaos`` (KV
+              pages spilled and the replica crashed mid-decode),
+              ``decode-migrate`` (a decode replica drained, the prefill
+              replica killed), ``prefix-node-kill`` (the node holding the
+              hot prefix SIGKILLed), ``train-preempt`` (``fit`` preempted
+              and resumed) and ``train-cluster`` (a dp gang on node agents
+              shrunk by a node kill and grown back). Each exits 0 with its
+              report ``ok``: no error surfaced, every sequence's tokens
+              the fault-free run's, 2 injections for ``decode-chaos``,
+              losses bit for bit with a shrink and a grow for
+              ``train-cluster``, 10 steps and one preemption for
+              ``train-preempt``; the fault-free pass launched B1 and B4
+              (B5 too for ``prefix-node-kill``) and the trained state is
+              on the card. (b) Meanwhile, in this process,
+              ``decode-chaos`` at BERT-base, its faults unchanged: every
+              sequence equals the fault-free run's. Where streams part,
+              each parted sequence's first differing step and top-1 minus
+              top-2 logit margin print before the run fails (ROADMAP C2).
+              The other twelve plans are host-only and stay CPU tests.
 7g. kernel_matrix — the kernel parity harness (``ops/parity.py``) on the
               card: every scenario of the flash, paged and schedule
               matrices with the ``cuda`` arm against the ``torch`` arm
@@ -386,7 +416,7 @@ Phases, each printing one JSON line:
               forward+backward). Every row must read under the card's
               peak (a row above it means a timing window closed early).
 
-``--phases`` picks a subset (default: all twenty-four), e.g.
+``--phases`` picks a subset (default: all twenty-five), e.g.
 ``build,kernels``
 for a first call after a kernel change, ``build,kernels,train`` for the
 training path, ``build,train_dp`` for data-parallel training,
@@ -399,7 +429,8 @@ and HPO trials on the card, ``build,decode,serve`` for the served path,
 ``build,decode,cluster``
 for cluster serving, ``build,benches`` for the benches,
 ``build,moe,speech`` for MoE-BERT and the speech family,
-``build,detection`` for the detection family, or
+``build,detection`` for the detection family, ``chaos`` for the
+chaos runner, or
 ``build,kernels,decode,decode_modes,serve`` for the decode modes.
 
 The launch counts of every kernel are set to 0 just before the decode,
@@ -605,7 +636,7 @@ def ptxas_record(what, line, faults):
 
 
 def bwd_tc_report():
-    """The four bf16 entry points of B2/B3 at D = 16, 32 and 64, with the
+    """The four bf16 entry points of B2/B3 at D = 16, 32, 64 and 128, with the
     blocks an SM holds (``flash_bwd_tc_blocks_per_sm``) and, where this
     run built the library, the ``ptxas -v`` line. Returns (report,
     faults): a body whose SASS lacks HMMA, LDSM or LDGSTS, or that
@@ -622,7 +653,7 @@ def bwd_tc_report():
     blocks.restype = ctypes.c_int
     report, faults = {}, []
     for base, (dkv, sched) in BWD_TC.items():
-        for D in (16, 32, 64):
+        for D in (16, 32, 64, 128):
             what = f"{base}<{D}>"
             names = [n for n in sass if re.search(rf"\d{base}ILi{D}E", n)]
             check(len(names) == 1, f"{what}: {len(names)} SASS functions")
@@ -659,9 +690,11 @@ def body_report(source, needs, pick, count, name):
     ``needs``, or that spills, is a fault, and so is a count other than
     ``count``."""
     from tosem_tpu_torch.ops import _build
-    sass = sass_counts(_build._lib_path(source), needs)
     built = source in _build.BUILD_LOG
     ptx = ptxas_summary(_build.BUILD_LOG[source][1]) if built else {}
+    # with no instruction to count, the ptxas lines name the bodies
+    sass = (sass_counts(_build._lib_path(source), needs) if needs
+            else {n: {} for n in ptx})
     names = sorted(n for n in sass if pick(n))
     check(len(names) == count,
           f"{len(names)} {source} bodies in the SASS, expected {count}")
@@ -706,6 +739,30 @@ def nms_report():
         m = re.search(r"nms_(?:gather|mask|sweep)_kernel", mangled)
         return m.group(0) if m else mangled
     return body_report("nms", (), lambda n: name(n) != n, 3, name)
+
+
+def flash_d128_name(mangled):
+    """``flash_bwd_dq_kernel<f32,128,sched>`` from the mangled name of a
+    B1-B3 body at D = 128."""
+    import re
+    m = re.search(r"(flash_[a-z_]+_kernel)I(f)?Li128E(Lb1E)?", mangled)
+    if m is None:
+        return mangled
+    t = "f32" if m.group(2) else "bf16"
+    return f"{m.group(1)}<{t},128{',sched' if m.group(3) else ''}>"
+
+
+def flash_d128_report():
+    """Every B1-B3 body built at D = 128 (``csrc/flash_fwd.cu``: fp32 and
+    bf16, dense and schedule entry points; ``csrc/flash_bwd.cu``: the
+    same for dK/dV and dQ): the ``ptxas -v`` line of each, 0 spills."""
+    report, faults = {}, []
+    for source, count in (("flash_fwd", 4), ("flash_bwd", 8)):
+        r, f = body_report(source, (), lambda n: "Li128E" in n, count,
+                           flash_d128_name)
+        report.update(r)
+        faults += f
+    return report, faults
 
 
 def paged_report():
@@ -989,36 +1046,39 @@ def bwd_work(q, seg, which):
     return nbytes, (8 if which == "dkv" else 6) * D * H * pairs
 
 
-def run_bwd(q, k, v, do, seg, causal, layout):
+def run_bwd(q, k, v, do, seg, causal, layout, scale=1.0 / 8.0):
     """B1 forward, Delta, then B2 and B3. Returns ``((dq, dk, dv), lse,
     delta)``."""
     from tosem_tpu_torch.ops import flash_attention as fa
-    out, lse = fa._flash_fwd_cuda(q, k, v, seg, causal, 1.0 / 8.0, layout)
+    out, lse = fa._flash_fwd_cuda(q, k, v, seg, causal, scale, layout)
     delta = fa._bwd_delta(do, out, layout)
     dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, seg, causal,
-                                    1.0 / 8.0, layout)
-    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, seg, causal,
-                               1.0 / 8.0, layout)
+                                    scale, layout)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, seg, causal, scale,
+                               layout)
     return (dq, dk, dv), lse, delta
 
 
-def plain_bwd(q, k, v, do, lse, delta, seg, causal, layout, mask=None):
+def plain_bwd(q, k, v, do, lse, delta, seg, causal, layout, mask=None,
+              scale=1.0 / 8.0):
     from tosem_tpu_torch.ops import flash_attention as fa
     dk, dv = fa._flash_bwd_dkv_torch(q, k, v, do, lse, delta, seg, causal,
-                                     1.0 / 8.0, layout, mask)
-    dq = fa._flash_bwd_dq_torch(q, k, v, do, lse, delta, seg, causal,
-                                1.0 / 8.0, layout, mask)
+                                     scale, layout, mask)
+    dq = fa._flash_bwd_dq_torch(q, k, v, do, lse, delta, seg, causal, scale,
+                                layout, mask)
     return dq, dk, dv
 
 
-def plain_bwd_fp32(q, k, v, do, seg, causal, layout, mask=None):
+def plain_bwd_fp32(q, k, v, do, seg, causal, layout, mask=None,
+                   scale=1.0 / 8.0):
     """The plain forward and backward on the fp32 copies of the inputs."""
     from tosem_tpu_torch.ops import flash_attention as fa
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
-    out, lse = fa._flash_attention_torch(qf, kf, vf, seg, causal, 1.0 / 8.0,
+    out, lse = fa._flash_attention_torch(qf, kf, vf, seg, causal, scale,
                                          layout, mask)
     delta = fa._bwd_delta(dof, out, layout)
-    return plain_bwd(qf, kf, vf, dof, lse, delta, seg, causal, layout, mask)
+    return plain_bwd(qf, kf, vf, dof, lse, delta, seg, causal, layout, mask,
+                     scale)
 
 
 def sdpa_fwd_bwd(q, k, v, do, am):
@@ -1210,7 +1270,7 @@ def rel_err(g, w):
 
 
 def bwd_rel_check(q, k, v, do, lse, delta, seg, causal, layout, got, same,
-                  ref32, mask=None):
+                  ref32, mask=None, scale=1.0 / 8.0):
     """Hold bf16 B2/B3 gradients to ``BWD_REL`` of their largest element
     against ``same`` (the bf16 plain backward on the kernel's LSE and
     Delta) and ``ref32``, and show that the check catches wrong
@@ -1234,7 +1294,7 @@ def bwd_rel_check(q, k, v, do, lse, delta, seg, causal, layout, got, same,
         # on the masked LSE: a row that sees no key (LSE -1e30) reads
         # NaN here, which the check rejects as it must
         wrong["mask_dropped"] = plain_bwd(q, k, v, do, lse, delta, None,
-                                          False, layout)
+                                          False, layout, scale=scale)
     out["yardsticks"] = {}
     for what, bad in wrong.items():
         errs = [rel_err(b, w) for b, w in zip(bad, same)]
@@ -1344,17 +1404,16 @@ def seg_ids(dev, B, T, lengths=None):
     return SegmentIds(ids, ids)
 
 
-def run_sched(q, k, v, do, seg, progs, layout):
+def run_sched(q, k, v, do, seg, progs, layout, scale=1.0 / 8.0):
     """B1, Delta, B2 and B3 in schedule mode. Returns ``(out, lse, (dq,
     dk, dv), delta)``."""
     from tosem_tpu_torch.ops import flash_attention as fa
-    out, lse = fa._flash_fwd_cuda(q, k, v, seg, False, 1.0 / 8.0, layout,
-                                  progs)
+    out, lse = fa._flash_fwd_cuda(q, k, v, seg, False, scale, layout, progs)
     delta = fa._bwd_delta(do, out, layout)
     dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, seg, False,
-                                    1.0 / 8.0, layout, progs)
-    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, seg, False,
-                               1.0 / 8.0, layout, progs)
+                                    scale, layout, progs)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, seg, False, scale,
+                               layout, progs)
     return out, lse, (dq, dk, dv), delta
 
 
@@ -1625,6 +1684,231 @@ def time_sched(dev, gen, lines):
                       "graph, L2-cold); plain_ms: CUDA events"}
     del q, k, v, do, got, same, am
     torch.cuda.empty_cache()
+    return out
+
+
+# C1's head dims: B1-B3 at D = 128 (a built width) and D = 80 (run at 128,
+# zero-padded by the wrappers), dense, with key padding and under a mask
+# program, each against its plain version at the caller's scale 1/sqrt(D)
+HEAD_DIMS = (128, 80)
+HEAD_DIM_MODES = ("dense", "segments", "local:128:127")
+
+
+def head_dim_inputs(dev, gen, dtype, mode, D, B=2, T=512, H=12):
+    """bthd q, k, v, dO, segment ids (or None), the mask (or None) and
+    its programs (or None) of one head-dim case."""
+    import torch
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen)
+                   .to(getattr(torch, dtype)).to(dev) for _ in range(4))
+    seg = mask = progs = None
+    if mode == "segments":
+        seg = seg_ids(dev, B, T, lengths=[T - 37 * (b + 1) for b in range(B)])
+    elif mode != "dense":
+        mask = sched_mask(mode, T)
+        progs = sched_programs(mask, T, H)
+    return q, k, v, do, seg, mask, progs
+
+
+def head_dim_cases(dev, gen, lines):
+    """B1, B2 and B3 at head dims 128 and 80 (HEAD_DIM_MODES, fp32 and
+    bf16, [2, 512, 12, D] bthd) against their plain versions at the
+    existing limits, launched twice bit for bit; a head dim of 160
+    raising before any launch; then the D = 128 times (``time_d128``)."""
+    import math
+    import torch
+    from tosem_tpu_torch.ops import flash_attention as fa
+    from tosem_tpu_torch.ops import registry
+    from tosem_tpu_torch.ops.common import precision
+    cases = []
+    for D in HEAD_DIMS:
+        scale = 1.0 / math.sqrt(D)
+        for mode in HEAD_DIM_MODES:
+            for dtype in ("bfloat16", "float32"):
+                q, k, v, do, seg, mask, progs = head_dim_inputs(
+                    dev, gen, dtype, mode, D)
+                out, lse, got, delta = run_sched(q, k, v, do, seg, progs,
+                                                 "bthd", scale)
+                out2, lse2, again, _ = run_sched(q, k, v, do, seg, progs,
+                                                 "bthd", scale)
+                ref, ref_lse = fa._flash_attention_torch(
+                    q, k, v, seg, False, scale, "bthd", mask)
+                with precision("float32"):
+                    ref32 = plain_bwd_fp32(q, k, v, do, seg, False, "bthd",
+                                           mask, scale)
+                    same = plain_bwd(q, k, v, do, lse, delta, seg, False,
+                                     "bthd", mask, scale)
+                torch.cuda.synchronize()
+                what = f"flash D={D} {mode} {dtype}"
+                err = (out.float() - ref.float()).abs().max().item()
+                lse_err = (lse - ref_lse).abs().max().item()
+                check(err <= TOL["flash"][dtype] and lse_err <= 1e-3,
+                      f"{what} forward: err {err}, lse {lse_err}")
+                atol, rtol = BWD_TOL[dtype]
+                want = ref32 if dtype == "bfloat16" else same
+                errs, ok = sched_grad_errs(got, want, same, atol, rtol)
+                check(ok, f"{what} backward outside atol {atol} / rtol "
+                          f"{rtol}: {errs}")
+                bits = (torch.equal(out, out2) and torch.equal(lse, lse2)
+                        and all(torch.equal(a, b)
+                                for a, b in zip(got, again)))
+                check(bits, f"{what} differs between two launches")
+                rec = {"kernel": "flash_fwd/bwd_dkv/bwd_dq"
+                                 + ("_sched" if progs else ""),
+                       "head_dim": D, "kernel_head_dim": fa.kernel_head_dim(D),
+                       "mode": mode, "dtype": dtype, "scale": scale,
+                       "shape": list(q.shape), "max_abs_err": err,
+                       "lse_err": lse_err, "grad_err": errs,
+                       "bit_deterministic": bits}
+                if dtype == "bfloat16":
+                    rec["rel_err"] = bwd_rel_check(
+                        q, k, v, do, lse, delta, seg, False, "bthd", got,
+                        same, ref32, mask, scale)
+                cases.append(rec)
+                del got, again, ref32, same
+    # above 128 no body is built: each wrapper raises before a launch
+    q = torch.zeros(1, 64, 2, 160, dtype=torch.bfloat16, device=dev)
+    lse = torch.zeros(1, 2, 64, device=dev)
+    before = dict(registry.LAUNCH_COUNTS)
+    refused = {}
+    for name, call in (
+            ("flash_fwd", lambda: fa._flash_fwd_cuda(q, q, q, None, False,
+                                                     0.1, "bthd")),
+            ("flash_bwd_dkv", lambda: fa._flash_bwd_dkv_cuda(
+                q, q, q, q, lse, lse, None, False, 0.1, "bthd")),
+            ("flash_bwd_dq", lambda: fa._flash_bwd_dq_cuda(
+                q, q, q, q, lse, lse, None, False, 0.1, "bthd"))):
+        try:
+            call()
+        except ValueError as e:
+            refused[name] = str(e)
+    check(len(refused) == 3 and all("C1" in m for m in refused.values())
+          and dict(registry.LAUNCH_COUNTS) == before,
+          f"head dim 160: {refused}, launches {before} -> "
+          f"{dict(registry.LAUNCH_COUNTS)}")
+    cases.append({"kernel": "flash_*", "head_dim": 160, "raised": refused})
+    cases.append({"kernel": "flash_*", "timed_d128": time_d128(dev, gen,
+                                                               lines)})
+    torch.cuda.empty_cache()
+    return cases
+
+
+def pad_bytes(shape, d, width, el, inputs, outputs):
+    """Bytes the wrappers' padding moves for one call at head dim ``d``
+    run at ``width``: each input read at d and written at width, each
+    output read at d from the padded result and written at d."""
+    n = 1
+    for x in shape[:-1]:
+        n *= x
+    return n * el * (inputs * (d + width) + outputs * 2 * d)
+
+
+def time_d128(dev, gen, lines):
+    """B1, B2 and B3 bf16 at [8, 512, 12, 128] (bthd), dense with key
+    padding (B1; B2/B3 dense, the train step's mode) and under
+    local:128:127 with key padding (schedule mode), each by
+    ``device_ms`` beside its bound from this run's inputs and its plain
+    version (CUDA events); B1 beside SDPA's fastest backend on the same
+    call, B2/B3 beside SDPA's backward alone. The same calls at D = 80
+    (padded to 128) and the bytes their padding moves. The records join
+    each kernel's line as ``d128``."""
+    import torch
+    from tosem_tpu_torch.ops import flash_attention as fa
+    from tosem_tpu_torch.ops.flash_blocks import BlockSizes
+    from tosem_tpu_torch.ops.mask_programs import (mask_from_spec,
+                                                   program_stats)
+    B, T, H, D = 8, 512, 12, 128
+    lengths = [T - 37 * (b + 1) for b in range(B)]
+    seg = seg_ids(dev, B, T, lengths=lengths)
+    mask = mask_from_spec("local:128:127", T)
+    progs = sched_programs(mask, T, H)
+    stats = program_stats(mask, T, T, BlockSizes(), heads=H)
+    out = {}
+
+    def rand(D):
+        return [torch.randn(B, T, H, D, generator=gen).to(torch.bfloat16)
+                .to(dev) for _ in range(4)]
+    q, k, v, do = rand(D)
+    q80, k80, v80, do80 = (x[..., :80].contiguous() for x in (q, k, v, do))
+    # B1: dense with key padding, and schedule mode
+    for name, p, m in (("flash_fwd", None, None),
+                       ("flash_fwd_sched", progs, mask)):
+        def kern(q, k, v, p=p):
+            return fa._flash_fwd_cuda(q, k, v, seg, False, 1.0 / 8.0,
+                                      "bthd", p)
+        if p is None:
+            nbytes, ops = flash_work(q, seg, False)
+            am = (seg.q[:, :, None] == seg.kv[:, None, :])[:, None]
+        else:
+            nbytes, ops = sched_work(q, "bthd", stats["fwd"].fraction,
+                                     "fwd", seg)
+            am = sdpa_mask(mask, seg, T, dev)
+        library, refused = sdpa_backends(sdpa_masked, (q, k, v, am))
+        lib = {n: device_ms(op, q, k, v, am) for n, op in library.items()}
+        best = min(lib, key=lib.get) if lib else None
+        b_ms, b_by = bound(nbytes, ops, "bfloat16")
+        out[name] = {
+            "ms": device_ms(kern, q, k, v),
+            "plain_ms": cuda_ms(lambda m=m: fa._flash_attention_torch(
+                q, k, v, seg, False, 1.0 / 8.0, "bthd", m), iters=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib.get(best),
+            "library_is": f"sdpa, {best} backend" if best else None,
+            "sdpa_refused": refused,
+            "ms_d80_padded": device_ms(kern, q80, k80, v80),
+            "pad_bytes_d80": pad_bytes(q80.shape, 80, 128, 2, 3, 1),
+            "shape": [B, T, H, D], "dtype": "bfloat16",
+            "mode": "segments" if p is None else "local:128:127+segments"}
+        del am
+    # B2 and B3: dense (no mask) and schedule mode
+    for suffix, p, m, s, frac in (
+            ("", None, None, None, 1.0),
+            ("_sched", progs, mask, seg, stats["bwd"].fraction)):
+        o, lse = fa._flash_fwd_cuda(q, k, v, s, False, 1.0 / 8.0, "bthd", p)
+        delta = fa._bwd_delta(do, o, "bthd")
+        o80, lse80 = fa._flash_fwd_cuda(q80, k80, v80, s, False, 1.0 / 8.0,
+                                        "bthd", p)
+        delta80 = fa._bwd_delta(do80, o80, "bthd")
+        am = None if p is None else sdpa_mask(mask, seg, T, dev)
+        bias = None
+        if am is not None:
+            bias = torch.zeros(am.shape, dtype=q.dtype, device=dev)
+            bias.masked_fill_(~am, float("-inf"))
+        ops_, refused = sdpa_bwd_ops(q, k, v, do, bias)
+        lib_ms, lib_by, _ = time_library(ops_, refused)
+        del ops_
+        for which, kern, plain in (
+                ("dkv", fa._flash_bwd_dkv_cuda, fa._flash_bwd_dkv_torch),
+                ("dq", fa._flash_bwd_dq_cuda, fa._flash_bwd_dq_torch)):
+            if p is None:
+                nbytes, ops = bwd_work(q, None, which)
+            else:
+                nbytes, ops = sched_work(q, "bthd", frac, which, s)
+            b_ms, b_by = bound(nbytes, ops, "bfloat16")
+
+            def call(q, k, v, do, lse, delta, kern=kern, p=p, s=s):
+                return kern(q, k, v, do, lse, delta, s, False, 1.0 / 8.0,
+                            "bthd", p)
+            out[f"flash_bwd_{which}{suffix}"] = {
+                "ms": device_ms(call, q, k, v, do, lse, delta),
+                "plain_ms": cuda_ms(lambda plain=plain, m=m, s=s: plain(
+                    q, k, v, do, lse, delta, s, False, 1.0 / 8.0, "bthd", m),
+                    iters=3, warmup=1),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                "library_is": f"SDPA's backward alone, aten "
+                              f"{SDPA_ATEN[lib_by]} op (Delta, dK/dV and "
+                              "dQ together)",
+                "sdpa_refused": refused,
+                "ms_d80_padded": device_ms(call, q80, k80, v80, do80, lse80,
+                                           delta80),
+                "pad_bytes_d80": pad_bytes(q80.shape, 80, 128, 2, 4,
+                                           2 if which == "dkv" else 1),
+                "shape": [B, T, H, D], "dtype": "bfloat16",
+                "mode": "dense" if p is None else "local:128:127+segments"}
+        del o, o80, am, bias
+    for name, rec in out.items():
+        rec["timing"] = ("ms, ms_d80_padded and library: DeviceLoopBench "
+                         "(CUDA graph, L2-cold); plain_ms: CUDA events")
+        lines.setdefault(name, {})["d128"] = rec
     return out
 
 
@@ -2166,6 +2450,7 @@ def phase_kernels(dev, seed):
     cases += sched_cases(dev, gen)
     cases.append({"kernel": "flash_*_sched", "timed": time_sched(dev, gen,
                                                                  lines)})
+    cases += head_dim_cases(dev, gen, lines)
     emit({"phase": "kernels", "cases": cases})
     return lines
 
@@ -3573,7 +3858,7 @@ CLUSTER_PAGED_DIMS = dict(batch=8, heads=12, head_dim=64, page_size=128,
                           pages=64, table_w=4)
 CLUSTER_ROUNDS = 2          # sequential passes over the prompts
 CLUSTER_CLIENTS = 8         # the fail-over leg's closed loop
-CLUSTER_WINDOW_S = 4.0      # its window before the kill and after re-placing
+CLUSTER_WINDOW_S = 2.0      # its window before the kill and after re-placing
 
 
 def percentiles(ms):
@@ -4593,7 +4878,8 @@ def bert_dp_job(dev, seed, batch):
     ``torch.func.functional_call`` (the tied LM head stays fp32, as in
     ``models/bert.py``). The ranks are threads of one process and that
     call swaps the module's parameters while the forward runs, so the
-    forwards take a lock; each backward runs outside it."""
+    forwards take a lock; each backward runs outside it. The job's
+    ``forwards`` counts the shard forwards it ran (one a shard computed)."""
     import dataclasses
     import functools
     import threading
@@ -4617,18 +4903,22 @@ def bert_dp_job(dev, seed, batch):
         def forward(self, b, generator):
             return mlm_loss(self.bert, b, generator, attn_fn=attn)[0]
     wrapper, lock = MLM(model), threading.Lock()
+    forwards = [0]
 
     def loss(params, b, generator):
         bound = {f"bert.{n}": t for n, t in params["bert"].items()}
         with lock:
+            forwards[0] += 1
             return torch.func.functional_call(wrapper, bound, (b, generator))
 
-    return DPJob(init_params=lambda: {"bert": init},
-                 stage_losses=[("bert", loss)],
-                 batch_fn=lambda step: batch,
-                 optimizer=adamw(1e-4), grain=DP_GRAIN,
-                 global_batch=int(batch["ids"].shape[0]), seed=seed,
-                 mixed_precision=True)
+    job = DPJob(init_params=lambda: {"bert": init},
+                stage_losses=[("bert", loss)],
+                batch_fn=lambda step: batch,
+                optimizer=adamw(1e-4), grain=DP_GRAIN,
+                global_batch=int(batch["ids"].shape[0]), seed=seed,
+                mixed_precision=True)
+    job.forwards = forwards
+    return job
 
 
 def dp_breakdown(prof, outs, wall_ms):
@@ -4674,7 +4964,11 @@ def phase_train_dp(dev, seed):
     ``torch.equal`` on every tensor, and B1, B2 and B3 must launch 12 a
     shard computed: 12 x 4 x 3 a run, and 3 shards more in the shrink
     run (the survivors of the lost rank compute step 1's shards before
-    the chain aborts). Prints the step ms per world beside the plain
+    the chain aborts). A step attempt that failed in a run without
+    faults is retried by the trainer and recomputes its shards: the
+    shards computed (the job's forwards) may then exceed the plan by at
+    most the grain a recorded failure, the failures' errors are printed,
+    and the launches must still be 12 a shard computed. Prints the step ms per world beside the plain
     ``make_train_step`` on the same batch (a bf16 model), one profiled
     world-4 step split into device compute, copies and transport, and the
     peak device memory. Returns the launch counts of the checked runs."""
@@ -4704,12 +4998,23 @@ def phase_train_dp(dev, seed):
            "batch": [8, 512], "grain": DP_GRAIN, "steps": DP_STEPS,
            "transport": DP_CFG, "runs": {}}
 
-    def counted(what, shards):
+    def counted(what, planned, forwards, failures=(), expected_failures=0):
+        """Check the launches of a run that planned ``planned`` shard
+        computations and ran ``forwards``. ``failures`` are the
+        trainer's failed step attempts, of which the run's own faults
+        cause ``expected_failures``; each other one may recompute up to
+        the grain's shards."""
         c = dict(registry.LAUNCH_COUNTS)
+        extra = len(failures) - expected_failures
+        check(forwards == planned if extra <= 0 else
+              planned <= forwards <= planned + DP_GRAIN * extra,
+              f"train_dp {what}: {forwards} shards computed, {planned} "
+              f"planned, failed step attempts {list(failures)}")
         for k in flash:
-            check(c[k] == 12 * shards,
+            check(c[k] == 12 * forwards,
                   f"train_dp {what}: {k} launched {c[k]} times, expected "
-                  f"12 x {shards} shards")
+                  f"12 x {forwards} shards computed ({planned} planned; "
+                  f"failed step attempts {list(failures)})")
         for k in counts:
             counts[k] += c[k]
         registry.reset_launch_counts()
@@ -4720,6 +5025,7 @@ def phase_train_dp(dev, seed):
     step_fn = make_dp_train_step(job)
     torch.cuda.synchronize()
     registry.reset_launch_counts()
+    job.forwards[0] = 0
     ref_losses, ref_ms = [], []
     for _ in range(DP_STEPS):
         t0 = time.perf_counter()
@@ -4729,7 +5035,8 @@ def phase_train_dp(dev, seed):
         ref_losses.append(m["loss"])
     out["local_fold"] = {"losses": ref_losses, "step_ms": ref_ms,
                          "launches": counted("local fold",
-                                             DP_GRAIN * DP_STEPS)}
+                                             DP_GRAIN * DP_STEPS,
+                                             job.forwards[0])}
     check(all(np.isfinite(ref_losses)), f"local fold losses {ref_losses}")
     ref_params = [p.detach().clone() for p in state.leaves()]
     del state, step_fn
@@ -4749,6 +5056,7 @@ def phase_train_dp(dev, seed):
         marks = []
         torch.cuda.synchronize()
         registry.reset_launch_counts()
+        job.forwards[0] = 0
         t0 = time.perf_counter()
         with DistributedTrainer(job=job, cfg=cfg, world=world) as tr:
             def on_step(done, _):
@@ -4772,7 +5080,11 @@ def phase_train_dp(dev, seed):
             rec = {"world": world, "overlap": overlap, "losses": losses,
                    "step_ms": [(b - a) * 1e3 for a, b in
                                zip([t0] + marks[:-1], marks)],
-                   "launches": counted(what, shards),
+                   "shards_computed": job.forwards[0],
+                   "step_failures": list(tr.step_failures),
+                   "launches": counted(what, shards, job.forwards[0],
+                                       tr.step_failures,
+                                       int(shrink_grow)),
                    "stats": tr.stats()}
             held(what, tr, losses)
             if profiled:
@@ -4832,7 +5144,7 @@ PAR_POSITIONS = 4   # positions of the one-card meshes (dp x tp = 2 x 2)
 PAR_FLASH_MESHES = ((2, 2), (1, 4), (2, 3))
 PAR_RING_T = 512    # ring/Ulysses sequence, split over sp = 4
 PAR_SWEEP_MAX = 1 << 26     # the allreduce rows: 1 KB to 64 MB a position,
-PAR_SWEEP_EVERY = 2         # every 2nd size of the x4 ladder (5 a collective)
+PAR_SWEEP_EVERY = 4         # every 4th size of the x4 ladder (3 a collective)
 
 
 def phase_parallel(dev, seed):
@@ -7951,14 +8263,182 @@ def phase_tune(dev, seed, work):
     return counts
 
 
+# ------------------------------------------------------------------ chaos
+
+CHAOS_BUDGET_S = 120      # the chaos phase's budget
+# the canned plans whose workloads compute on the card, longest first;
+# the other twelve are host-only and stay CPU tests
+# (tests/test_torch_chaos_*.py)
+CHAOS_CARD_PLANS = ("prefix-node-kill", "train-cluster", "decode-migrate",
+                    "decode-chaos", "train-preempt")
+CHAOS_LANES = 2           # card plans run this many at a time
+# the decode plans' kernels: B1 (prefill), B4 (a step), B5 (a prefix
+# hit's suffix)
+CHAOS_DECODE_KERNELS = ("flash_fwd", "paged_decode", "paged_decode_multi")
+
+
+def chaos_expect(name, rep):
+    """``{what: held}`` for one card plan's report: the counts the JAX
+    package's own tests assert, and that its workload ran on the card
+    (the in-process fault-free pass's kernel launches, the trained
+    state's device)."""
+    c = rep["counts"]
+    want = {"ok": rep["ok"]}
+    if name != "train-preempt":
+        want["errors_surfaced == 0"] = c.get("errors_surfaced") == 0
+    if name in ("decode-chaos", "decode-migrate"):
+        want["sequences_correct == sequences"] = (
+            c.get("sequences_correct") == c.get("sequences") == 8)
+    if name == "decode-chaos":
+        want["2 injections"] = len(rep["injections"]) == 2
+    if name == "decode-migrate":
+        want["kv_migrations > 0"] = c.get("kv_migrations", 0) > 0
+    if name == "prefix-node-kill":
+        want["requests_correct == requests"] = (
+            c.get("requests_correct") == c.get("requests") == 18)
+    if name.startswith(("decode", "prefix")):
+        kernels = CHAOS_DECODE_KERNELS[:3 if name.startswith("prefix")
+                                       else 2]
+        for k in kernels:
+            want[f"{k} launched"] = c.get(f"fault_free_launches_{k}", 0) > 0
+    if name == "train-preempt":
+        want["steps_total == 10"] = c.get("steps_total") == 10
+        want["preempted == 1"] = c.get("preempted") == 1
+    if name == "train-cluster":
+        want["losses_bit_identical"] = c.get("losses_bit_identical") == 1
+        want["shrinks >= 1"] = c.get("shrinks", 0) >= 1
+        want["grows >= 1"] = c.get("grows", 0) >= 1
+    if name.startswith("train"):
+        want["state on the card"] = c.get("state_on_cuda") == 1
+    return want
+
+
+def _bracketed(text, start):
+    """The balanced ``[...]`` of ``text`` that opens at ``start``."""
+    depth = 0
+    for i in range(start, len(text)):
+        depth += {"[": 1, "]": -1}.get(text[i], 0)
+        if depth == 0:
+            return text[start:i + 1]
+    return None
+
+
+def chaos_partings(rep, dev, backend_kw):
+    """Where a decode plan's streams part from its fault-free run (its
+    failure note ``expected [...], got [...]``, full token streams): for
+    each parted sequence, the first differing step and the top-1 minus
+    top-2 logit margin there (``logit_margin`` on the plan's model, built
+    with ``backend_kw``), as the decode phases print it (ROADMAP C2)."""
+    import ast
+    from tosem_tpu_torch.serve.backends import BertDecodeBackend
+    note = next((n for n in rep["notes"] if n.startswith("expected ")), "")
+    at = note.find("[")
+    got_at = note.find(", got [")
+    if at < 0 or got_at < 0:
+        return None
+    want = ast.literal_eval(_bracketed(note, at))
+    got = ast.literal_eval(_bracketed(note, got_at + len(", got ")))
+    model = BertDecodeBackend(device=dev, **backend_kw).model
+    return [{"sequence": i, **logit_margin(model, [], w, g)}
+            for i, (w, g) in enumerate(zip(want, got))
+            if g is not None and g != w]
+
+
+def chaos_plan(name):
+    """One card plan through the CLI in its own interpreter: ``python -m
+    tosem_tpu_torch.cli chaos --plan <name> --json``. Returns (exit code,
+    report or None, wall seconds, stderr's tail)."""
+    t = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "tosem_tpu_torch.cli", "chaos", "--plan",
+         name, "--json"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env={**os.environ, "PYTHONPATH": ROOT})
+    wall = time.perf_counter() - t
+    last = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+    rep = json.loads(last[-1]) if last else None
+    return p.returncode, rep, wall, p.stderr[-3000:]
+
+
+def phase_chaos(dev, seed):
+    """The chaos runner on the card (budget ``CHAOS_BUDGET_S``): (a) each
+    card plan (``CHAOS_CARD_PLANS``) through the CLI in its own process,
+    ``CHAOS_LANES`` at a time: exit 0, its report ``ok`` with the counts
+    ``chaos_expect`` holds; (b) meanwhile, in this process,
+    ``decode-chaos`` at BERT-base (``backend_kw={"preset": "base"}``, the
+    plan's faults unchanged): every sequence's tokens equal the fault-free
+    run's, with no error surfaced. Where a plan's streams part, each
+    parted sequence's first differing step and logit margin print before
+    the run fails. Returns the launch counts of (b)."""
+    import concurrent.futures
+
+    from tosem_tpu_torch.chaos.plan import CANNED_PLANS
+    from tosem_tpu_torch.chaos.runner import run_plan
+    from tosem_tpu_torch.ops import registry
+    gpu = gpu_line()
+    t0 = time.perf_counter()
+    pool = concurrent.futures.ThreadPoolExecutor(CHAOS_LANES)
+    futs = {name: pool.submit(chaos_plan, name) for name in CHAOS_CARD_PLANS}
+    # (b) BERT-base decode-chaos in this process, beside the lanes
+    base_kw = {"preset": "base"}
+    reset_counts()
+    t = time.perf_counter()
+    base = json.loads(run_plan(CANNED_PLANS["decode-chaos"], device=dev,
+                               backend_kw=base_kw).to_json())
+    base_wall = time.perf_counter() - t
+    counts = {k: registry.LAUNCH_COUNTS[k] for k in CHAOS_DECODE_KERNELS}
+    results = {name: f.result() for name, f in futs.items()}
+    pool.shutdown()
+    took = time.perf_counter() - t0
+    faults = []
+    for name, (rc, rep, wall, err) in results.items():
+        rec = {"phase": "chaos", "plan": name, "gpu": gpu, "rc": rc,
+               "wall_s": wall}
+        if rep is None:
+            emit(rec)
+            faults.append(f"{name}: exit {rc}, no report: {err}")
+            continue
+        want = chaos_expect(name, rep)
+        rec.update({"elapsed_s": rep["elapsed_s"], "counts": rep["counts"],
+                    "injections": [{k: i.get(k) for k in
+                                    ("seq", "site", "action", "target")}
+                                   for i in rep["injections"]],
+                    "notes": rep["notes"], "held": want})
+        if not rep["ok"] and name.startswith("decode"):
+            rec["partings"] = chaos_partings(rep, dev, {})
+        emit(rec)
+        if rc != 0 or not all(want.values()):
+            faults.append(f"{name}: exit {rc}, "
+                          f"{[k for k, v in want.items() if not v]}")
+    want = chaos_expect("decode-chaos", base)
+    rec = {"phase": "chaos", "plan": "decode-chaos", "preset": "base",
+           "gpu": gpu, "wall_s": base_wall, "elapsed_s": base["elapsed_s"],
+           "counts": base["counts"],
+           "injections": [{k: i.get(k) for k in
+                           ("seq", "site", "action", "target")}
+                          for i in base["injections"]],
+           "notes": base["notes"], "held": want,
+           "launches": counts}
+    if not base["ok"]:
+        rec["partings"] = chaos_partings(base, dev, base_kw)
+    emit(rec)
+    if not all(want.values()):
+        faults.append(f"decode-chaos at BERT-base: "
+                      f"{[k for k, v in want.items() if not v]}")
+    emit({"phase": "chaos", "seconds": took, "budget_s": CHAOS_BUDGET_S,
+          "within_budget": took <= CHAOS_BUDGET_S, "lanes": CHAOS_LANES,
+          "gpu": gpu})
+    check(not faults, "chaos: " + "; ".join(faults))
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,decode,decode_modes,encode,"
                             "serve,cluster,encode_sparse,cpu,profile,train,"
                             "train_dp,parallel,pipeline,mesh_train,benches,"
-                            "configs,analysis,tune,kernel_matrix,moe,speech,"
-                            "detection,suite")
+                            "configs,analysis,tune,chaos,kernel_matrix,moe,"
+                            "speech,detection,suite")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(ROOT, "tosem_tpu_torch")):
@@ -7980,18 +8460,21 @@ def main(argv=None):
     rows, row_faults = warp_row_report()
     paged, paged_faults = paged_report()
     nms, nms_faults = nms_report()
+    d128, d128_faults = flash_d128_report()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": took, "gpu": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "ptxas": {k: ptxas_summary(v[1])
                     for k, v in _build.BUILD_LOG.items()},
           "bwd_bf16_bodies": bodies, "warp_row_bodies": rows,
-          "paged_bodies": paged, "nms_kernels": nms})
+          "paged_bodies": paged, "nms_kernels": nms,
+          "flash_d128_bodies": d128})
     check(not faults, "bf16 B2/B3 bodies: " + "; ".join(faults))
     check(not row_faults,
           "B6/B7/B8 warp-row bodies: " + "; ".join(row_faults))
     check(not paged_faults, "B4/B5 chunk bodies: " + "; ".join(paged_faults))
     check(not nms_faults, "N1's kernels: " + "; ".join(nms_faults))
+    check(not d128_faults, "B1-B3 at D = 128: " + "; ".join(d128_faults))
     secs = {"build": time.perf_counter() - t0}
 
     def timed(name, fn, *a):
@@ -8053,6 +8536,8 @@ def main(argv=None):
             add(timed("tune", phase_tune, dev, SEED, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    if "chaos" in phases:
+        add(timed("chaos", phase_chaos, dev, SEED))
     if "kernel_matrix" in phases:
         timed("kernel_matrix", phase_kernel_matrix, dev, SEED)
     if "moe" in phases:
@@ -8104,7 +8589,8 @@ def main(argv=None):
                         "port_bwd_ms": rec.get("port_bwd_ms"),
                         "sdpa_fwd_bwd_ms": rec.get("sdpa_fwd_bwd_ms"),
                         "dtype": rec.get("dtype"),
-                        "shape": rec.get("shape") or rec.get("lens")})
+                        "shape": rec.get("shape") or rec.get("lens"),
+                        "d128": rec.get("d128")})
     print(gpu, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

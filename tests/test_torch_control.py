@@ -4,9 +4,9 @@ against the port — the shared scaling policy core, SLO admission with
 priority classes (incl. the FIFO-fairness-under-preemption-churn
 contract), the pinned-ledger model multiplexing, stale-gauge removal,
 the compile cache's pinned LRU, and the closed loop's demand folding +
-actuation. Not copied: the ``scale-under-kill`` chaos plan (its runner,
-``chaos/runner.py``, is not ported). Across packages: the same synthetic
-load through both packages' admission controllers sheds the same
+actuation. The ``scale-under-kill`` chaos plan runs through the port's
+runner in ``tests/test_torch_chaos_serve.py``. Across packages: the same
+synthetic load through both packages' admission controllers sheds the same
 requests, and the same inserts and pins leave both packages' compile
 caches holding the same keys.
 

@@ -8,7 +8,7 @@ and ``TestGroups``, ``tests/test_decode_serve.py``'s spill tests (spill
 mid-decode, a lost payload re-prefilled, a lost payload under pressure),
 ``tests/test_prefix_cache.py``'s session test, and
 ``tests/test_kv_migration.py``'s ``TestBackendMigration`` (its two
-transport tests wait for ROADMAP.md A11).
+transport tests are in ``tests/test_torch_kv_transport.py``).
 
 Across packages, the JAX package's tiny weights go through the port's
 weight converter, and the port's streams equal the JAX package's token

@@ -36,7 +36,8 @@ def test_import_loads_neither_jax_nor_triton():
             "from tosem_tpu_torch import runtime, obs, native; "
             "from tosem_tpu_torch.serve import (batching, core, http, "
             "breaker); "
-            "from tosem_tpu_torch.chaos import plan, injector; "
+            "from tosem_tpu_torch.chaos import plan, injector, runner; "
+            "from tosem_tpu_torch.chaos import cli as chaos_cli; "
             "from tosem_tpu_torch.serve import kv_cache, prefix_cache; "
             "from tosem_tpu_torch.train import distributed; "
             "from tosem_tpu_torch.cluster import fencing, transport; "
@@ -63,6 +64,7 @@ COPIED_MODULES = [
     "tosem_tpu_torch.obs.metrics", "tosem_tpu_torch.obs.httpd",
     "tosem_tpu_torch.obs.memory_monitor", "tosem_tpu_torch.chaos",
     "tosem_tpu_torch.chaos.plan", "tosem_tpu_torch.chaos.injector",
+    "tosem_tpu_torch.chaos.runner", "tosem_tpu_torch.chaos.cli",
     "tosem_tpu_torch.serve.breaker", "tosem_tpu_torch.serve.batching",
     "tosem_tpu_torch.serve.core", "tosem_tpu_torch.serve.http",
     "tosem_tpu_torch.chaos.network", "tosem_tpu_torch.cluster",

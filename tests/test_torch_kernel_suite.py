@@ -224,13 +224,32 @@ def test_cli_writes_the_suite_csv_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--device=cpu", "--config=chaos"], "A14"),
-    (["chaos", "--device=cpu"], "A14"),
     (["--device=cpu", "--config=flash_autotune"], "A4")])
 def test_cli_names_the_roadmap_item_of_an_unported_config(argv, item):
     out = _cli(*argv)
     assert out.returncode == 2
     assert "ROADMAP.md" in out.stderr and item in out.stderr
+
+
+@pytest.mark.parametrize("argv", [["chaos", "--list"],
+                                  ["--device=cpu", "--config=chaos"]])
+def test_cli_answers_chaos_as_the_reference_does(argv):
+    """``chaos`` is a subcommand in both packages: ``chaos --list``
+    prints the same plans and exits 0, and ``--config=chaos`` is an
+    unknown config, exit 2."""
+    port = _cli(*argv)
+    ref = subprocess.run([sys.executable, "-m", "tosem_tpu.cli", *argv],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert port.returncode == ref.returncode
+    if argv[0] == "chaos":
+        assert port.returncode == 0 and port.stdout == ref.stdout
+        assert len(port.stdout.splitlines()) == 17
+    else:
+        assert port.returncode == 2
+        for out in (port, ref):
+            assert "unknown config" in out.stderr and "chaos" in out.stderr
 
 
 def test_cli_refuses_a_missing_card(tmp_path):

@@ -5,9 +5,8 @@
 ``tests/test_kv_migration.py``'s transport cases run against the port
 (a streamed sequence decodes the stream a direct decode gives, token for
 token; adopt is idempotent; the served disaggregated deployment streams
-every prefilled sequence; the ``decode-migrate`` chaos plan, whose
-runner the port has not got, driven here as the JAX package's runner
-drives it), and ``tests/test_prefix_cache.py``'s cross-node prefix
+every prefilled sequence; the ``decode-migrate`` chaos plan through the
+port's runner), and ``tests/test_prefix_cache.py``'s cross-node prefix
 transfer. Across packages (ROADMAP C5): a port stream lands in a JAX
 package replica with its bf16 pages as ``bfloat16`` and a JAX package
 stream is adopted by the port, bytes equal both ways.
@@ -246,47 +245,23 @@ def test_disaggregated_prefill_streams_replica_to_replica(runtime):
         serve.delete("xfer")
 
 
-def test_decode_migrate_chaos_plan_survives(runtime):
-    """The JAX package's ``decode-migrate`` plan: 8 sequences through a
+def test_decode_migrate_chaos_plan_survives(monkeypatch):
+    """The JAX package's ``decode-migrate`` plan through
+    ``tosem_tpu_torch.chaos.runner.run_plan``: 8 sequences through a
     disaggregated deployment (1 prefill + 2 decode replicas) while a
     decode replica is drained mid-stream (its sequences migrate) and the
     prefill replica is then crashed; every sequence completes with the
     fault-free tokens, no error reaches a client, and sequences
-    migrate."""
-    from tosem_tpu_torch.chaos.injector import ChaosController
+    migrate. The runner starts its own runtime."""
     from tosem_tpu_torch.chaos.plan import CANNED_PLANS
-    from tosem_tpu_torch.serve.backends import BertDecodeBackend
-    from tosem_tpu_torch.serve.batching import DecodePolicy
-    from tosem_tpu_torch.serve.core import Serve
-    kw = dict(max_batch=4, max_len=64, page_size=16, num_pages=24,
-              max_new_tokens=8, device="cpu")
-    prompts = [{"ids": [1 + i, 2 + i, 3 + i, 4 + i]} for i in range(8)]
-    expected = _expected(prompts, kw)
-    with ChaosController(CANNED_PLANS["decode-migrate"]) as chaos:
-        serve = Serve()
-        serve.deploy("decode", BertDecodeBackend, init_kwargs=kw,
-                     num_replicas=3,
-                     decode_policy=DecodePolicy(max_active=4,
-                                                prefill_replicas=1),
-                     max_restarts=2, max_retries=3)
-        try:
-            h = serve.get_handle("decode")
-            futs = [h.remote(p) for p in prompts]
-            got, errors = [], 0
-            for f in futs:
-                try:
-                    got.append(f.result(timeout=300.0)["tokens"])
-                except BaseException:
-                    got.append(None)
-                    errors += 1
-            st = serve.get_deployment("decode").stats()
-        finally:
-            serve.delete("decode")
-        inj = chaos.injections("serve.decode_step")
-    assert errors == 0
-    assert got == expected
-    assert st["kv_migrations"] > 0
-    assert any(e["action"] == "drain_replica" for e in inj)
+    from tosem_tpu_torch.chaos.runner import run_plan
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    rep = run_plan(CANNED_PLANS["decode-migrate"], device="cpu")
+    assert rep.ok, rep.render()
+    assert rep.counts["errors_surfaced"] == 0
+    assert rep.counts["sequences_correct"] == rep.counts["sequences"] == 8
+    assert rep.counts["kv_migrations"] > 0
+    assert rep.counts["drains_injected"] > 0
 
 
 # -------------------------------------------- across packages (C5)

@@ -5,9 +5,9 @@ Copies, against :mod:`tosem_tpu_torch.runtime`, of ``tests/test_runtime.py``
 (object store, tasks, actors, kill-based fault injection, regressions,
 cancel, duplicate-done idempotency) and all of
 ``tests/test_object_store_lifecycle.py`` (two-phase writes, orphan
-reclamation, the spill tier). Left out: the microbenchmark smoke (the
-runtime bench waits for ROADMAP.md A11) and the head-of-line test, whose
-pass rests on a wall-clock budget (C-ref2). The start-method test is the
+reclamation, the spill tier). The microbenchmark smoke is in
+``tests/test_torch_bench_runtime.py``. Left out: the head-of-line test,
+whose pass rests on a wall-clock budget (C-ref2). The start-method test is the
 port's rule: spawn once torch is loaded. The store-name tests hold the
 port's segments apart from the JAX package's.
 """

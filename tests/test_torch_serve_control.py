@@ -9,11 +9,11 @@ flush policy, poison isolation, ``serve.dispatch`` chaos with a batch in
 flight, stats) and of ``tests/test_serve.py``'s ``TestServeCore`` and
 ``TestHttpIngress``, with ``TestServeAutoscaler``'s three tests of
 ``Deployment.scale``/``load`` that need no autoscaler. The BERT parity
-test runs the port's tiny backend on ``device="cpu"``. Left out: the
-speech tests (ROADMAP.md A13), the autoscaler tests and the compile-cache
-tests (copied into ``test_torch_control.py`` with the control plane and
-``CompileCache``'s budget and pins), and the two flush tests whose pass rests on a
-wall-clock budget (``test_flush_on_size``,
+test runs the port's tiny backend on ``device="cpu"``. The speech tests
+are in ``tests/test_torch_speech_serve.py``; the autoscaler and
+compile-cache tests in ``test_torch_control.py``, with the control plane
+and ``CompileCache``'s budget and pins. Left out: the two flush tests
+whose pass rests on a wall-clock budget (``test_flush_on_size``,
 ``test_adaptive_idle_dispatches_immediately``; C-ref2). Replicas run in
 spawned processes at ``num_workers=2``, one intra-op thread each.
 """

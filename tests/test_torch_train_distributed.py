@@ -240,6 +240,27 @@ class TestElastic:
             with pytest.raises(TrainWorkerLost):
                 tr.fit(4)
 
+    def test_failed_step_attempt_is_retried_and_recorded(self):
+        # a dropped chain stream fails step 1 with every rank alive:
+        # the trainer rewires, reruns the step (no shrink), records the
+        # failed attempt with its cause, and the trajectory is unchanged
+        from tosem_tpu_torch.chaos import ChaosController, Fault, FaultPlan
+        ref, params = _reference(3)
+        with _trainer(world=2, job="el-retry") as tr:
+            assert tr.fit(1) == ref[:1] and tr.step_failures == []
+            plan = FaultPlan(seed=5, name="dp-drop", faults=[
+                Fault(site="transport.send", action="drop")])
+            with ChaosController(plan) as chaos:
+                got = tr.fit(3)
+            assert len(chaos.log) == 1
+            assert got == ref and _same_params(tr, params)
+            st = tr.stats()
+            assert (st["world"], st["shrinks"], st["step_failures"]) == \
+                (2, 0, 1)
+            (fail,) = tr.step_failures
+            assert fail["step"] == 1 and fail["world"] == 2
+            assert any("dropped" in e for e in fail["errors"])
+
     def test_grow_beyond_grain_rejected(self):
         with _trainer(world=4, job="el-cap") as tr:
             with pytest.raises(ValueError, match="grain"):

@@ -50,7 +50,9 @@ mesh, and cluster serving):
 - ``tosem_tpu_torch.control`` the scaling policy core, SLO admission,
                               model multiplexing, the closed-loop
                               ``ControlPlane``
-- ``tosem_tpu_torch.chaos``   seeded fault plans and the injection seam
+- ``tosem_tpu_torch.chaos``   seeded fault plans, the injection seam, the
+                              survival runner's 17 scenarios and the
+                              ``chaos`` CLI
 - ``tosem_tpu_torch.models``  also EfficientDet and PointPillars (the NMS
                               sweep ``ops/csrc/nms.cu``), COCO-style AP
 - ``tosem_tpu_torch.compile`` ``export_program`` on ``torch.export``
@@ -143,6 +145,8 @@ _LAZY_EXPORTS = {
                                 "sharded_paged_attention"),
     "ShardedPagedDecodeBackend": ("tosem_tpu_torch.serve.backends",
                                   "ShardedPagedDecodeBackend"),
+    "DeadlineExceeded": ("tosem_tpu_torch.runtime.common",
+                         "DeadlineExceeded"),
     "TensorReceiver": ("tosem_tpu_torch.cluster.transport",
                        "TensorReceiver"),
     "send_tensors": ("tosem_tpu_torch.cluster.transport", "send_tensors"),

@@ -5,7 +5,7 @@ purpose: code on a hot path calls :func:`fire` at its injection site,
 which costs one attribute load and a None check when no controller is
 installed.
 
-Sites the port fires so far, and the actions they honor:
+Sites and the actions they honor:
 
 ==================  =====================================  =============
 site                fired                                   actions
@@ -17,9 +17,23 @@ runtime.store       large result sealed into the store      evict_object
 serve.dispatch      request routed to a replica             crash_replica,
                                                             slow_replica
 serve.decode_step   one decode scheduler iteration          evict_pages,
-                                                            slow_step
-train.step          trainer ``fit()`` finished one step     preempt
+                                                            slow_step,
+                                                            drain_replica,
+                                                            crash_prefill
+serve.route         request routed via a ClusterHandle      kill_router,
+                                                            kill_node,
+                                                            slow_node
 tune.step           trial step result processed             crash_trial
+cluster.submit      NodePool routes work to a node agent    kill_node
+cluster.probe       failure-detector sweep reaches a node   partition,
+                                                            heal,
+                                                            slow_node
+transport.send      tensor stream about to leave a sender   drop, delay,
+                                                            dup_stream
+train.step          trainer ``fit()`` finished one step     preempt
+train.dist_step     a data-parallel step about to dispatch  kill_node,
+                                                            slow_node
+control.scale       scale-up placement target chosen        kill_node
 ==================  =====================================  =============
 
 A controller is any object with ``on(site, **ctx)`` returning an action

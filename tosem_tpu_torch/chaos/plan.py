@@ -11,8 +11,8 @@ from replayable stress harnesses).
 
 Plans serialize to/from plain JSON dicts so they can live in test
 fixtures and CI scripts. The port's copy of ``tosem_tpu/chaos/plan.py``:
-the same sites, actions and canned plans; the ``chaos`` CLI and the
-survival runner wait for ROADMAP.md A14.
+the same sites, actions and canned plans, which the ``chaos`` CLI runs
+through :mod:`tosem_tpu_torch.chaos.runner`.
 """
 from __future__ import annotations
 

@@ -23,7 +23,9 @@ traced steps (``profiler/trace.py``).
 ``--config=kernel_matrix`` runs the cross-backend kernel bench
 (``ops/bench_kernels.py``), and the ``microbench`` subcommand
 ``runtime/bench_runtime.py``'s suites (``--kernels``, ``--sparse`` and
-the rest).
+the rest). The ``chaos`` subcommand (``chaos/cli.py``) runs a fault plan
+against its workload and prints the survival report (``chaos --list``,
+``chaos --plan decode-chaos [--device=cpu]``).
 
 ``bert_kernels`` is north-star config 5::
 
@@ -113,7 +115,6 @@ from typing import Any, List
 # yet -> the ROADMAP.md item that ports each
 NOT_PORTED = {
     "flash_autotune": "A4 (the flash half of block selection)",
-    "chaos": "A14 (chaos/runner.py and chaos/cli.py)",
 }
 
 
@@ -1090,6 +1091,12 @@ def make_parser() -> argparse.ArgumentParser:
 
 def main(argv: List[str] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "chaos":
+        # `python -m tosem_tpu_torch.cli chaos --plan …` runs a fault plan
+        # against its workload and prints a survival report
+        # (tosem_tpu_torch/chaos/)
+        from tosem_tpu_torch.chaos.cli import main as chaos_main
+        return chaos_main(argv[1:])
     if argv and argv[0] == "microbench":
         # the ray-microbenchmark analog over the task and object planes,
         # and the kernel and sparse suites (--kernels, --sparse)

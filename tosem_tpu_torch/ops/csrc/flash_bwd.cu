@@ -57,9 +57,14 @@
 //   dV += P^T dO and dK += (dS^T scale) Q take dO and Q by
 //   ldmatrix.trans. LSE, Delta (read per column) and the q segment ids
 //   arrive with their tile; dK and dV stay in fp32 registers until the
-//   epilogue writes them once.
+//   epilogue writes them once. At D = 128 those two accumulators alone
+//   take 128 registers a thread, so K's and V's A fragments are read
+//   from the resident tiles in shared memory at each use instead of
+//   being held for the walk.
 // - A tile is worked 16 streamed rows at a time, so the scores of only
 //   two n-blocks are live; no score tile goes through shared memory.
+// - D in {16, 32, 64, 128} is D/16 k-steps; ops/flash_attention.py runs
+//   any other D up to 128 at the next of these, zero-padded.
 // - The streamed tiles arrive by 16-byte cp.async.cg (4-byte for the
 //   statistics and ids) into a double buffer: tile t+1 loads while tile t
 //   computes, one commit / wait_group 0 / barrier a tile. Rows are padded
@@ -89,9 +94,10 @@
 // fp32 keeps the CUDA-core body below (the tensor cores have no
 // full-fp32 product, and TF32 keeps about three digits where the fp32
 // runs are the parity checks): one block per (64-row tile, batch*head),
-// D/16 threads sharing one row (16 elements each), so a thread holds the
-// row's slices of two operands and of one or two fp32 accumulators in
-// registers; the dot products over d end in a butterfly of warp shuffles.
+// D/16 threads sharing one row (16 elements each; 512 threads a block at
+// D = 128), so a thread holds the row's slices of two operands and of one
+// or two fp32 accumulators in registers; the dot products over d end in a
+// butterfly of warp shuffles.
 // The streamed tiles (K/V for dQ, Q/dO/LSE/Delta for dK/dV) go through
 // shared memory once per block. A causal dQ block stops at its diagonal
 // tile, a causal dKV block starts at the query tile holding its first key
@@ -457,7 +463,7 @@ flash_bwd_dkv_kernel(TOSEM_DKV_PARAMS) {
 // Schedule mode's extra state (the PARTIAL entry's bitmap words) took the
 // D = 64 body from 128 registers to 185: one 256-thread block an SM
 // instead of two. Its entry point asks for the dense mode's occupancy,
-// 128 registers a thread (2, 4 or 8 blocks of 4*D threads). (The floor
+// 128 registers a thread (1, 2, 4 or 8 blocks of 4*D threads). (The floor
 // stays off the dense entry point: any explicit floor, even 1, changes how
 // ptxas allocates it.)
 template <typename T, int D>
@@ -924,12 +930,19 @@ __device__ __forceinline__ void flash_bwd_dkv_tc_body(
   cp_async_wait_all();
   __syncthreads();
 
-  uint32_t ka[D / 16][4], va[D / 16][4];   // K and V as A fragments
+  // K and V as A fragments, held for the whole walk up to D = 64; at
+  // D = 128 read again from the resident tiles at each use
+  constexpr bool HOLD = D <= 64;
+  auto a_off = [&](int kk) {
+    return (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8;
+  };
+  uint32_t ka[HOLD ? D / 16 : 1][4], va[HOLD ? D / 16 : 1][4];
+  if constexpr (HOLD) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int off = (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8;
-    ldsm_x4(ka[kk], ks + off);
-    ldsm_x4(va[kk], vs + off);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      ldsm_x4(ka[kk], ks + a_off(kk));
+      ldsm_x4(va[kk], vs + a_off(kk));
+    }
   }
   const float scale2 = scale * LOG2E;
   float dka[NO][4], dva[NO][4];
@@ -959,7 +972,9 @@ __device__ __forceinline__ void flash_bwd_dkv_tc_body(
     bool partial = false;
     if constexpr (SCHED) partial = sc.kind[srow + it] == KIND_PARTIAL;
 
-#pragma unroll
+    // schedule mode at D = 128 walks its 16-query steps one at a time:
+    // unrolled, they took it to 255 registers and a spill
+#pragma unroll (SCHED && !HOLD ? 1 : BS / 16)
     for (int qc = 0; qc < BS / 16; ++qc) {   // 16 queries at a time
       float s[2][4], dp[2][4];
 #pragma unroll
@@ -971,13 +986,23 @@ __device__ __forceinline__ void flash_bwd_dkv_tc_body(
       for (int kk = 0; kk < D / 16; ++kk) {
         const int off = (qc * 16 + (lane / 16) * 8 + lane % 8) * LD +
                         kk * 16 + ((lane / 8) % 2) * 8;
-        uint32_t bq[4], bd[4];
+        uint32_t bq[4], bd[4], kf[4], vf[4];
         ldsm_x4(bq, qb + off);
         ldsm_x4(bd, db + off);
-        mma_bf16(s[0], ka[kk], bq[0], bq[1]);
-        mma_bf16(s[1], ka[kk], bq[2], bq[3]);
-        mma_bf16(dp[0], va[kk], bd[0], bd[1]);
-        mma_bf16(dp[1], va[kk], bd[2], bd[3]);
+        if constexpr (HOLD) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            kf[i] = ka[kk][i];
+            vf[i] = va[kk][i];
+          }
+        } else {
+          ldsm_x4(kf, ks + a_off(kk));
+          ldsm_x4(vf, vs + a_off(kk));
+        }
+        mma_bf16(s[0], kf, bq[0], bq[1]);
+        mma_bf16(s[1], kf, bq[2], bq[3]);
+        mma_bf16(dp[0], vf, bd[0], bd[1]);
+        mma_bf16(dp[1], vf, bd[2], bd[3]);
       }
 #pragma unroll
       for (int u = 0; u < 2; ++u)
@@ -1115,7 +1140,8 @@ flash_bwd_dq_tc_sched_kernel(TOSEM_DQ_TC_PARAMS) {
 // walk. Left to itself ptxas capped the dense D = 64 and D = 32 bodies at
 // 168 and 128 registers (3 and 4 blocks an SM) and spilled; asking for 2
 // blocks an SM lets them take what they need (about 217 at D = 64) with
-// nothing spilled.
+// nothing spilled. At D = 128 the fragments are not held (above) and
+// the accumulators fit under the same floor.
 template <int D>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_bwd_dkv_tc_kernel(TOSEM_DKV_TC_PARAMS) {
@@ -1226,6 +1252,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       return LAUNCH<T, 32, S>(__VA_ARGS__);             \
     case 64:                                            \
       return LAUNCH<T, 64, S>(__VA_ARGS__);             \
+    case 128:                                           \
+      return LAUNCH<T, 128, S>(__VA_ARGS__);            \
     default:                                            \
       return (int)cudaErrorInvalidValue;                \
   }
@@ -1421,7 +1449,7 @@ extern "C" int flash_bwd_dkv_sched(
 }
 
 // The blocks of one bf16 body that fit on an SM (dkv: 1 for dK/dV, 0 for
-// dQ; sched: 1 for the schedule mode; D in {16, 32, 64}), or minus a
+// dQ; sched: 1 for the schedule mode; D in {16, 32, 64, 128}), or minus a
 // CUDA error code: what the registers and shared memory of the build
 // allow.
 extern "C" int flash_bwd_tc_blocks_per_sm(int dkv, int sched, int D) {
@@ -1432,6 +1460,8 @@ extern "C" int flash_bwd_tc_blocks_per_sm(int dkv, int sched, int D) {
       return tc_blocks_per_sm<32>(dkv, sched);
     case 64:
       return tc_blocks_per_sm<64>(dkv, sched);
+    case 128:
+      return tc_blocks_per_sm<128>(dkv, sched);
     default:
       return -(int)cudaErrorInvalidValue;
   }

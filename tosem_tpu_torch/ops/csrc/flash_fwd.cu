@@ -39,7 +39,8 @@
 //   mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32: S = Q K^T with Q's
 //   fragments loaded once by ldmatrix and kept in registers for the
 //   whole row, and O += P V with V read by ldmatrix.trans. D in
-//   {16, 32, 64} is D/16 k-steps.
+//   {16, 32, 64, 128} is D/16 k-steps (ops/flash_attention.py runs any
+//   other D up to 128 at the next of these, zero-padded).
 // - S stays in registers as the m16n8 accumulator fragments (a thread
 //   holds rows g and g+8, g = lane/4, columns 2*(lane%4)+{0,1}+8n); the
 //   row max and sum reduce over the 4 lanes of a quad by __shfl_xor_sync,
@@ -69,9 +70,13 @@
 //
 // fp32 keeps the CUDA-core body (one thread a query row, scalar fp32
 // FMAs over K/V tiles staged in shared memory; the scores of a tile go
-// through shared memory). The tensor cores have no full-fp32 product,
-// and TF32 keeps about three digits where the fp32 runs are the parity
-// checks, held to 2e-5 against the plain version.
+// through shared memory). At D = 128 two neighbouring threads share a
+// row, each holding half of its Q and of its accumulator (128 registers
+// of them, as one thread at D = 64), and one shuffle adds their halves of
+// each score; both then hold the same score, so every softmax statistic
+// is computed twice, identically. The tensor cores have no full-fp32
+// product, and TF32 keeps about three digits where the fp32 runs are the
+// parity checks, held to 2e-5 against the plain version.
 //
 // Numerics follow the reference kernel: operands stay in the input dtype
 // (bf16 products are exact in fp32), scores and row statistics are fp32,
@@ -108,7 +113,14 @@ struct Sched {
 
 // ------------------------------------------------ fp32: the CUDA cores
 
-// One thread owns one query row. Used for T = float only.
+// The threads that share one query row of the fp32 body: 1, or 2 at D = 128.
+template <int D>
+__host__ __device__ constexpr int f32_split() {
+  return D > 64 ? 2 : 1;
+}
+
+// SPLIT threads own one query row, each D / SPLIT of its elements. Used
+// for T = float only.
 template <typename T, int D, bool SCHED>
 __device__ __forceinline__ void flash_fwd_body(
     const T* __restrict__ q, const T* __restrict__ k,
@@ -116,31 +128,36 @@ __device__ __forceinline__ void flash_fwd_body(
     const int* __restrict__ qseg, const int* __restrict__ kseg, int H,
     int Tq, int Tk, Strides sq, Strides sk, Strides sv, Strides so,
     float scale, int causal, Sched sc) {
+  constexpr int SPLIT = f32_split<D>();
+  constexpr int NT = BQ * SPLIT;   // threads of the block
+  constexpr int DH = D / SPLIT;    // elements of a row a thread holds
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);                 // [BK][D]
   T* vs = ks + BK * D;                                     // [BK][D]
-  float* ss = reinterpret_cast<float*>(vs + BK * D);       // [BK][BQ]
-  int* kseg_s = reinterpret_cast<int*>(ss + BK * BQ);      // [BK]
+  float* ss = reinterpret_cast<float*>(vs + BK * D);       // [BK][NT]
+  int* kseg_s = reinterpret_cast<int*>(ss + BK * NT);      // [BK]
 
   const int tid = threadIdx.x;
+  const int lr = tid / SPLIT;        // the block's row this thread shares
+  const int d0 = (tid % SPLIT) * DH; // its first element of the row
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
-  const int row = q0 + tid;
+  const int row = q0 + lr;
   const bool live = row < Tq;
 
-  float qr[D];
+  float qr[DH];
   {
     const T* qp = q + b * sq.b + (long long)(live ? row : 0) * sq.t +
-                  h * sq.h;
+                  h * sq.h + d0;
 #pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = live ? qp[d] : 0.f;
+    for (int d = 0; d < DH; ++d) qr[d] = live ? qp[d] : 0.f;
   }
   const int qs_row = (qseg != nullptr && live) ? qseg[(long long)b * Tq + row]
                                                : 0;
-  float acc[D];
+  float acc[DH];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
   float m = NEG_INF;
   float l = 0.f;
 
@@ -163,11 +180,11 @@ __device__ __forceinline__ void flash_fwd_body(
     if constexpr (SCHED) {
       kt = sc.blk[srow + it];
       partial = sc.kind[srow + it] == KIND_PARTIAL;
-      if (partial) bits = sc.bits[(long long)sc.mid[srow + it] * BQ + tid];
+      if (partial) bits = sc.bits[(long long)sc.mid[srow + it] * BQ + lr];
     }
     const int k0 = kt * BK;
     const int kn = min(BK, Tk - k0);
-    for (int e = tid; e < BK * D; e += BQ) {
+    for (int e = tid; e < BK * D; e += NT) {
       const int j = e / D;
       const int d = e % D;
       if (j < kn) {
@@ -177,7 +194,7 @@ __device__ __forceinline__ void flash_fwd_body(
       }
     }
     if (kseg != nullptr) {
-      for (int j = tid; j < kn; j += BQ) kseg_s[j] = kseg[(long long)b * Tk + k0 + j];
+      for (int j = tid; j < kn; j += NT) kseg_s[j] = kseg[(long long)b * Tk + k0 + j];
     }
     __syncthreads();
 
@@ -186,14 +203,20 @@ __device__ __forceinline__ void flash_fwd_body(
     float mx = NEG_INF;
     for (int j = 0; j < kn; j += 4) {
       float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      const T* k_j = ks + j * D;
+      const T* k_j = ks + j * D + d0;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
+      for (int d = 0; d < DH; ++d) {
         const float x = qr[d];
         a0 = fmaf(x, k_j[d], a0);
         a1 = fmaf(x, k_j[D + d], a1);
         a2 = fmaf(x, k_j[2 * D + d], a2);
         a3 = fmaf(x, k_j[3 * D + d], a3);
+      }
+      if constexpr (SPLIT == 2) {   // the pair's two halves of each score
+        a0 += __shfl_xor_sync(0xffffffffu, a0, 1);
+        a1 += __shfl_xor_sync(0xffffffffu, a1, 1);
+        a2 += __shfl_xor_sync(0xffffffffu, a2, 1);
+        a3 += __shfl_xor_sync(0xffffffffu, a3, 1);
       }
       const float a[4] = {a0, a1, a2, a3};
 #pragma unroll
@@ -204,7 +227,7 @@ __device__ __forceinline__ void flash_fwd_body(
           if (diag && k0 + jj > row) s = NEG_INF;
           if (SCHED && partial && !((bits >> jj) & 1ull)) s = NEG_INF;
           if (kseg != nullptr && kseg_s[jj] != qs_row) s = NEG_INF;
-          ss[jj * BQ + tid] = s;
+          ss[jj * NT + tid] = s;
           mx = fmaxf(mx, s);
         }
       }
@@ -213,14 +236,14 @@ __device__ __forceinline__ void flash_fwd_body(
     const float m_new = fmaxf(m, mx);
     const float alpha = expf(m - m_new);
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+    for (int d = 0; d < DH; ++d) acc[d] *= alpha;
     float lsum = 0.f;
     for (int j = 0; j < kn; ++j) {
-      const float p = expf(ss[j * BQ + tid] - m_new);
+      const float p = expf(ss[j * NT + tid] - m_new);
       lsum += p;
-      const T* v_j = vs + j * D;
+      const T* v_j = vs + j * D + d0;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, v_j[d], acc[d]);
+      for (int d = 0; d < DH; ++d) acc[d] = fmaf(p, v_j[d], acc[d]);
     }
     l = l * alpha + lsum;
     m = m_new;
@@ -229,10 +252,10 @@ __device__ __forceinline__ void flash_fwd_body(
 
   if (live) {
     const float l_safe = (l == 0.f) ? 1.f : l;
-    T* op = o + b * so.b + (long long)row * so.t + h * so.h;
+    T* op = o + b * so.b + (long long)row * so.t + h * so.h + d0;
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = acc[d] / l_safe;
-    lse[((long long)b * H + h) * Tq + row] = m + logf(l_safe);
+    for (int d = 0; d < DH; ++d) op[d] = acc[d] / l_safe;
+    if (d0 == 0) lse[((long long)b * H + h) * Tq + row] = m + logf(l_safe);
   }
 }
 
@@ -246,15 +269,17 @@ __device__ __forceinline__ void flash_fwd_body(
   q, k, v, o, lse, qseg, kseg, H, Tq, Tk, sq, sk, sv, so, scale, causal, sc
 
 template <typename T, int D>
-__global__ void __launch_bounds__(BQ) flash_fwd_kernel(TOSEM_FWD_PARAMS) {
+__global__ void __launch_bounds__(BQ * f32_split<D>())
+flash_fwd_kernel(TOSEM_FWD_PARAMS) {
   flash_fwd_body<T, D, false>(TOSEM_FWD_ARGS);
 }
 
-// The schedule entry point asks for six 64-thread blocks an SM (the
-// floor stays off the dense entry point: any explicit floor, even 1,
-// changes how ptxas allocates it).
+// The schedule entry point asks for six 64-thread blocks an SM; at
+// D = 128 two of 128 threads (three capped it at 168 registers and
+// spilled). The floor stays off the dense entry point: any explicit
+// floor, even 1, changes how ptxas allocates it.
 template <typename T, int D>
-__global__ void __launch_bounds__(BQ, 6)
+__global__ void __launch_bounds__(BQ * f32_split<D>(), D > 64 ? 2 : 6)
 flash_fwd_sched_kernel(TOSEM_FWD_PARAMS) {
   flash_fwd_body<T, D, true>(TOSEM_FWD_ARGS);
 }
@@ -676,13 +701,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
                int Tq, int Tk, Strides sq, Strides sk, Strides sv,
                Strides so, float scale, int causal, Sched sc,
                cudaStream_t stream) {
-  const size_t smem = 2 * BK * D * sizeof(float) + BK * BQ * sizeof(float) +
+  constexpr int NT = BQ * f32_split<D>();
+  const size_t smem = 2 * BK * D * sizeof(float) + BK * NT * sizeof(float) +
                       BK * sizeof(int);
   auto kern = SCHED ? flash_fwd_sched_kernel<float, D>
                     : flash_fwd_kernel<float, D>;
   if (int err = set_smem(kern, smem)) return err;
   dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  kern<<<grid, BQ, smem, stream>>>(
+  kern<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), static_cast<const int*>(qseg),
@@ -724,12 +750,14 @@ int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
       case 16: TOSEM_LAUNCH(launch_f32, 16);
       case 32: TOSEM_LAUNCH(launch_f32, 32);
       case 64: TOSEM_LAUNCH(launch_f32, 64);
+      case 128: TOSEM_LAUNCH(launch_f32, 128);
     }
   } else if (dtype == 1) {
     switch (D) {
       case 16: TOSEM_LAUNCH(launch_tc, 16);
       case 32: TOSEM_LAUNCH(launch_tc, 32);
       case 64: TOSEM_LAUNCH(launch_tc, 64);
+      case 128: TOSEM_LAUNCH(launch_tc, 128);
     }
   }
 #undef TOSEM_LAUNCH

@@ -40,6 +40,14 @@ softmax, as the JAX package's ``xla`` arm does.
 
 Both arms also return the per-row log-sum-exp ``[B, H, Tq]`` fp32
 (``return_lse=True``); the backward reads it.
+
+The kernels are built at head dims 16, 32, 64 and 128. Any other head
+dim up to 128 runs on the next of them (:func:`kernel_head_dim`): the
+CUDA wrappers zero-pad the last dimension of q, k, v (and dO), launch,
+and slice the outputs back. Zero lanes add exact zeros to every fp32 dot
+product, the caller's scale (that of the true head dim) passes through
+unchanged, and the LSE and Delta are those of the unpadded call. A head
+dim above 128 raises (ROADMAP.md C1).
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 import numpy as np
 
@@ -62,7 +71,7 @@ from tosem_tpu_torch.ops.mask_programs import (CausalMask, Mask,
                                                pack_bitmaps)
 
 _NEG_INF = -1e30
-_KERNEL_D = (16, 32, 64)
+_KERNEL_D = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -261,9 +270,7 @@ def _check_operands(q, k, v, segment_ids, layout):
     if (Bk, Hk, dk) != (B, H, d) or _dims(v, layout) != (B, Tk, H, d):
         raise ValueError(f"q/k/v shapes disagree: {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)} ({layout})")
-    if d not in _KERNEL_D:
-        raise ValueError(f"flash kernel takes head dim in {_KERNEL_D}, "
-                         f"got {d}")
+    kernel_head_dim(d)
     qseg = kseg = None
     if segment_ids is not None:
         qseg, kseg = segment_ids.q, segment_ids.kv
@@ -279,6 +286,31 @@ def _check_operands(q, k, v, segment_ids, layout):
 
 def _ptr(x):
     return None if x is None else x.data_ptr()
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a call of head dim ``d`` at: the
+    least of :data:`_KERNEL_D` that holds it. Above 128 no body is built,
+    and the call raises rather than fall back (ROADMAP.md C1)."""
+    for width in _KERNEL_D:
+        if d <= width:
+            return width
+    raise ValueError(
+        f"flash kernel takes head dim up to {_KERNEL_D[-1]}, got {d}: no "
+        "body is built for it (ROADMAP.md C1)")
+
+
+def _pad_heads(tensors, width):
+    """Each tensor zero-padded along its last (head) dimension to
+    ``width``, as a new contiguous tensor (the ones already that wide
+    pass through)."""
+    return tuple(x if x.shape[-1] == width
+                 else F.pad(x, (0, width - x.shape[-1])) for x in tensors)
+
+
+def _unpad(x, d):
+    """The first ``d`` lanes of a padded output, contiguous."""
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
 
 
 class _DeviceSchedule(NamedTuple):
@@ -406,13 +438,16 @@ def _flash_fwd_cuda(q, k, v, segment_ids, causal, sm_scale, layout,
     over ``programs.fwd``). Returns ``(out, lse)``."""
     B, Tq, Tk, H, d, qseg, kseg = _check_operands(q, k, v, segment_ids,
                                                   layout)
+    width = kernel_head_dim(d)
+    q, k, v = _pad_heads((q, k, v), width)
     if q.dtype == torch.bfloat16:
         _check_rows_aligned((("q", q), ("k", k), ("v", v)), layout)
-    out_shape = (B, Tq, H, d) if layout == "bthd" else (B, H, Tq, d)
+    out_shape = ((B, Tq, H, width) if layout == "bthd"
+                 else (B, H, Tq, width))
     out = torch.empty(out_shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    args = (_DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
+    args = (_DTYPE_CODE[q.dtype], width, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(qseg),
             _ptr(kseg), B, H, Tq, Tk, *_strides(q, layout),
             *_strides(k, layout), *_strides(v, layout),
@@ -427,11 +462,12 @@ def _flash_fwd_cuda(q, k, v, segment_ids, causal, sm_scale, layout,
     code = _kernel("flash_fwd", name)(*args, *mode, stream)
     _build.check(code, name)
     registry.count_launch(name)
-    return out, lse
+    return _unpad(out, d), lse
 
 
 def _bwd_operands(q, k, v, do, lse, delta, segment_ids, layout):
-    """Validate the backward's operands; returns the shared leading
+    """Validate the backward's operands and pad them to the kernels'
+    head dim; returns the padded ``(q, k, v, do)``, the shared leading
     arguments of both C functions, ``(B, H, Tq, Tk)`` and the operand
     strides."""
     B, Tq, Tk, H, d, qseg, kseg = _check_operands(q, k, v, segment_ids,
@@ -440,6 +476,7 @@ def _bwd_operands(q, k, v, do, lse, delta, segment_ids, layout):
             or do.stride(-1) != 1:
         raise ValueError(f"dO must be {q.dtype} {tuple(q.shape)} with a "
                          "contiguous head dimension")
+    q, k, v, do = _pad_heads((q, k, v, do), kernel_head_dim(d))
     if q.dtype == torch.bfloat16:
         _check_rows_aligned((("q", q), ("k", k), ("v", v), ("dO", do)),
                             layout)
@@ -448,12 +485,12 @@ def _bwd_operands(q, k, v, do, lse, delta, segment_ids, layout):
                 or not x.is_contiguous()):
             raise ValueError(f"{name} must be contiguous float32 "
                              f"{(B, H, Tq)}")
-    common = (_DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
+    common = (_DTYPE_CODE[q.dtype], q.shape[-1], q.data_ptr(), k.data_ptr(),
               v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
               _ptr(qseg), _ptr(kseg))
     strides = (*_strides(q, layout), *_strides(k, layout),
                *_strides(v, layout), *_strides(do, layout))
-    return common, (B, H, Tq, Tk), strides
+    return (q, k, v, do), common, (B, H, Tq, Tk), strides
 
 
 def _bwd_mode(name, programs, which, causal, q, dims, n_major, n_minor):
@@ -471,8 +508,9 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, segment_ids, causal,
                         sm_scale, layout, programs=None):
     """Launch ``flash_bwd_dkv`` (B2), or ``flash_bwd_dkv_sched`` over the
     kv-major ``programs.dkv``. Returns ``(dk, dv)``."""
-    common, dims, strides = _bwd_operands(q, k, v, do, lse, delta,
-                                          segment_ids, layout)
+    d = q.shape[-1]
+    (q, k, v, do), common, dims, strides = _bwd_operands(
+        q, k, v, do, lse, delta, segment_ids, layout)
     name, mode = _bwd_mode("flash_bwd_dkv", programs, "dkv", causal, q,
                            dims, dims[3] // FLASH_BK, dims[2] // FLASH_BQ)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -483,15 +521,16 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, segment_ids, causal,
         *mode, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, name)
     registry.count_launch(name)
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, segment_ids, causal,
                        sm_scale, layout, programs=None):
     """Launch ``flash_bwd_dq`` (B3), or ``flash_bwd_dq_sched`` over the
     q-major ``programs.dq``. Returns ``dq``."""
-    common, dims, strides = _bwd_operands(q, k, v, do, lse, delta,
-                                          segment_ids, layout)
+    d = q.shape[-1]
+    (q, k, v, do), common, dims, strides = _bwd_operands(
+        q, k, v, do, lse, delta, segment_ids, layout)
     name, mode = _bwd_mode("flash_bwd_dq", programs, "dq", causal, q, dims,
                            dims[2] // FLASH_BQ, dims[3] // FLASH_BK)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -501,22 +540,25 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, segment_ids, causal,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, name)
     registry.count_launch(name)
-    return dq
+    return _unpad(dq, d)
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, do, segment_ids, causal, sm_scale,
                     layout, programs=None):
     """Delta in torch, then B2 and B3 (their schedule mode when
     ``programs`` is given). Returns ``(dq, dk, dv)``, each shaped and
-    typed as its operand."""
+    typed as its operand. A head dim the kernels pad is padded once here
+    for both, after Delta is taken on the unpadded dO and O."""
     # autograd may hand over an expanded or strided gradient
     do = do.to(q.dtype).contiguous()
     delta = _bwd_delta(do, out, layout)
+    d = q.shape[-1]
+    q, k, v, do = _pad_heads((q, k, v, do), kernel_head_dim(d))
     dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, segment_ids,
                                  causal, sm_scale, layout, programs)
     dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, segment_ids, causal,
                             sm_scale, layout, programs)
-    return dq, dk, dv
+    return _unpad(dq, d), _unpad(dk, d), _unpad(dv, d)
 
 
 class _FlashFn(torch.autograd.Function):

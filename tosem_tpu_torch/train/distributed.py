@@ -1208,6 +1208,9 @@ class DistributedTrainer:
         self._shrinks = 0
         self._grows = 0
         self._straggler_evictions = 0
+        # every failed step attempt: its step and each failed rank's
+        # error, in order (a retried step recomputes its shards)
+        self.step_failures: List[Dict[str, Any]] = []
         # per-handle deque of self-reported backward times (the
         # watchdog's evidence), keyed by id(handle)
         self._compute_hist: Dict[int, Any] = {}
@@ -1542,6 +1545,9 @@ class DistributedTrainer:
                     outs.append(e)
             fails = [o for o in outs if isinstance(o, BaseException)]
             if fails:
+                self.step_failures.append(
+                    {"step": step, "world": len(futs),
+                     "errors": [repr(e)[:500] for e in fails]})
                 step = self._handle_failure(step)
                 continue
             dt = time.perf_counter() - t0
@@ -1624,6 +1630,7 @@ class DistributedTrainer:
                 "examples_per_s": round(self._examples_per_s, 2),
                 "shrinks": self._shrinks, "grows": self._grows,
                 "straggler_evictions": self._straggler_evictions,
+                "step_failures": len(self.step_failures),
                 "startup_s": {k: round(v, 3)
                               for k, v in self._startup_s.items()},
                 "workers": [getattr(h, "node_name", "?")
