@@ -253,12 +253,13 @@ Phases, each printing one JSON line:
               bench, B1, B4 and B5 launch inside the replicas and in this
               process, and each ratio prints beside the reference's
               speed floor; (c) the train_dp phase's BERT-base job with
-              ``DistributedTrainer(backend="nodes")`` at world 4, each
+              ``DistributedTrainer(backend="nodes")`` at world 2 for 2
+              steps a run, each
               rank a replica process on its own node agent building
               ``"chip_smoke:dp_job"``: losses and all 199 parameters
               equal to the threads backend's and the local fold's bit for
               bit, B1-B3 12 launches a shard inside each rank; then one
-              rank's agent SIGKILLed after step 1: the world shrinks to 3
+              rank's agent SIGKILLed after step 1: the world shrinks to 1
               (the journal records the loss and the shrink) and the run
               equals a threads run that loses its last rank at the same
               step, bit for bit; step ms beside the threads backend's;
@@ -405,6 +406,38 @@ Phases, each printing one JSON line:
               then its time at 60,025 boxes, and at 19,881 by graph
               replay beside the plain version's and its bound from this
               run's IoU count.
+7k. driving — the Apollo driving stack on the card (budget 45 s).
+              PointPillars at the 141 x 141 grid (16,384 points a cloud),
+              its score trained on the card (60 Adam steps) to mark the
+              pillars that hold a return above the ground, each pillar
+              predicting one 4 m x 4 m box, so that a frame keeps a few
+              dozen boxes (untrained it keeps about 11,000, which would
+              stall the tracker's quadratic host loop). (a) Its tracker
+              pipeline (``build_pipeline``) over 6 clouds of a car moving
+              1 m a frame: N1 launched once a frame, a track id held over
+              every frame, and the same clouds through the CPU detector
+              with the same weights: equal keep masks, boxes and scores
+              within 1e-5 of the largest, the same detections and track
+              ids. (b) ``examples/quickstart_driving.py``'s drive on the
+              card (route, tracker, ``build_driving_pipeline(...,
+              localize=True)``, the drive view): the route, a scenario
+              trace from LANE_FOLLOW to EMERGENCY_STOP, the last fence at
+              most 11 m, and the CPU's drive equal in every discrete
+              output (scenarios, candidates, fences, the planner's
+              last-iteration walls) and within ``DRIVE_TOL`` elsewhere.
+              (c) The whole chain, pts -> detection -> tracker ->
+              prediction -> scenario -> planning -> control with
+              localization, 8 frames (a clear road, a car drifting into
+              the lane, a wall across it), its inputs recorded, then run
+              again in a fresh chain from the recording read back: every
+              channel's history bit for bit and a byte-identical SVG. (d)
+              ``batched_sssp`` over 1,024 lanes of integer lengths from 64
+              sources equal to ``scipy.sparse.csgraph.shortest_path``,
+              and its time. (e) Each frame's wall ms on the card and on
+              the CPU, each component's proc ms, and 3 frames of (c)
+              under ``torch.profiler`` (CUDA activity, read from its
+              Chrome trace): the device's busy share and its largest
+              items. Nothing may reach ``FALLBACK_COUNTS``.
 8. suite    — north-star config 5 through the port's experiment runner,
               ``tosem_tpu_torch.cli --config=bert_kernels`` (BERT-base:
               8 x 512, 12 heads of 64, hidden 768, bf16) into a
@@ -416,7 +449,7 @@ Phases, each printing one JSON line:
               forward+backward). Every row must read under the card's
               peak (a row above it means a timing window closed early).
 
-``--phases`` picks a subset (default: all twenty-five), e.g.
+``--phases`` picks a subset (default: all twenty-six), e.g.
 ``build,kernels``
 for a first call after a kernel change, ``build,kernels,train`` for the
 training path, ``build,train_dp`` for data-parallel training,
@@ -429,8 +462,8 @@ and HPO trials on the card, ``build,decode,serve`` for the served path,
 ``build,decode,cluster``
 for cluster serving, ``build,benches`` for the benches,
 ``build,moe,speech`` for MoE-BERT and the speech family,
-``build,detection`` for the detection family, ``chaos`` for the
-chaos runner, or
+``build,detection`` for the detection family, ``build,driving`` for
+the driving stack, ``chaos`` for the chaos runner, or
 ``build,kernels,decode,decode_modes,serve`` for the decode modes.
 
 The launch counts of every kernel are set to 0 just before the decode,
@@ -438,7 +471,8 @@ each decode mode, the encode, the sparse encode, the train, each
 data-parallel run, each sharded path, the pipelined forward and
 backward, each mesh train run, each bench, the tune phase's direct runs, the MoE
 encode, the MoE train steps, the detection family's CLI entries and
-``detect`` launches and the suite paths run and read just
+``detect`` launches, the driving stack's tracker pipeline and whole
+chain, and the suite paths run and read just
 after (the serve, cluster and decode-bench paths' inside their
 replicas: set to 0 as each replica's warm-up ends, read after its
 traffic; the data-parallel ranks' and the tune trials' inside each process,
@@ -5870,7 +5904,8 @@ AUTOTUNE_PAGE_SHAPES = ((8, 12, 512, 64, "bfloat16"),
 AUTOTUNE_SPEC_SHAPES = ((8, 12, 512, 64, "bfloat16"),)
 BENCH_MIN_S = 0.2       # (b) the decode bench's closed-loop windows
 CLUSTER_BENCH_MIN_S = 0.05  # (d) run_cluster_benchmarks' windows
-DP_NODES_WORLD = 4      # (c) ranks, one a node agent
+DP_NODES_WORLD = 2      # (c) ranks, one a node agent
+DP_NODES_STEPS = 2      # (c) steps of each run (the kill lands after 1)
 
 
 def dp_job(seed, device="cuda"):
@@ -6073,7 +6108,7 @@ def benches_dp_nodes(dev, seed, out):
     flash = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
     torch.cuda.empty_cache()
     job = dp_job(seed, dev)
-    rec = {"world": DP_NODES_WORLD, "steps": DP_STEPS, "runs": {}}
+    rec = {"world": DP_NODES_WORLD, "steps": DP_NODES_STEPS, "runs": {}}
     counts = {k: 0 for k in KERNELS}
     pids = set()
 
@@ -6089,7 +6124,7 @@ def benches_dp_nodes(dev, seed, out):
         job.shard_grads = shard_grads
         losses = []
         try:
-            for _ in range(DP_STEPS):
+            for _ in range(DP_NODES_STEPS):
                 state, m = step_fn(state)
                 losses.append(m["loss"])
         finally:
@@ -6113,7 +6148,7 @@ def benches_dp_nodes(dev, seed, out):
                 else:
                     victim.dead = True
         t0 = time.perf_counter()
-        losses = tr.fit(DP_STEPS, on_step=on_step)
+        losses = tr.fit(DP_NODES_STEPS, on_step=on_step)
         return losses, [(b - a) * 1e3 for a, b in
                         zip([t0] + marks[:-1], marks)]
 
@@ -7762,6 +7797,561 @@ def phase_detection(dev, seed):
     return counts, {"nms_sweep": rec}
 
 
+# ------------------------------------------------------- the driving stack
+
+DRIVE_GRID = (0.0, 70.4, -35.2, 35.2, 141, 141, 32)  # pointpillars_case's
+DRIVE_POINTS = 16384     # a cloud's returns
+DRIVE_OBJ_POINTS = 600   # an object's returns, above the ground
+DRIVE_TRAIN_STEPS = 60   # Adam steps of the detector's score on the card
+DRIVE_BOX = (2.0, 2.0)   # the half sizes (m) of the box a pillar predicts
+DRIVE_TRAIN_OBJECTS = ((20.0, -1.0, 24.0, 0.8), (40.0, 3.0, 44.0, 4.8),
+                       (10.0, -6.0, 14.0, -4.2), (55.0, -12.0, 59.0, -10.2))
+PP_FRAMES = 6            # (a) frames of a car moving 1 m a frame
+CHAIN_FRAMES = 8         # (c) frames of the whole chain
+CHAIN_CHANNELS = ("pts", "detections", "tracks", "predicted_obstacles",
+                  "ego", "planning_request", "trajectory", "control",
+                  "imu", "gnss", "pose")
+DRIVE_TRACED = 3         # (e) chain frames under torch.profiler
+SSSP_N, SSSP_S = 1024, 64  # (d) lanes and sources
+DET_REL = 1e-5           # (a) boxes and scores card vs CPU, of the largest
+
+
+def drive_cloud(seed, objects):
+    """A lidar cloud over DRIVE_GRID's field, fp32 [DRIVE_POINTS, 4]
+    (x, y, z, intensity): DRIVE_OBJ_POINTS returns inside each object's
+    footprint (x0, y0, x1, y1) above the ground (z 0.2-1.5 m, intensity
+    0.5-1), the rest ground returns (z -2.0 to -1.6 m, intensity 0-0.3)
+    uniform over the field."""
+    import numpy as np
+    g = DRIVE_GRID
+    rng = np.random.default_rng(seed)
+    xy, rest = [], []
+    for x0, y0, x1, y1 in objects:
+        xy.append(rng.uniform([x0, y0], [x1, y1], (DRIVE_OBJ_POINTS, 2)))
+        rest.append(np.stack([rng.uniform(0.2, 1.5, DRIVE_OBJ_POINTS),
+                              rng.uniform(0.5, 1.0, DRIVE_OBJ_POINTS)], 1))
+    n = DRIVE_POINTS - DRIVE_OBJ_POINTS * len(objects)
+    xy.append(rng.uniform([g[0], g[2]], [g[1], g[3]], (n, 2)))
+    rest.append(np.stack([rng.uniform(-2.0, -1.6, n),
+                          rng.uniform(0.0, 0.3, n)], 1))
+    return np.concatenate([np.concatenate(xy), np.concatenate(rest)],
+                          1).astype(np.float32)
+
+
+def drive_detector(dev, seed):
+    """PointPillars at DRIVE_GRID on the card, its score trained there to
+    mark the pillars that hold a return above the ground (DRIVE_TRAIN_STEPS
+    Adam steps on one cloud of four cars, positives weighted 11x) and its
+    box deltas set to one DRIVE_BOX box a pillar. Untrained it keeps about
+    11,000 boxes at this grid (PERF.md, N1's row), which would stall the
+    tracker's O(tracks x detections) host loop; trained, a frame with two
+    objects keeps a few dozen. Returns the detector, a CPU detector with
+    the same weights and the training record."""
+    import math
+
+    import torch
+    from tosem_tpu_torch.models.pointpillars import (PillarGrid,
+                                                     PointPillarsDetector,
+                                                     voxelize)
+    grid = PillarGrid(*DRIVE_GRID)
+    det = PointPillarsDetector(grid, device=dev, seed=seed)
+    with torch.no_grad():
+        det.head.w[:, 1:] = 0.0
+        det.head.b[1:] = torch.tensor(
+            [0.0, 0.0, math.log(DRIVE_BOX[0] / grid.dx),
+             math.log(DRIVE_BOX[1] / grid.dy)])
+    pts = torch.from_numpy(drive_cloud(seed + 100, DRIVE_TRAIN_OBJECTS))
+    pts = pts.to(dev)
+    pillars, mask = voxelize(pts, grid)
+    target = ((pillars[:, :, 2] > 0) & mask).any(1).float()
+    weight = 1.0 + 10.0 * target
+    opt = torch.optim.Adam(list(det.pfn.parameters())
+                           + [det.head.w, det.head.b], lr=0.02)
+    t0 = time.perf_counter()
+    for _ in range(DRIVE_TRAIN_STEPS):
+        _, s = det.apply(pts)
+        s = s.clamp(1e-6, 1 - 1e-6)
+        loss = -(weight * (target * torch.log(s)
+                           + (1 - target) * torch.log1p(-s))).mean()
+        opt.zero_grad()
+        loss.backward()
+        det.head.w.grad[:, 1:] = 0.0      # the boxes stay as set
+        det.head.b.grad[1:] = 0.0
+        opt.step()
+    rec = {"loss": float(loss), "positives": int(target.sum()),
+           "train_s": time.perf_counter() - t0}
+    cpu = PointPillarsDetector(grid, device="cpu", seed=seed)
+    cpu.load_state_dict({k: v.cpu() for k, v in det.state_dict().items()})
+    return det.eval(), cpu.eval(), rec
+
+
+def same_bits(a, b):
+    """Deep equality of channel messages, floats and arrays by their
+    bytes (so -0.0 and 0.0 differ and NaN equals itself)."""
+    import struct
+
+    import numpy as np
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_bits(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_bits(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and a.tobytes() == b.tobytes())
+    if isinstance(a, float):
+        return (isinstance(b, float)
+                and struct.pack("<d", a) == struct.pack("<d", b))
+    return type(a) is type(b) and a == b
+
+
+def time_procs(rtc, secs):
+    """Wrap every component's ``proc`` to add its host seconds to
+    ``secs[name]`` (each proc ends in a device-to-host read, so its
+    device work is inside it)."""
+    for comp in rtc._components:
+        if not hasattr(comp, "proc"):
+            continue
+
+        def timed(*a, _proc=comp.proc, _name=comp.name):
+            t = time.perf_counter()
+            try:
+                return _proc(*a)
+            finally:
+                secs[_name] = secs.get(_name, 0.0) + time.perf_counter() - t
+        comp.proc = timed
+
+
+def pp_run(detector, clouds, sync):
+    """(a)'s path: ``build_pipeline(detector)`` (pts -> detection ->
+    tracker) over ``clouds``, a frame a second. Returns each frame's
+    (detections, tracks) and wall ms."""
+    from tosem_tpu_torch.dataflow import Component
+    from tosem_tpu_torch.models.perception import build_pipeline
+    rtc = build_pipeline(detector)
+    seen, ms = [], []
+
+    class Sink(Component):
+        def __init__(self):
+            super().__init__("sink", ["tracks", "detections"])
+
+        def proc(self, tracks, det):
+            seen.append((det, tracks))
+    rtc.add(Sink())
+    w = rtc.writer("pts")
+    for i, pts in enumerate(clouds):
+        t = time.perf_counter()
+        w(pts)
+        rtc.run_until(float(i + 1))
+        sync()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return seen, ms
+
+
+def drive_perception(dev, det, cpu):
+    """(a) Perception at full width: ``build_pipeline`` on the card over
+    PP_FRAMES clouds of a car moving 1 m a frame (and a parked one), N1
+    launched once a frame, a track id held over every frame, and the same
+    clouds through the CPU detector with the same weights: equal keep
+    masks, boxes and scores within DET_REL of the largest, the same
+    detections and track ids frame by frame."""
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.ops import registry
+    clouds = [drive_cloud(i, [(24.0 + i, 2.0 - 0.3 * i, 28.0 + i,
+                               3.8 - 0.3 * i), (45.0, -7.0, 49.0, -5.2)])
+              for i in range(PP_FRAMES)]
+    registry.reset_launch_counts()
+    card, card_ms = pp_run(det, clouds, torch.cuda.synchronize)
+    counts = dict(registry.LAUNCH_COUNTS)
+    check(counts["nms_sweep"] == PP_FRAMES,
+          f"(a) nms_sweep launched {counts['nms_sweep']} times over "
+          f"{PP_FRAMES} perception frames")
+    host, cpu_ms = pp_run(cpu, clouds, lambda: None)
+    rec = {"frames": PP_FRAMES, "nms_sweep": counts["nms_sweep"],
+           "card_frame_ms": card_ms, "cpu_frame_ms": cpu_ms,
+           "live": [], "kept": [], "gaps": []}
+    for i, pts in enumerate(clouds):
+        with torch.no_grad():
+            b, s, k = det.detect(torch.from_numpy(pts).to(dev), 0.5, 0.5)
+            cb, cs, ck = cpu.detect(torch.from_numpy(pts), 0.5, 0.5)
+        rec["live"].append(int((s > 0.5).sum()))
+        rec["kept"].append(int(k.sum()))
+        gap = max(float((b.cpu() - cb).abs().max() / cb.abs().max()),
+                  float((s.cpu() - cs).abs().max() / cs.abs().max()))
+        rec["gaps"].append(gap)
+        check(torch.equal(k.cpu(), ck),
+              f"(a) frame {i}: keep masks differ card vs CPU at "
+              f"{torch.nonzero(k.cpu() != ck).flatten().tolist()[:8]}")
+        check(gap <= DET_REL, f"(a) frame {i}: boxes/scores card vs CPU "
+              f"{gap} > {DET_REL}")
+    for i, ((dc, tc), (dh, th)) in enumerate(zip(card, host)):
+        check(len(dc["boxes"]) == len(dh["boxes"]) and np.array_equal(
+            [t["track_id"] for t in tc], [t["track_id"] for t in th])
+            and [t["hits"] for t in tc] == [t["hits"] for t in th],
+            f"(a) frame {i}: detections or track ids differ card vs CPU")
+    ids = [{t["track_id"] for t in frame} for _, frame in card]
+    last = {t["track_id"]: t for t in card[-1][1]}
+    held = [i for i in set.intersection(*ids)
+            if last[i]["hits"] == PP_FRAMES]
+    rec["tracks_per_frame"] = [len(x) for x in ids]
+    rec["held_track_ids"] = sorted(held)
+    check(held, f"(a) no track held over all {PP_FRAMES} frames: {ids}")
+    check(max(rec["kept"]) <= 100, f"(a) {rec['kept']} boxes kept: the "
+          "tracker's host loop is quadratic in them")
+    return rec, counts
+
+
+def quickstart_drive(device):
+    """``examples/quickstart_driving.py``'s drive through the port on
+    ``device``: route, tracker, the driving pipeline with localization,
+    the drive view. Returns the route message, the frames (trajectory,
+    control and pose messages), each frame's wall ms and the last
+    scene's SVG."""
+    import numpy as np
+    import torch
+    from tosem_tpu_torch.dataflow import Component, ComponentRuntime
+    from tosem_tpu_torch.models import (Lane, LaneGraph, RoutingComponent,
+                                        TrackerComponent,
+                                        build_driving_pipeline)
+    from tosem_tpu_torch.obs.driveview import (DriveViewRecorder,
+                                               render_scene_svg)
+    graph = LaneGraph([
+        Lane("on_ramp", 120.0, successors=["highway_a"]),
+        Lane("highway_a", 400.0, successors=["highway_b"]),
+        Lane("highway_b", 400.0, successors=[], half_width=1.6),
+    ])
+    rtc = ComponentRuntime()
+    rtc.add(RoutingComponent(graph))
+    rtc.add(TrackerComponent(iou_threshold=0.1))
+    build_driving_pipeline(rtc, lane_half=1.6, frame_dt=1.0, horizon=2.0,
+                           localize=True, device=device)
+    view = DriveViewRecorder(lane_half=1.6)
+    rtc.add(view)
+    frames, routes, ms = [], [], []
+
+    class Monitor(Component):
+        def __init__(self):
+            super().__init__("monitor", ["trajectory", "route", "control",
+                                         "pose"])
+
+        def proc(self, traj, route, ctl, pose):
+            routes.append(route)
+            frames.append({"trajectory": traj, "control": ctl,
+                           "pose": pose})
+    rtc.add(Monitor())
+    rtc.writer("route_request")({"src": "on_ramp", "dst": "highway_b"})
+    rtc.run_until(0.5)
+    det_w, ego_w = rtc.writer("detections"), rtc.writer("ego")
+    imu_w, gnss_w = rtc.writer("imu"), rtc.writer("gnss")
+    scenes = ([[]] * 2
+              + [[[38.0, 1.4 - 0.4 * i, 42.0, 2.4 - 0.4 * i]]
+                 for i in range(3)]
+              + [[[12.0, -1.6, 16.0, 1.6]]] * 2)
+    t = 0.5
+    for i, boxes in enumerate(scenes):
+        t0 = time.perf_counter()
+        ego_w({"v": 8.0})
+        gnss_w({"pos": [8.0 * i, 0.0]})
+        imu_w({"yaw_rate": 0.0, "accel": 0.0})
+        det_w({"boxes": np.asarray(boxes, np.float32).reshape(-1, 4),
+               "scores": np.ones((len(boxes),), np.float32)})
+        t += 1.0
+        rtc.run_until(t)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return routes[-1], frames, ms, render_scene_svg(view.scene())
+
+
+def drive_quickstart(dev):
+    """(b) The quickstart's drive on the card and on the CPU: the route,
+    the scenario trace from LANE_FOLLOW to EMERGENCY_STOP, the last
+    fence at most 11 m; the CPU's drive the same in every discrete
+    output (scenarios, candidates, fences, the planner's last-iteration
+    walls) and within DRIVE_TOL elsewhere (``drive_gaps``)."""
+    from tosem_tpu_torch.models.control import drive_gaps
+    route, frames, ms, svg = quickstart_drive(dev)
+    c_route, c_frames, c_ms, _ = quickstart_drive("cpu")
+    scenarios = [f["trajectory"]["scenario"] for f in frames]
+    parted, worst = drive_gaps(frames, c_frames)
+    rec = {"route": route["route"], "scenarios": scenarios,
+           "candidates": [f["trajectory"]["candidate"] for f in frames],
+           "fences": [f["trajectory"]["stop_fence"] for f in frames],
+           "wall_margins": [f["trajectory"]["wall_margin"] for f in frames],
+           "walls_settled": [f["trajectory"]["walls_settled"]
+                             for f in frames],
+           "cost_margins": [f["trajectory"]["cost_margin"] for f in frames],
+           "card_frame_ms": ms, "cpu_frame_ms": c_ms,
+           "parted": parted, "worst_over_tol": worst}
+    check(route["route"] == ["on_ramp", "highway_a", "highway_b"]
+          and route == c_route, f"(b) route {route}, CPU {c_route}")
+    check(scenarios[0] == "LANE_FOLLOW" and "EMERGENCY_STOP" in scenarios,
+          f"(b) scenario trace {scenarios}")
+    check(frames[-1]["trajectory"]["stop_fence"] <= 11.0,
+          f"(b) last fence {frames[-1]['trajectory']['stop_fence']}")
+    check(len(frames) == len(c_frames) == 7 and not parted,
+          f"(b) card vs CPU discrete outputs parted: {parted}")
+    check(max(worst.values()) <= 1.0,
+          f"(b) card vs CPU beyond DRIVE_TOL (share of it): {worst}")
+    check("<svg" in svg and "polyline" in svg, "(b) the drive view")
+    return rec
+
+
+def chain_inputs(seed):
+    """(c)'s inputs: CHAIN_FRAMES frames a second of (t, channel,
+    message): a clear road, a car drifting into the lane 38-42 m ahead,
+    then a wall across the lane 12-16 m ahead, as point clouds; ego speed,
+    IMU and a GNSS fix every frame."""
+    scenes = ([[]] * 2
+              + [[(38.0, 1.4 - 0.4 * i, 42.0, 2.4 - 0.4 * i)]
+                 for i in range(3)]
+              + [[(12.0, -2.0, 16.0, 2.0)]] * 3)
+    out = []
+    for i, objects in enumerate(scenes[:CHAIN_FRAMES]):
+        t = float(i + 1)
+        out += [(t, "ego", {"v": 8.0}),
+                (t, "gnss", {"pos": [8.0 * i, 0.0]}),
+                (t, "imu", {"yaw_rate": 0.0, "accel": 0.0}),
+                (t, "pts", {"pts": drive_cloud(seed + 1000 + i, objects)})]
+    return out
+
+
+def chain_run(det, device, inputs, recorder=None, procs=None, prof=None,
+              traced=()):
+    """The whole chain on ``device``: pts -> detection -> tracker ->
+    prediction -> scenario -> planning -> control, with localization and
+    the drive view, over ``inputs``; every channel keeps its history.
+    Optionally records the inputs, times each component's procs, and
+    runs the ``traced`` frames (a range) under ``torch.profiler``'s CUDA
+    activity, its Chrome trace written into the directory ``prof``.
+    Returns the histories, the last scene's SVG and each frame's wall
+    ms."""
+    import torch
+    from tosem_tpu_torch.dataflow import ChannelQos, ComponentRuntime
+    from tosem_tpu_torch.models.control import build_driving_pipeline
+    from tosem_tpu_torch.models.perception import build_pipeline
+    from tosem_tpu_torch.obs.driveview import (DriveViewRecorder,
+                                               render_scene_svg)
+    on_card = torch.device(device).type == "cuda"
+    rtc = ComponentRuntime()
+    for ch in CHAIN_CHANNELS:
+        rtc.set_qos(ch, ChannelQos(depth=64))
+    build_pipeline(det, runtime=rtc, tracker_iou=0.1)
+    build_driving_pipeline(rtc, frame_dt=1.0, horizon=2.0, localize=True,
+                           device=device)
+    view = DriveViewRecorder()
+    rtc.add(view)
+    if procs is not None:
+        time_procs(rtc, procs)
+    writers = {ch: rtc.writer(ch) for ch in ("ego", "gnss", "imu", "pts")}
+    frames = sorted({t for t, _, _ in inputs})
+    ms = []
+    if traced:
+        from torch.profiler import ProfilerActivity, profile
+        profiler = profile(activities=[ProfilerActivity.CUDA])
+    for i, t in enumerate(frames):
+        if traced and i == traced[0]:
+            profiler.start()
+        t0 = time.perf_counter()
+        for when, ch, msg in inputs:
+            if when == t:
+                if recorder is not None:
+                    recorder.write(ch, {"t": when, **msg})
+                writers[ch](msg["pts"] if ch == "pts" else msg)
+        rtc.run_until(t)
+        if on_card:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if traced and i == traced[-1]:
+            profiler.stop()
+            os.makedirs(prof, exist_ok=True)
+            profiler.export_chrome_trace(os.path.join(
+                prof, "chain.pt.trace.json"))
+    rtc.run_until(frames[-1] + 1.0)
+    hist = {ch: rtc.history(ch) for ch in CHAIN_CHANNELS}
+    return hist, render_scene_svg(view.scene()), ms
+
+
+def chain_profile(trace_dir, wall_ms, traced_ms, top=10):
+    """(e) The device's share of DRIVE_TRACED chain frames from their
+    Chrome trace (``profiler/trace.py``'s device events: kernels, copies
+    and sets), over the same frames' wall time unprofiled (``wall_ms``)
+    and profiled (``traced_ms``), and the largest device items. The
+    trace is read as JSON: building the profiler's Python event tree
+    over a frame's ~40,000 launches takes longer than the frames."""
+    from tosem_tpu_torch.profiler.trace import kernel_summary
+    stats = kernel_summary(trace_dir)
+    device_ms = sum(s.total_us for s in stats) / 1e3 / DRIVE_TRACED
+    launches = sum(s.calls for s in stats) / DRIVE_TRACED
+    return {"wall_ms": wall_ms / DRIVE_TRACED,
+            "traced_wall_ms": traced_ms / DRIVE_TRACED,
+            "device_ms": device_ms, "device_launches": launches,
+            "device_busy_share": device_ms / (wall_ms / DRIVE_TRACED),
+            "top": [[s.name[:80], s.total_us / 1e3 / DRIVE_TRACED, s.calls]
+                    for s in stats[:top]]}
+
+
+def drive_chain(dev, det, cpu, seed):
+    """(c) The whole chain on the card, CHAIN_FRAMES frames, its inputs
+    recorded (``cluster/replay.py``), then run again on the inputs read
+    back from the recording into a fresh chain: every channel's history
+    bit for bit and a byte-identical SVG. (e) Each frame's wall ms on the
+    card and on the CPU, each component's proc ms, and DRIVE_TRACED
+    frames of the car under ``torch.profiler``: the device's busy share
+    and its largest items. Returns the record and the first run's launch
+    counts."""
+    import numpy as np
+    from tosem_tpu_torch.cluster.replay import Recorder, replay
+    from tosem_tpu_torch.models.control import drive_gaps
+    from tosem_tpu_torch.ops import registry
+    inputs = chain_inputs(seed)
+    work = tempfile.mkdtemp(prefix="chip_drive_")
+    try:
+        path = os.path.join(work, "drive.rec")
+        rec_w = Recorder(path)
+        procs = {}
+        registry.reset_launch_counts()
+        live, svg, card_ms = chain_run(det, dev, inputs, recorder=rec_w,
+                                       procs=procs)
+        counts = dict(registry.LAUNCH_COUNTS)
+        rec_w.close()
+        check(counts["nms_sweep"] == CHAIN_FRAMES,
+              f"(c) nms_sweep launched {counts['nms_sweep']} times over "
+              f"{CHAIN_FRAMES} frames")
+        replayed = []
+        for topic, _wall, msg in replay(path):
+            replayed.append((msg.pop("t"), topic, msg))
+        replayed.sort(key=lambda r: r[0])
+        check(len(replayed) == len(inputs), "(c) the recording lost "
+              f"messages: {len(replayed)} of {len(inputs)}")
+        again, svg2, card_ms2 = chain_run(det, dev, replayed)
+        differ = [ch for ch in CHAIN_CHANNELS
+                  if not same_bits(live[ch], again[ch])]
+        check(not differ, f"(c) the replayed run differs on {differ}")
+        check(svg2 == svg, "(c) the replayed drive view's SVG differs")
+        trace_dir = os.path.join(work, "trace")
+        traced = range(2, 2 + DRIVE_TRACED)      # the car's frames
+        _, _, traced_ms = chain_run(
+            det, dev, [r for r in inputs if r[0] <= traced[-1] + 1],
+            prof=trace_dir, traced=traced)
+        profile_rec = chain_profile(trace_dir, sum(card_ms2[i]
+                                                   for i in traced),
+                                    sum(traced_ms[i] for i in traced))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    cpu_procs = {}
+    host, _, cpu_ms = chain_run(cpu, "cpu", inputs, procs=cpu_procs)
+    traj = live["trajectory"]
+    frames = [{"trajectory": tr, "control": c, "pose": p}
+              for tr, c, p in zip(traj, live["control"], live["pose"])]
+    c_frames = [{"trajectory": tr, "control": c, "pose": p} for tr, c, p
+                in zip(host["trajectory"], host["control"], host["pose"])]
+    parted, worst = drive_gaps(frames, c_frames)
+    rec = {"frames": CHAIN_FRAMES,
+           "scenarios": [tr["scenario"] for tr in traj],
+           "candidates": [tr["candidate"] for tr in traj],
+           "fences": [tr["stop_fence"] for tr in traj],
+           "boxes_kept": [len(d["boxes"]) for d in live["detections"]],
+           "tracks": [len(x) for x in live["tracks"]],
+           "walls_settled": [tr["walls_settled"] for tr in traj],
+           "wall_margins": [tr["wall_margin"] for tr in traj],
+           "cost_margins": [tr["cost_margin"] for tr in traj],
+           "nms_sweep": counts["nms_sweep"], "bit_identical": True,
+           "replay_svg_identical": True, "svg_bytes": len(svg),
+           "card_frame_ms": card_ms, "card_frame_ms_again": card_ms2,
+           "cpu_frame_ms": cpu_ms,
+           "card_proc_ms": {k: v * 1e3 / CHAIN_FRAMES
+                            for k, v in procs.items()},
+           "cpu_proc_ms": {k: v * 1e3 / CHAIN_FRAMES
+                           for k, v in cpu_procs.items()},
+           "card_vs_cpu": {
+               "parted": parted, "worst_over_tol": worst,
+               "per_frame": [drive_gaps([a], [b])[1]
+                             for a, b in zip(frames, c_frames)]},
+           "traced_frames": list(traced), "profile": profile_rec}
+    check(any(s == "EMERGENCY_STOP" for s in rec["scenarios"]),
+          f"(c) the wall never stopped the car: {rec['scenarios']}")
+    check(all(np.isfinite(c["steer"]).all() for c in live["control"]),
+          "(c) non-finite steering")
+    return rec, counts
+
+
+def lane_graph(n, seed):
+    """(d)'s lane graph: ``n`` lanes of integer lengths 5-399 m, a chain
+    of successors with random forward and backward links and left/right
+    neighbours (``tests/test_torch_routing.py``'s generator)."""
+    import numpy as np
+    from tosem_tpu_torch.models.routing import Lane, LaneGraph
+    rng = np.random.default_rng(seed)
+    lanes = []
+    for i in range(n):
+        succ = [f"l{i + 1}"] if i + 1 < n and rng.random() < 0.9 else []
+        for _ in range(int(rng.integers(0, 3))):
+            j = int(rng.integers(0, n))
+            if j != i and f"l{j}" not in succ:
+                succ.append(f"l{j}")
+        left = f"l{i - 1}" if i > 0 and rng.random() < 0.3 else None
+        right = f"l{i + 1}" if i + 1 < n and rng.random() < 0.3 else None
+        lanes.append(Lane(f"l{i}", float(rng.integers(5, 400)),
+                          successors=succ, left=left, right=right))
+    return LaneGraph(lanes)
+
+
+def drive_sssp(dev, seed):
+    """(d) ``batched_sssp`` on the card over SSSP_N lanes from SSSP_S
+    sources, equal to ``scipy.sparse.csgraph.shortest_path`` element for
+    element (integer lengths: exact in fp32), and its time by CUDA
+    events."""
+    import numpy as np
+    import scipy.sparse.csgraph as csgraph
+    from tosem_tpu_torch.models.routing import batched_sssp
+    c = lane_graph(SSSP_N, seed).cost_matrix()
+    sources = list(range(0, SSSP_N, SSSP_N // SSSP_S))[:SSSP_S]
+    got = batched_sssp(c, sources, device=dev).cpu().numpy()
+    dense = np.where(np.isfinite(c), c, 0.0)
+    want = csgraph.shortest_path(dense, indices=sources).astype(np.float32)
+    check(np.array_equal(got, want), "(d) batched_sssp differs from scipy "
+          f"at {int((got != want).sum())} of {got.size} distances")
+    ms = cuda_ms(lambda: batched_sssp(c, sources, device=dev), iters=2,
+                 warmup=0)
+    return {"lanes": SSSP_N, "sources": SSSP_S, "steps": SSSP_N - 1,
+            "reachable": int(np.isfinite(got).sum()), "ms": ms,
+            "exact": True}
+
+
+def phase_driving(dev, seed):
+    """The Apollo driving stack on the card (see the module docstring).
+    Returns the launch counts of (a)'s and (c)'s runs (the detect calls
+    compared after them do not count)."""
+    import torch
+    from tosem_tpu_torch.ops import registry
+    out = {"phase": "driving", "gpu": gpu_line()}
+    secs = {}
+    fallbacks = dict(registry.FALLBACK_COUNTS)
+
+    def leg(name, fn, *a):
+        t = time.perf_counter()
+        r = fn(*a)
+        secs[name] = time.perf_counter() - t
+        return r
+    det, cpu, out["detector"] = leg("train", drive_detector, dev, seed)
+    out["perception"], pp_counts = leg("perception", drive_perception, dev,
+                                       det, cpu)
+    out["quickstart"] = leg("quickstart", drive_quickstart, dev)
+    out["chain"], chain_counts = leg("chain", drive_chain, dev, det, cpu,
+                                     seed)
+    out["sssp"] = leg("sssp", drive_sssp, dev, seed)
+    out["seconds"] = secs
+    check(dict(registry.FALLBACK_COUNTS) == fallbacks,
+          f"driving: fallbacks {dict(registry.FALLBACK_COUNTS)}")
+    del det
+    torch.cuda.empty_cache()
+    emit(out)
+    return {k: pp_counts[k] + chain_counts[k] for k in chain_counts}
+
+
 def phase_suite():
     """North-star config 5 through the port's experiment runner at its
     default BERT-base shapes. Returns the suite's launch counts."""
@@ -8438,7 +9028,7 @@ def main(argv=None):
                             "serve,cluster,encode_sparse,cpu,profile,train,"
                             "train_dp,parallel,pipeline,mesh_train,benches,"
                             "configs,analysis,tune,chaos,kernel_matrix,moe,"
-                            "speech,detection,suite")
+                            "speech,detection,driving,suite")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not os.path.isdir(os.path.join(ROOT, "tosem_tpu_torch")):
@@ -8548,6 +9138,8 @@ def main(argv=None):
         counts, rec = timed("detection", phase_detection, dev, SEED)
         add(counts)
         lines.update(rec)
+    if "driving" in phases:
+        add(timed("driving", phase_driving, dev, SEED))
     if "suite" in phases:
         add(timed("suite", phase_suite))
     emit({"phase": "seconds", **secs,

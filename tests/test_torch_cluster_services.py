@@ -3,12 +3,10 @@ service-discovery + record/replay rows, §2.8 Redis/MySQL-queue rows).
 
 A copy of ``tests/test_cluster_services.py`` against the port's
 ``cluster/`` (kv, discovery, param, replay, the autoscaler), runtime and
-``runtime/bench_runtime.py``. The dataflow component of
-``test_component_visible_updates`` is a stand-in with the reference's
-``writer(channel)`` surface (the port's ``dataflow/`` is ROADMAP.md
-A14), and the control-plane microbench holds its rates positive, not
-above 10/s (C-ref2). The test module ships by value, so a spawned
-worker never imports it.
+``runtime/bench_runtime.py``, with ``test_component_visible_updates``
+on the port's ``dataflow/``. The control-plane microbench holds its
+rates positive, not above 10/s (C-ref2). The test module ships by
+value, so a spawned worker never imports it.
 """
 import sys
 import sys
@@ -330,23 +328,28 @@ class TestParameterServer:
         assert reader.get("obstacle_horizon") == 6.0
 
     def test_component_visible_updates(self):
-        """bind_runtime: a parameter change arrives on a dataflow
-        runtime's channel as a message (the port's dataflow/ is
-        ROADMAP.md A14, so a stand-in runtime with the reference's
-        ``writer(channel)`` surface receives it)."""
+        """bind_runtime: a parameter change arrives at a dataflow
+        component as a channel message."""
         from tosem_tpu_torch.cluster.param import ParameterServer
+        from tosem_tpu_torch.dataflow.components import (Component,
+                                                         ComponentRuntime)
 
+        rtc = ComponentRuntime()
         got = []
 
-        class Runtime:
-            def writer(self, channel):
-                return lambda msg: got.append((channel, msg["name"],
-                                               msg["value"]))
+        class Tuned(Component):
+            def __init__(self):
+                super().__init__("tuned", ["param_events"])
 
+            def proc(self, msg, *fused):
+                got.append((msg["name"], msg["value"]))
+
+        rtc.add(Tuned())
         ps = ParameterServer()
-        ps.bind_runtime(Runtime())
+        ps.bind_runtime(rtc)
         ps.set("nms_threshold", 0.45)
-        assert got == [("param_events", "nms_threshold", 0.45)]
+        rtc.run_until(1.0)
+        assert got == [("nms_threshold", 0.45)]
 
     def test_poller_delivers_late_lower_version_write(self, tmp_path):
         """Cross-key race regression: a write whose allocated version is

@@ -81,7 +81,11 @@ COPIED_MODULES = [
     "tosem_tpu_torch.tune.search", "tosem_tpu_torch.tune.schedulers",
     "tosem_tpu_torch.tune.tune", "tosem_tpu_torch.tune.trial_worker",
     "tosem_tpu_torch.tune.providers", "tosem_tpu_torch.tune.experiment",
-    "tosem_tpu_torch.tune.examples", "tosem_tpu_torch.hpo_cli"]
+    "tosem_tpu_torch.tune.examples", "tosem_tpu_torch.hpo_cli",
+    "tosem_tpu_torch.dataflow", "tosem_tpu_torch.dataflow.components",
+    "tosem_tpu_torch.dataflow.graph", "tosem_tpu_torch.obs.driveview",
+    "tosem_tpu_torch.obs.sysmo", "tosem_tpu_torch.obs.log_monitor",
+    "tosem_tpu_torch.obs.dashboard"]
 # the control plane: a replica of a plain backend imports these only
 CONTROL_MODULES = [m for m in COPIED_MODULES
                    if m.split(".")[1] in ("native", "runtime", "obs",
@@ -383,3 +387,54 @@ def test_every_kernel_source_is_built():
     srcs = sorted(f[:-3] for f in os.listdir(os.path.join(PKG, "ops", "csrc"))
                   if f.endswith(".cu"))
     assert sorted(_build.SOURCES) == srcs and "nms" in srcs
+
+
+# the Apollo driving stack
+APOLLO_MODULES = ["tosem_tpu_torch.models.perception",
+                  "tosem_tpu_torch.models.prediction",
+                  "tosem_tpu_torch.models.scenario",
+                  "tosem_tpu_torch.models.planning",
+                  "tosem_tpu_torch.models.control",
+                  "tosem_tpu_torch.models.localization",
+                  "tosem_tpu_torch.models.routing",
+                  "tosem_tpu_torch.models"]
+
+
+@pytest.mark.parametrize("module", APOLLO_MODULES)
+def test_apollo_modules_import_alone(module):
+    """Perception's tracker pipeline, prediction, scenario, planning,
+    control, localization and routing (and the models package that
+    exports them) load neither JAX, Triton nor the JAX package, and
+    build no kernel."""
+    code = (f"import sys, {module}; "
+            "from tosem_tpu_torch.ops import _build; "
+            "print(sorted(m for m in ('jax', 'triton', 'tosem_tpu') "
+            "if m in sys.modules), sorted(_build._LIBS))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.stdout.strip() == "[] []"
+
+
+@pytest.mark.parametrize("entry", ["pipeline", "planning", "control",
+                                   "localization", "plan_path",
+                                   "batched_sssp"])
+def test_driving_entry_points_raise_without_a_gpu(entry):
+    """The driving pipeline and its device components default to the
+    card, and raise on a host without one instead of running on the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from tosem_tpu_torch.dataflow import ComponentRuntime
+    from tosem_tpu_torch.models import (ControlComponent,
+                                        LocalizationComponent,
+                                        PlanningComponent, batched_sssp,
+                                        build_driving_pipeline, plan_path)
+    make = {"pipeline": lambda: build_driving_pipeline(ComponentRuntime()),
+            "planning": lambda: PlanningComponent(),
+            "control": lambda: ControlComponent(),
+            "localization": lambda: LocalizationComponent(),
+            "plan_path": lambda: plan_path([[0.0, 1.0, 0.0, 1.0]]),
+            "batched_sssp": lambda: batched_sssp([[0.0]], [0])}[entry]
+    with pytest.raises(RuntimeError, match="cuda"):
+        make()

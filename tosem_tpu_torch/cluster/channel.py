@@ -5,9 +5,8 @@ RTPS/DDS with per-channel QoS (``cyber/transport/rtps/participant.cc``,
 ``cyber/transport/qos/qos_profile_conf.cc``: history depth +
 reliability tier negotiated per reader). In-process we already have
 those semantics on the deterministic runtime
-(the JAX package's ``dataflow.components.ChannelQos``, copied here as
-:class:`ChannelQos`); this module extends the SAME profile across
-processes/hosts:
+(:class:`~tosem_tpu_torch.dataflow.components.ChannelQos`); this module
+extends the SAME profile across processes/hosts:
 
 - :class:`ChannelBroker` — a host-side hub (the DDS participant role)
   holding one bounded or unbounded queue PER SUBSCRIBER: ``reliable``
@@ -37,35 +36,13 @@ from __future__ import annotations
 import collections
 import threading
 import uuid
-from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 from tosem_tpu_torch.cluster.rpc import RpcClient, RpcServer
+from tosem_tpu_torch.dataflow.components import ChannelQos
 
 __all__ = ["ChannelBroker", "ChannelPublisher", "ChannelSubscriber",
            "ChannelQos", "replay_publish"]
-
-
-@dataclass(frozen=True)
-class ChannelQos:
-    """Per-channel QoS profile (cyber transport's QosProfile: history
-    depth + reliability tier). A copy of the JAX package's
-    ``dataflow.components.ChannelQos``, the one piece of ``dataflow/``
-    (ROADMAP.md A14) a channel needs.
-
-    ``reliability="reliable"`` delivers every message; ``"best_effort"``
-    keeps at most ``depth`` undelivered messages per channel (KEEP_LAST:
-    under write pressure the OLDEST pending message is dropped, the
-    sensor-stream semantics — a fresher lidar frame supersedes a stale
-    one)."""
-    depth: int = 1
-    reliability: str = "reliable"
-
-    def __post_init__(self):
-        if self.depth < 1:
-            raise ValueError("qos depth must be >= 1")
-        if self.reliability not in ("reliable", "best_effort"):
-            raise ValueError(f"unknown reliability {self.reliability!r}")
 
 
 class _BrokerHandlers:

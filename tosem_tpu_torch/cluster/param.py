@@ -11,10 +11,9 @@ versions and notifications** — local subscribers fire synchronously on
 ``set``, cross-process subscribers poll ``updates_since`` (a version
 cursor, the same pull pattern the discovery registry uses), and
 :func:`bind_runtime` bridges updates onto a dataflow runtime's channel
-(anything with a ``writer(channel)``, as the JAX package's
-``dataflow.components.ComponentRuntime``; the port's ``dataflow/`` is
-ROADMAP.md A14) so components consume parameter changes like any other
-message.
+(anything with a ``writer(channel)``, as
+:class:`~tosem_tpu_torch.dataflow.components.ComponentRuntime`) so
+components consume parameter changes like any other message.
 
 A copy of the JAX package's ``cluster/param.py``.
 """

@@ -7,9 +7,9 @@ rows to the cluster KV's SQLite file — one durable artifact shared with
 experiment state — and :func:`replay` yields them back in time order,
 optionally respecting inter-message gaps. ``replay_source`` adapts a
 recording into a dataflow source so a recorded pipeline run can be
-re-driven through a dataflow graph (the JAX package's ``StreamGraph``;
-the port's ``dataflow/`` is ROADMAP.md A14) — the record-then-replay
-debugging loop perception teams use.
+re-driven through a dataflow graph
+(:class:`~tosem_tpu_torch.dataflow.graph.StreamGraph`) — the
+record-then-replay debugging loop perception teams use.
 
 A copy of the JAX package's ``cluster/replay.py``.
 """

@@ -1,9 +1,9 @@
 """Shared threaded-HTTP scaffold for the observability endpoints.
 
 One server lifecycle (quiet handler, daemon thread, url, shutdown) used
-by :class:`~tosem_tpu_torch.obs.metrics.MetricsServer` (and, in the JAX
-package, its dashboard), so serving fixes land in one place. The port's
-copy of ``tosem_tpu/obs/httpd.py``.
+by both :class:`~tosem_tpu_torch.obs.metrics.MetricsServer` and
+:class:`~tosem_tpu_torch.obs.dashboard.DashboardServer`, so serving
+fixes land in one place. The port's copy of ``tosem_tpu/obs/httpd.py``.
 """
 from __future__ import annotations
 

@@ -83,3 +83,24 @@ def resolve_device(device) -> torch.device:
             f"device {str(device)!r} requested but torch.cuda.is_available()"
             " is False; pass device='cpu' to run the plain versions")
     return dev
+
+
+def pick_device(device, *xs) -> torch.device:
+    """The device a tensor function runs on: ``device`` if given, else
+    the device of the first tensor among ``xs``, else ``"cuda"`` (which
+    raises where there is no card, as :func:`resolve_device`)."""
+    if device is None:
+        for x in xs:
+            if isinstance(x, torch.Tensor):
+                return x.device
+        device = "cuda"
+    return resolve_device(device)
+
+
+def as_f32(x, device) -> torch.Tensor:
+    """``x`` (a tensor, numpy array, sequence or number) as an fp32 tensor
+    on ``device``; numpy data is copied (read-only arrays included)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    import numpy as np
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)

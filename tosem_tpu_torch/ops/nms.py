@@ -10,13 +10,14 @@ the later boxes whose IoU with it exceeds ``iou_threshold``.
 :func:`nms_sweep` routes by the operands' device: CUDA tensors launch
 ``csrc/nms.cu`` (``nms_sweep``, counted in ``registry.LAUNCH_COUNTS``);
 CPU tensors run :func:`nms_plain`, the JAX package's algorithm on torch
-ops (the IoU matrix and a loop over the sorted candidates). There is no
-fallback from one to the other: the kernel's wrapper refuses CPU
-tensors, other dtypes, more boxes than its shared-memory bitmap holds
-(:func:`max_boxes`) and an overlap mask the device cannot hold. Both
-take the order from ``torch.argsort(-scores, stable=True)`` and compute
-the IoU with the same operations in the same order, so their masks
-agree element for element. The kernel is a bitmask NMS: the overlap
+ops (the IoU matrix and a loop over the sorted candidates above the
+score threshold). There is no fallback from one to the other: the
+kernel's wrapper refuses CPU tensors, other dtypes, more boxes than its
+shared-memory bitmap holds (:func:`max_boxes`) and an overlap mask the
+device cannot hold. Both take the order from
+``torch.argsort(-scores, stable=True)`` and compute the IoU with the
+same operations in the same order, so their masks agree element for
+element. The kernel is a bitmask NMS: the overlap
 words of every live pair in parallel, then one block's chunked sweep
 over them (``csrc/nms.cu``). The score order is found on the device,
 the scratch comes from torch's allocator on the current stream, and
@@ -62,17 +63,27 @@ def score_order(scores: torch.Tensor) -> torch.Tensor:
     return torch.argsort(-scores, stable=True)
 
 
+def _live_order(scores: torch.Tensor, score_threshold: float):
+    """The candidates above the score threshold, in score order. A box
+    at or below it is never kept and suppresses nothing, so the greedy
+    pass runs over these alone and keeps what a pass over all N keeps."""
+    order = score_order(scores)
+    return order[scores[order] > score_threshold]
+
+
 def nms_plain(boxes: torch.Tensor, scores: torch.Tensor,
               iou_threshold: float = 0.5,
               score_threshold: float = 0.0) -> torch.Tensor:
     """The plain version: the JAX package's ``device_nms`` step for step
-    (an IoU matrix of the sorted boxes, then one pass over them)."""
+    (an IoU matrix of the sorted boxes, then one pass over them), over
+    the live candidates only (:func:`_live_order`)."""
     n = boxes.shape[0]
-    order = score_order(scores)
+    order = _live_order(scores, score_threshold)
+    m = order.shape[0]
     iou = iou_matrix(boxes[order])
-    live = scores[order] > score_threshold
-    kept = torch.zeros(n, dtype=torch.bool, device=boxes.device)
-    for i in range(n):
+    live = torch.ones(m, dtype=torch.bool, device=boxes.device)
+    kept = torch.zeros(m, dtype=torch.bool, device=boxes.device)
+    for i in range(m):
         take = live[i]
         kept[i] = take
         live = live & ~(take & (iou[i] > iou_threshold))
@@ -87,17 +98,18 @@ def nms_plain_rows(boxes: torch.Tensor, scores: torch.Tensor,
                    rows: int = 4096) -> torch.Tensor:
     """:func:`nms_plain` with its IoU matrix made ``rows`` rows at a time
     (:func:`iou_rows`), for box counts whose N x N temporaries do not fit
-    in memory (at 60,025 boxes each is 14.4 GB, and ``nms_plain`` holds
-    seven at once): the same operations on each element and the same
-    pass, so the same keep mask."""
+    in memory (at 60,025 live boxes each is 14.4 GB, and ``nms_plain``
+    holds seven at once): the same operations on each element and the
+    same pass, so the same keep mask."""
     n = boxes.shape[0]
-    order = score_order(scores)
+    order = _live_order(scores, score_threshold)
+    m = order.shape[0]
     srt = boxes[order]
-    live = scores[order] > score_threshold
-    kept = torch.zeros(n, dtype=torch.bool, device=boxes.device)
-    for start in range(0, n, rows):
+    live = torch.ones(m, dtype=torch.bool, device=boxes.device)
+    kept = torch.zeros(m, dtype=torch.bool, device=boxes.device)
+    for start in range(0, m, rows):
         over = iou_rows(srt[start:start + rows], srt) > iou_threshold
-        for i in range(start, min(start + rows, n)):
+        for i in range(start, min(start + rows, m)):
             take = live[i]
             kept[i] = take
             live = live & ~(take & over[i - start])
